@@ -12,14 +12,25 @@ and prints one JSON line per phase:
 2. kernels  — the fused select kernel and the compaction kernel at the
               VGG-16 flat size n = 14,728,266, on seeded inputs in the
               fast, repair and wide regimes of the TPU kernels they
-              replace, with R = 4 regions whose boundaries straddle
-              1024-element tiles (one inside an overflowing tile): each
-              held bit-equal against its plain PyTorch version on the
-              card, then timed with CUDA events (median of 25);
-3. allreduce — three oktopk steps at n = 2^20, P = 4 on the card against
+              replace, with R = 4 regions whose boundaries lie inside
+              overflowing 1024-element blocks: each held bit-equal against
+              its plain PyTorch version on the card. Then each kernel is
+              timed in the forms the main path calls it (K1's sweep; the
+              phase-(a) pack, R = 4, cap_pair; the phase-(b) select,
+              R = 1, cap_exact, on an input nonzero in one quarter), with
+              its plain version and the ``torch.nonzero`` yardstick, two
+              ways: ``call_ms``, CUDA events around one call (median of
+              25), and ``device_ms``, the device time of the call's own
+              CUDA work under ``torch.profiler`` over 25 calls, divided by
+              25. One compaction call must launch at most two kernels;
+3. edges    — the compaction kernel bit-equal to its plain version where
+              its tiling can break (``compaction_cases``), on scratch
+              poisoned with ready-looking status words, and in two
+              back-to-back calls;
+4. allreduce — three oktopk steps at n = 2^20, P = 4 on the card against
               the plain path on the CPU from the same state: reduced
               result and residual bit-equal, thresholds within 64 ulps;
-4. trainer  — VGG-16 at full width, P = 4 workers stacked on the card,
+5. trainer  — VGG-16 at full width, P = 4 workers stacked on the card,
               global batch 64, density 0.02, one dense warmup step then
               five oktopk steps (local_recompute_every=1,
               global_recompute_every=4, threshold "bisect"), launch
@@ -28,27 +39,35 @@ and prints one JSON line per phase:
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
 no result and exits non-zero, as does a machine without CUDA.
+
+``--baseline DIR`` also builds the kernels of DIR, a checkout of an
+earlier commit whose compaction is the three-pass design (count pass,
+one-block scan, write pass, fed K1's per-1024-tile survivor counts), and
+times them beside this tree's in the same process, on the same card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 N_VGG16 = 14728266
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SEED = 0
+ITERS = 25
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     """Median of ``iters`` single-call CUDA-event timings."""
     import torch
     for _ in range(warmup):
@@ -64,6 +83,45 @@ def cuda_time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_time(fn, iters: int = ITERS, warmup: int = 3):
+    """(device ms per call, device activities per call, ms per call by
+    activity name): the self device time of every kernel, copy and fill
+    that ``iters`` calls put on the card, under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # a profiling window now and then comes back without some of its
+    # device events: take the next one
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        count, by_op = 0, {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dt = getattr(e, "self_device_time_total", None)
+            if dt is None:
+                dt = getattr(e, "self_cuda_time_total", 0)
+            name = e.key.split("(")[0][:60]
+            by_op[name] = by_op.get(name, 0.0) + dt / 1e3 / iters
+            count += e.count
+        total = sum(by_op.values())
+        if total > 0 and count % iters == 0:
+            return total, count / iters, by_op
+    raise AssertionError("three profiling windows missed device events")
+
+
+def timing(fn) -> dict:
+    ms, per_call, by_op = device_time(fn)
+    return {"device_ms": ms, "call_ms": cuda_time_ms(fn),
+            "launches_per_call": per_call, "device_ops": by_op}
 
 
 def bits_equal(a, b, what: str) -> float:
@@ -84,6 +142,12 @@ def bits_equal(a, b, what: str) -> float:
     return err
 
 
+def triples_equal(got, want, what: str) -> float:
+    """``bits_equal`` over (values, indices, counts)."""
+    return max(bits_equal(a, b, f"{what} {f}") for f, a, b in
+               zip(("values", "indices", "counts"), got, want))
+
+
 def max_ulps(a, b) -> int:
     import torch
     ai = a.detach().float().cpu().view(torch.int32).long()
@@ -91,39 +155,197 @@ def max_ulps(a, b) -> int:
     return int((ai - bi).abs().max())
 
 
-def make_regimes(n: int, dev, straddle_tiles):
+def make_regimes(n: int, dev, straddle_blocks):
     """(name, grad, residual, threshold) at ~2% density: no 1024-element
-    tile over 128 survivors (fast); 1..nb/8 such tiles (the TPU's repair
-    regime); more than nb/8 (its wide regime). ``straddle_tiles`` (the
-    tiles holding region boundaries) overflow in both of the latter."""
+    block over 128 survivors (fast); 1..nb/8 such blocks (the TPU's repair
+    regime); more than nb/8 (its wide regime). ``straddle_blocks`` (the
+    blocks holding region boundaries) overflow in both of the latter."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    nt = -(-n // 1024)
+    nb = -(-n // 1024)
     base = torch.randn(n, generator=gen, device=dev)
     res = 0.05 * torch.randn(n, generator=gen, device=dev)
     t = 2.33
     out = [("fast", base, res, t)]
-    for name, ntile in (("repair", nt // 16), ("wide", nt // 4)):
+    for name, nblk in (("repair", nb // 16), ("wide", nb // 4)):
         g = base.clone()
-        tiles = torch.randperm(nt - 1, generator=gen, device=dev)[:ntile]
-        tiles = torch.unique(torch.cat([tiles, torch.tensor(
-            straddle_tiles, dtype=tiles.dtype, device=dev)]))
-        idx = (tiles[:, None] * 1024
+        blocks = torch.randperm(nb - 1, generator=gen, device=dev)[:nblk]
+        blocks = torch.unique(torch.cat([blocks, torch.tensor(
+            straddle_blocks, dtype=blocks.dtype, device=dev)]))
+        idx = (blocks[:, None] * 1024
                + torch.arange(1024, device=dev)[None, :]).reshape(-1)
         g[idx] = g[idx] * 4.0
         out.append((name, g, res, t))
     return out
 
 
-def tile_overflow(x, t, n):
+def block_overflow(x, t, n):
     import torch
-    nt = -(-n // 1024)
-    m = torch.nn.functional.pad((x.abs() >= t).int(), (0, nt * 1024 - n))
-    raw = m.view(nt, 1024).sum(1)
-    return int((raw > 128).sum()), nt
+    nb = -(-n // 1024)
+    m = torch.nn.functional.pad((x.abs() >= t).int(), (0, nb * 1024 - n))
+    raw = m.view(nb, 1024).sum(1)
+    return int((raw > 128).sum()), nb
 
 
-def phase_build():
+def compaction_cases():
+    """Inputs where the compaction kernel's tiling can break, made with
+    numpy from SEED: dicts of name, x (f32 [n]), t, bounds ([R+1] or
+    None), cap, and offset (elements before x in its buffer on the card,
+    whose start is 16-byte aligned)."""
+    import numpy as np
+    T = 4096                             # the kernel's tile
+    rng = np.random.RandomState(SEED)
+    cases = []
+
+    def add(name, x, t, bounds, cap, offset=0):
+        cases.append({"name": name, "x": np.asarray(x, np.float32),
+                      "t": t, "bounds": bounds, "cap": cap,
+                      "offset": offset})
+
+    def randn(n):
+        return rng.randn(n).astype(np.float32)
+
+    add("n=1", [3.0], 1.0, [0, 0, 1], 1)
+    n = 1000                             # below one tile
+    add("n below a tile, empty first and last regions", randn(n), 1.0,
+        [0, 0, 10, n, n], 64)
+    n = 3 * T + 1                        # neither a multiple of T nor of 4
+    add("ragged n, boundaries on tile edges, two in one tile", randn(n), 2.0,
+        [0, T, T + 4, T + 100, 2 * T, n], 1024)
+    n = 2 * T + 6                        # n = 2 mod 4
+    add("row 1 of a [2, n] buffer: 8 bytes off 16", randn(n), 1.5,
+        [0, T - 2, T - 1, 2 * T - 2, n], 512, offset=n)
+    for off in (1, 3):
+        add(f"x {4 * off} bytes off 16, boundary on the shifted tile edge",
+            randn(n), 1.5, [0, T - off, T - off, n - 1, n], 512, offset=off)
+    n = 5 * T + 3
+    x = randn(n)
+    add("cap=1, survivors past cap", x, 0.5, [0, 100, 3 * T, 3 * T + 1, n],
+        1)
+    add("NaN threshold", x, float("nan"), [0, T, 2 * T, 3 * T, n], 256)
+    add("all-zero x", np.zeros(n), 0.0, [0, 0, T, n, n], 256)
+    xs = np.zeros(n, np.float32)
+    xs[::97] = 1.5
+    xs[5::211] = np.float32(1e-40)       # subnormal: below the clamp
+    add("zero threshold: nonzeros only, subnormals out", xs, 0.0,
+        [0, 1, 2 * T + 1, 4 * T, n], 512)
+    # the TPU kernels' three regimes, boundaries inside overflowing blocks
+    n = 64 * 1024 + 333
+    bnd = [0, 3 * 1024 + 500, 17 * 1024 + 7, 40 * 1024 + 1000, n]
+    add("fast regime", randn(n), 2.0, bnd, 8 * 1024)
+    x = 0.1 * randn(n)
+    for b in (3, 17, 40):
+        x[b * 1024:(b + 1) * 1024] = rng.randn(1024) * 10 + 20
+    add("repair regime", x, 1.0, bnd, 8 * 1024)
+    add("wide regime", randn(n) + 3.0, 0.5, bnd, 8 * 1024)
+    # scripts/proto_repair_kernel.py's regime: Student-t(3), 5% of the
+    # 1024-blocks x50, t the k-th largest |x| at d = 0.02
+    n = 1 << 22
+    prng = np.random.RandomState(0)
+    x = prng.standard_t(3, size=n).astype(np.float32)
+    hot = prng.choice(n // 1024, size=n // 1024 // 20, replace=False)
+    x.reshape(-1, 1024)[hot] *= 50.0
+    k = int(n * 0.02)
+    add("prototype regime", x, float(np.sort(np.abs(x))[-k]),
+        [0, n // 4, n // 2, 3 * n // 4, n], k // 4)
+    return cases
+
+
+def check_compaction_case(case, dev) -> float:
+    """The kernel (select over all of x; pack over the case's regions)
+    against its plain version on the card, bit for bit."""
+    import torch
+    from oktopk_tpu_torch.ops import compaction
+    xn, off, cap = case["x"], case["offset"], case["cap"]
+    buf = torch.zeros(off + xn.size, dtype=torch.float32, device=dev)
+    x = buf[off:]
+    x.copy_(torch.from_numpy(xn))
+    shift = compaction.tile_geometry(xn.size, x.data_ptr())[0]
+    if shift != off % 4:
+        raise AssertionError(f"{case['name']}: x sits {shift} elements off "
+                             f"16 bytes, expected {off % 4}")
+    t = torch.tensor(case["t"], dtype=torch.float32, device=dev)
+    name = case["name"]
+    err = triples_equal(compaction.select_by_threshold(x, t, cap),
+                        compaction.select_by_threshold_plain(x, t, cap),
+                        f"{name}: select")
+    if case["bounds"] is not None:
+        bnd = torch.tensor(case["bounds"], dtype=torch.int32, device=dev)
+        R = len(case["bounds"]) - 1
+        err = max(err, triples_equal(
+            compaction.pack_by_region(x, t, bnd, R, cap),
+            compaction.pack_by_region_plain(x, t, bnd, R, cap),
+            f"{name}: pack"))
+    return err
+
+
+class Baseline:
+    """The kernels of an earlier checkout whose compaction is the
+    three-pass design, built from its sources with this tree's nvcc flags
+    (C interfaces as that checkout declares them)."""
+
+    def __init__(self, root: Path):
+        import ctypes as C
+        from oktopk_tpu_torch.ops import _build
+        self.b = _build
+        out = _build.BUILD_DIR / "baseline"
+        out.mkdir(parents=True, exist_ok=True)
+        sigs = {
+            "compaction": ("oktopk_compact", [
+                C.c_void_p, C.c_int64, C.c_void_p, C.c_void_p, C.c_int,
+                C.c_int] + [C.c_void_p] * 8),
+            "fused_select": ("oktopk_fused_select", [
+                C.c_void_p, C.c_void_p, C.c_void_p, C.c_int64] +
+                [C.c_void_p] * 5),
+        }
+        procs = {nm: (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{nm}.so"),
+             str(root / "oktopk_tpu_torch" / "csrc" / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for nm, src in _build.SOURCES.items()}
+        self.fns = {}
+        for nm, p in procs.items():
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"baseline {nm}: nvcc exit "
+                                   f"{p.returncode}\n{log}")
+            fn_name, argtypes = sigs[nm]
+            fn = getattr(C.CDLL(str(out / f"{nm}.so")), fn_name)
+            fn.argtypes, fn.restype = argtypes, C.c_int
+            self.fns[nm] = fn
+
+    def fused(self, g, r, t, tp):
+        """(acc, per-1024-tile survivor counts, stats)."""
+        import torch
+        b, n = self.b, g.numel()
+        acc = torch.empty_like(g)
+        tiles = torch.empty((-(-n // 1024),), dtype=torch.int32,
+                            device=g.device)
+        stats = torch.empty((258,), dtype=torch.int32, device=g.device)
+        b.check(self.fns["fused_select"](
+            b.ptr(g), b.ptr(r), b.ptr(acc), n, b.ptr(t), b.ptr(tp),
+            b.ptr(tiles), b.ptr(stats), b.stream_handle(g.device)),
+            "baseline fused select")
+        return acc, tiles, stats
+
+    def compact(self, x, t, bnd, R, cap, tiles=None):
+        """(values, indices, counts); ``tiles`` feeds K1's tile counts."""
+        import torch
+        b, n, dev = self.b, x.numel(), x.device
+        nt = -(-n // 1024)
+        values = torch.empty((R, cap), dtype=torch.float32, device=dev)
+        indices = torch.empty((R, cap), dtype=torch.int32, device=dev)
+        counts = torch.empty((R,), dtype=torch.int32, device=dev)
+        s = torch.empty((2 * nt + R + 2,), dtype=torch.int32, device=dev)
+        b.check(self.fns["compaction"](
+            b.ptr(x), n, b.ptr(t), b.ptr(bnd), R, cap, b.ptr(tiles),
+            b.ptr(s[:nt]), b.ptr(s[nt:2 * nt + 1]), b.ptr(s[2 * nt + 1:]),
+            b.ptr(values), b.ptr(indices), b.ptr(counts),
+            b.stream_handle(dev)), "baseline compaction")
+        return values, indices, counts
+
+
+def phase_build(baseline_dir):
     from oktopk_tpu_torch.ops import _build
     secs = _build.build_all()
     for nm in _build.SOURCES:
@@ -133,89 +355,190 @@ def phase_build():
              for nm, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": secs, "arch": "sm_90a",
           "sources": sorted(_build.SOURCES.values()), "ptxas": ptxas})
+    return Baseline(Path(baseline_dir)) if baseline_dir else None
 
 
-def phase_kernels(dev):
+def phase_b_input(n: int, cap: int, dev):
+    """A reduced row as phase (b) selects from it: nonzero in one quarter
+    only, thresholded at its cap-th largest magnitude."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.zeros(n, dtype=torch.float32, device=dev)
+    q = n // 4
+    x[q:2 * q] = torch.randn(q, generator=gen, device=dev)
+    t = torch.topk(x[q:2 * q].abs(), cap).values[-1].reshape(())
+    return x, t
+
+
+def library_call(x, t):
+    """The yardstick: torch.nonzero of the mask plus a gather (never called
+    by the port)."""
+    import torch
+    idx = torch.nonzero(x.abs() >= t).squeeze(1)
+    return x[idx], idx
+
+
+def phase_kernels(dev, base):
     import torch
     from oktopk_tpu_torch.config import OkTopkConfig
     from oktopk_tpu_torch.ops import compaction, fused_select
 
-    n = N_VGG16
-    P = 4
+    n, P = N_VGG16, 4
     cfg = OkTopkConfig(n=n, num_workers=P, density=0.02)
     cap = cfg.cap_pair
-    nt = -(-n // 1024)
-    # region boundaries off the 1024-element tile grid; the tiles holding
-    # them overflow in the repair and wide inputs
+    # region boundaries off the 1024-element block grid; the blocks
+    # holding them overflow in the repair and wide inputs
     bnd = torch.tensor([0, n // 4 + 517, n // 2 + 3, 3 * n // 4 + 1023, n],
                        dtype=torch.int32, device=dev)
     regimes = make_regimes(n, dev, [int(b) // 1024 for b in bnd[1:-1]])
-    timings = {}
     errs = {"fused_select": 0.0, "compaction": 0.0}
+    fast = None
     for name, g, r, t in regimes:
         tt = torch.full((), t, dtype=torch.float32, device=dev)
         tp = tt * 1.25
         st = fused_select.fused_select_stage(g, r, tt, tp)
         ref = fused_select.fused_select_plain(g, r, tt, tp)
-        for f in ("acc", "local_count", "probe_count", "hist",
-                  "tile_counts"):
+        for f in ("acc", "local_count", "probe_count", "hist"):
             errs["fused_select"] = max(errs["fused_select"], bits_equal(
                 getattr(st, f), getattr(ref, f), f"{name}: {f}"))
-        novf, _ = tile_overflow(st.acc, t, n)
+        novf, nb = block_overflow(st.acc, t, n)
         got = fused_select.fused_pack_finalize(st, bnd, P, cap)
         want = compaction.pack_by_region_plain(st.acc, tt, bnd, P, cap)
-        checks = [("pack", got, want),
-                  ("pack (own count pass)",
-                   compaction.pack_by_region(st.acc, tt, bnd, P, cap), want),
-                  ("select",
-                   compaction.select_by_threshold(st.acc, tt,
-                                                  cfg.cap_gather),
-                   compaction.select_by_threshold_plain(st.acc, tt,
-                                                        cfg.cap_gather))]
-        for what, gs, ws in checks:
-            for f, a, b in zip(("values", "indices", "counts"), gs, ws):
-                errs["compaction"] = max(errs["compaction"], bits_equal(
-                    a, b, f"{name}: {what} {f}"))
-        got = checks[0][1]
+        errs["compaction"] = max(
+            errs["compaction"], triples_equal(got, want, f"{name}: pack"),
+            triples_equal(
+                compaction.select_by_threshold(st.acc, tt, cfg.cap_gather),
+                compaction.select_by_threshold_plain(st.acc, tt,
+                                                     cfg.cap_gather),
+                f"{name}: select"))
+        if base is not None:
+            # the baseline is run right, or its times mean nothing
+            acc, tiles, stats = base.fused(g, r, tt, tp)
+            bits_equal(acc, ref.acc, f"{name}: baseline acc")
+            bits_equal(stats[2:], ref.hist, f"{name}: baseline hist")
+            triples_equal(base.compact(st.acc, tt, bnd, P, cap, tiles), want,
+                          f"{name}: baseline pack")
         torch.cuda.synchronize()
-        rec = {"phase": "kernels", "regime": name, "n": n,
-               "overflowing_tiles": novf, "tiles": nt,
-               "local_count": int(st.local_count),
-               "counts": [int(c) for c in got[2].reshape(-1)],
-               "bit_equal": True}
+        emit({"phase": "kernels", "regime": name, "n": n,
+              "overflowing_blocks": novf, "blocks": nb,
+              "local_count": int(st.local_count),
+              "counts": [int(c) for c in got[2].reshape(-1)],
+              "bit_equal": True})
         if name == "fast":
-            # the main path's calls: the fused sweep, then the phase-(a)
-            # pack fed the sweep's tile counts
-            timings["fused_select"] = (
-                cuda_time_ms(lambda: fused_select.fused_select_stage(
-                    g, r, tt, tp)),
-                cuda_time_ms(lambda: fused_select.fused_select_plain(
-                    g, r, tt, tp)),
-                None)
-            acc = st.acc
+            fast = (g, r, tt, tp, st)
 
-            def library_call():
-                idx = torch.nonzero(acc.abs() >= tt).squeeze(1)
-                return acc[idx], idx
-            mask_ms = cuda_time_ms(library_call)
-            timings["compaction"] = (
-                cuda_time_ms(lambda: fused_select.fused_pack_finalize(
-                    st, bnd, P, cap)),
-                cuda_time_ms(lambda: compaction.pack_by_region_plain(
-                    acc, tt, bnd, P, cap)),
-                mask_ms)
-            rec["survivors"] = int(st.local_count)
-        emit(rec)
-    return timings, errs, n, cap, P
+    g, r, tt, tp, st = fast
+    acc = st.acc
+    xb, tb = phase_b_input(n, cfg.cap_exact, dev)
+    forms = {
+        "fused_select": {
+            "kernel": lambda: fused_select.fused_select_stage(g, r, tt, tp),
+            "plain": lambda: fused_select.fused_select_plain(g, r, tt, tp),
+            "bound_ms": (12 * n + 8 + 4 * 258) / HBM_BYTES_PER_S * 1e3},
+        "pack_a": {
+            "R": P, "cap": cap,
+            "kernel": lambda: fused_select.fused_pack_finalize(st, bnd, P,
+                                                               cap),
+            "plain": lambda: compaction.pack_by_region_plain(acc, tt, bnd, P,
+                                                             cap),
+            "library": lambda: library_call(acc, tt),
+            "bound_ms": compaction_bound_ms(n, P, cap, True)},
+        "select_b": {
+            "R": 1, "cap": cfg.cap_exact,
+            "kernel": lambda: compaction.select_by_threshold(
+                xb, tb, cfg.cap_exact),
+            "plain": lambda: compaction.select_by_threshold_plain(
+                xb, tb, cfg.cap_exact),
+            "library": lambda: library_call(xb, tb),
+            "bound_ms": compaction_bound_ms(n, 1, cfg.cap_exact, False)},
+    }
+    if base is not None:
+        b_tiles = base.fused(g, r, tt, tp)[1]
+        forms["fused_select"]["baseline"] = lambda: base.fused(g, r, tt, tp)
+        forms["pack_a"]["baseline"] = lambda: base.compact(acc, tt, bnd, P,
+                                                           cap, b_tiles)
+        forms["select_b"]["baseline"] = lambda: base.compact(
+            xb, tb, None, 1, cfg.cap_exact)
+    errs["compaction"] = max(errs["compaction"], triples_equal(
+        forms["select_b"]["kernel"](), forms["select_b"]["plain"](),
+        "phase-(b) select"))
+    # kernel and baseline in turns: kernel, baseline, baseline, kernel
+    timings = {}
+    for nm, f in forms.items():
+        rec = {k: v for k, v in f.items()
+               if k in ("R", "cap", "bound_ms")}
+        order = (["kernel", "baseline", "baseline", "kernel"]
+                 if "baseline" in f else ["kernel"])
+        runs = {}
+        for which in order:
+            runs.setdefault(which, []).append(timing(f[which]))
+        for which, rs in runs.items():
+            rec[which] = {k: statistics.mean(x[k] for x in rs)
+                          for k in ("device_ms", "call_ms",
+                                    "launches_per_call")}
+            rec[which]["device_ms_runs"] = [x["device_ms"] for x in rs]
+            rec[which]["device_ops"] = rs[0]["device_ops"]
+        for which in ("plain", "library"):
+            if which in f:
+                rec[which] = timing(f[which])
+        if nm != "fused_select" and rec["kernel"]["launches_per_call"] > 2:
+            raise AssertionError(f"{nm}: {rec['kernel']['launches_per_call']}"
+                                 " device launches per compaction call")
+        timings[nm] = rec
+        emit({"phase": "kernel_times", "form": nm, **rec})
+    return timings, errs
 
 
-def kernel_bounds(n: int, cap: int, R: int):
-    nt = -(-n // 1024)
-    # each input read once, each output written once
-    fused_bytes = 4 * n * 3 + 4 * nt + 4 * (2 + 256) + 8
-    comp_bytes = 4 * n + 4 * nt + 4 * (R + 1) + 4 + 8 * R * cap + 4 * R
-    return {"fused_select": fused_bytes / HBM_BYTES_PER_S * 1e3,
-            "compaction": comp_bytes / HBM_BYTES_PER_S * 1e3}
+def compaction_bound_ms(n: int, R: int, cap: int, bounds: bool) -> float:
+    """Bytes over HBM rate: x and the threshold (and the R+1 boundaries)
+    read once; values, indices [R, cap] and counts [R] written once."""
+    read = 4 * n + 4 + (4 * (R + 1) if bounds else 0)
+    return (read + 8 * R * cap + 4 * R) / HBM_BYTES_PER_S * 1e3
+
+
+def check_scratch_reset(dev) -> float:
+    """The C entry point resets its scratch: a call on scratch whose words
+    already look published (flag 2, a wrong value), and two back-to-back
+    calls without a sync between (the second gets the first's freed
+    scratch from the caching allocator), each bit-equal to the plain
+    version."""
+    import torch
+    from oktopk_tpu_torch.ops import _build, compaction
+    n, R, cap = 3 * compaction.TILE + 77, 3, 700
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 2), device=dev)
+    t = torch.tensor(1.5, device=dev)
+    bnd = torch.tensor([0, 4000, 4100, n], dtype=torch.int32, device=dev)
+    words = compaction.scratch_words(n, x.data_ptr(), R)
+    scratch = torch.full((words,), (2 << 32) | 12345, dtype=torch.int64,
+                         device=dev)
+    out = [torch.full((R, cap), 7.0, device=dev),
+           torch.full((R, cap), -1, dtype=torch.int32, device=dev),
+           torch.full((R,), -1, dtype=torch.int32, device=dev)]
+    _build.check(_build.library("compaction").oktopk_compact(
+        x.data_ptr(), n, t.data_ptr(), bnd.data_ptr(), R, cap,
+        scratch.data_ptr(), words, *(o.data_ptr() for o in out),
+        _build.stream_handle(dev)), "compaction kernel")
+    want = compaction.pack_by_region_plain(x, t, bnd, R, cap)
+    err = triples_equal(out, want, "poisoned scratch")
+    y = -0.5 * x.flip(0)
+    first = compaction.pack_by_region(x, t, bnd, R, cap)
+    second = compaction.pack_by_region(y, t, bnd, R, cap)
+    return max(err, triples_equal(first, want, "back-to-back 1"),
+               triples_equal(second, compaction.pack_by_region_plain(
+                   y, t, bnd, R, cap), "back-to-back 2"))
+
+
+def phase_edges(dev):
+    import torch
+    cases = compaction_cases()
+    err = max(check_compaction_case(case, dev) for case in cases)
+    err = max(err, check_scratch_reset(dev))
+    torch.cuda.synchronize()
+    emit({"phase": "edges", "cases": [c["name"] for c in cases]
+          + ["poisoned scratch", "back-to-back calls"],
+          "bit_equal": True, "max_abs_err": err})
+    return err
 
 
 def phase_allreduce(dev):
@@ -315,7 +638,61 @@ def phase_trainer(dev):
     return launches
 
 
+def kernel_line(timings, errs, launches, edge_err):
+    """The ``{"kernels": [...]}`` entries: ``ms`` is the device time of one
+    call at the main path's shapes (the compaction's phase-(a) form),
+    ``call_ms`` the event time around it; ``forms`` has every form."""
+    def times(f):
+        out = {"device_ms": f["kernel"]["device_ms"],
+               "call_ms": f["kernel"]["call_ms"],
+               "launches_per_call": f["kernel"]["launches_per_call"],
+               "plain_ms": f["plain"]["device_ms"],
+               "plain_call_ms": f["plain"]["call_ms"],
+               "bound_ms": f["bound_ms"],
+               "library_ms": f["library"]["device_ms"]
+               if "library" in f else None,
+               "library_call_ms": f["library"]["call_ms"]
+               if "library" in f else None,
+               "device_ops": f["kernel"]["device_ops"]}
+        if "baseline" in f:
+            out["baseline"] = {k: f["baseline"][k] for k in
+                               ("device_ms", "call_ms", "launches_per_call",
+                                "device_ms_runs", "device_ops")}
+        return out
+
+    fs = times(timings["fused_select"])
+    pa = times(timings["pack_a"])
+    sb = times(timings["select_b"])
+    comp_err = max(errs["compaction"], edge_err)
+    return [
+        {"name": "fused_select", "route": "cuda",
+         "source": "oktopk_tpu_torch/csrc/fused_select.cu",
+         "replaces": "oktopk_tpu/ops/fused_select.py:64",
+         "launches": launches["fused_select"],
+         "max_abs_err": errs["fused_select"],
+         "bit_equal": errs["fused_select"] == 0.0,
+         "ms": fs["device_ms"], "bound_by": "bytes", **fs},
+        {"name": "compaction", "route": "cuda",
+         "source": "oktopk_tpu_torch/csrc/compaction.cu",
+         "replaces": "oktopk_tpu/ops/compaction.py:160",
+         "also_replaces": ["oktopk_tpu/ops/compaction.py:229",
+                           "scripts/proto_repair_kernel.py:78"],
+         "launches": launches["compaction"], "max_abs_err": comp_err,
+         "bit_equal": comp_err == 0.0,
+         "ms": pa["device_ms"], "bound_by": "bytes", **pa,
+         "forms": {"pack_a": {"R": timings["pack_a"]["R"],
+                              "cap": timings["pack_a"]["cap"], **pa},
+                   "select_b": {"R": 1, "cap": timings["select_b"]["cap"],
+                                **sb}}},
+    ]
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="checkout of an earlier commit whose kernels to "
+                         "time beside this tree's")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -331,28 +708,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
-    phase_build()
-    timings, errs, n, cap, R = phase_kernels(dev)
+    base = phase_build(args.baseline)
+    timings, errs = phase_kernels(dev, base)
+    edge_err = phase_edges(dev)
     phase_allreduce(dev)
     launches = phase_trainer(dev)
-    bounds = kernel_bounds(n, cap, R)
-    info = {
-        "fused_select": ("cuda", "oktopk_tpu_torch/csrc/fused_select.cu",
-                         "oktopk_tpu/ops/fused_select.py:64"),
-        "compaction": ("cuda", "oktopk_tpu_torch/csrc/compaction.cu",
-                       "oktopk_tpu/ops/compaction.py:160"),
-    }
-    kernels = []
-    for nm, (route, src, rep) in info.items():
-        ms, plain_ms, lib_ms = timings[nm]
-        entry = {"name": nm, "route": route, "source": src, "replaces": rep,
-                 "launches": launches[nm], "max_abs_err": errs[nm],
-                 "bit_equal": errs[nm] == 0.0,
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[nm],
-                 "bound_by": "bytes", "library_ms": lib_ms}
-        if nm == "compaction":
-            entry["also_replaces"] = "oktopk_tpu/ops/compaction.py:229"
-        kernels.append(entry)
+    kernels = kernel_line(timings, errs, launches, edge_err)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -3,15 +3,14 @@
 // Replaces oktopk_tpu/ops/fused_select.py::_fused_kernel (K1, :64). One
 // sweep over (grad, residual) computes and writes acc = grad + residual
 // (the only n-scale write) and, in the same pass:
-//   - tile_counts[b]: survivors |acc| >= max(t, 2^-126) in 1024-element
-//     tile b (the compaction kernel's write pass takes these and skips its
-//     own count pass), and their total (the realised local count);
+//   - the survivor count |acc| >= max(t, 2^-126) (the realised local
+//     count);
 //   - the Newton probe count |acc| >= tp at the UNclamped tp;
 //   - a 256-bin histogram of the f32 biased exponent of the nonzero
 //     elements (subnormals in bin 1, inf/nan in bin 255), bit-identical to
 //     ops/hist_threshold.py::log2_hist.
 // The TPU kernel also staged survivor offsets for its compaction; here the
-// compaction writes the final triple itself from the tile counts.
+// compaction kernel finds them itself in its one pass over acc.
 //
 // What bounds it: memory. Two reads and one write of n floats, 12n bytes
 // (176.7 MB at n = 14,728,266: about 53 us at 3.35 TB/s). Each element is
@@ -42,7 +41,6 @@ __global__ void fs_sweep(const float* __restrict__ grad,
                          float* __restrict__ acc, int64_t n,
                          const float* __restrict__ t_ptr,
                          const float* __restrict__ tp_ptr,
-                         int* __restrict__ tile_counts,
                          int* __restrict__ stats) {
   __shared__ int hist[HIST_BINS];
   __shared__ int warp_c[WARPS];
@@ -86,7 +84,6 @@ __global__ void fs_sweep(const float* __restrict__ grad,
       sc += warp_c[w];
       sp += warp_p[w];
     }
-    tile_counts[blockIdx.x] = sc;
     if (sc) atomicAdd(&stats[0], sc);
     if (sp) atomicAdd(&stats[1], sp);
   }
@@ -97,15 +94,15 @@ __global__ void fs_sweep(const float* __restrict__ grad,
 }
 
 // grad, res: [n] f32; acc: [n] f32 out; t_ptr/tp_ptr: one f32 each on the
-// device; tile_counts: [ceil(n/1024)] i32 out; stats: [2 + 256] i32 out.
+// device; stats: [2 + 256] i32 out.
 extern "C" int oktopk_fused_select(const float* grad, const float* res,
                                    float* acc, int64_t n, const float* t_ptr,
-                                   const float* tp_ptr, int* tile_counts,
-                                   int* stats, cudaStream_t stream) {
+                                   const float* tp_ptr, int* stats,
+                                   cudaStream_t stream) {
   if (n < 1 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const int ntiles = (int)((n + TILE - 1) / TILE);
   fs_zero<<<1, THREADS, 0, stream>>>(stats);
   fs_sweep<<<ntiles, THREADS, 0, stream>>>(grad, res, acc, n, t_ptr, tp_ptr,
-                                           tile_counts, stats);
+                                           stats);
   return (int)cudaGetLastError();
 }

@@ -42,11 +42,11 @@ _C = ctypes
 _SIGNATURES = {
     "compaction": ("oktopk_compact", [
         _C.c_void_p, _C.c_int64, _C.c_void_p, _C.c_void_p, _C.c_int,
-        _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+        _C.c_int, _C.c_void_p, _C.c_int64, _C.c_void_p, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p]),
     "fused_select": ("oktopk_fused_select", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int64, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+        _C.c_void_p, _C.c_void_p, _C.c_void_p]),
 }
 
 _lock = threading.Lock()
@@ -55,7 +55,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA compiler."""
     exe = shutil.which("nvcc")
     if exe is None:
         home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -87,7 +88,7 @@ def build_all(names=None) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[nm])]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[nm])]
         procs[nm] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True),
                      tmp, out)

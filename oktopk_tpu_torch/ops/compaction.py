@@ -5,8 +5,9 @@ Counterpart of ``oktopk_tpu/ops/compaction.py``: ``select_by_threshold``
 (``pack_by_region_pallas`` :506). The kernel (``csrc/compaction.cu``)
 replaces the TPU's staging kernel K2 (``_stage_kernel`` :160), its
 overflow repair kernel K3 (``_repair_kernel`` :229) and their cap-scale
-XLA post-processing: each survivor writes its own output slot, so no tile
-can overflow a staging row.
+XLA post-processing: one pass over x with a decoupled look-back scan,
+each survivor writing its own output slot, so no tile can overflow a
+staging row.
 
 Contract (the JAX ``use_pallas=True`` one): survivors are
 ``|x| >= max(thresh, 1.17549435e-38)``; ascending index order;
@@ -25,16 +26,26 @@ from oktopk_tpu_torch.ops import _build
 from oktopk_tpu_torch.ops.select import pack_by_region as _pack_portable
 from oktopk_tpu_torch.ops.select import select_mask
 
-TILE = 1024
+TILE = 4096            # elements per block of the kernel's pass
 MAX_REGIONS = 64
 MIN_NORMAL = 1.17549435e-38
 
-# kernel launches (one per call of the C entry point)
+# calls of the C entry point (each launches the prefill and the pass)
 LAUNCHES = 0
 
 
-def num_tiles(n: int) -> int:
-    return -(-n // TILE)
+def tile_geometry(n: int, addr: int) -> tuple[int, int]:
+    """``(shift, tiles)`` of the kernel's grid over ``n`` float32 at
+    device address ``addr``: tiles are cut on 16-byte boundaries of
+    memory, so ``x[0]`` sits ``shift`` elements into the first tile."""
+    shift = (addr // 4) % 4
+    return shift, -(-(n + shift) // TILE)
+
+
+def scratch_words(n: int, addr: int, num_regions: int) -> int:
+    """64-bit words of kernel scratch: a tile ticket, one flagged
+    offset per region boundary, one look-back status word per tile."""
+    return 2 + num_regions + tile_geometry(n, addr)[1]
 
 
 def threshold_tensor(thresh, x: torch.Tensor) -> torch.Tensor:
@@ -79,7 +90,7 @@ def check_f32(name: str, t: torch.Tensor, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _compact_cuda(x, t, boundaries, R, cap, tile_counts):
+def _compact_cuda(x, t, boundaries, R, cap):
     global LAUNCHES
     dev = x.device
     n = x.numel()
@@ -92,33 +103,22 @@ def _compact_cuda(x, t, boundaries, R, cap, tile_counts):
         raise ValueError(f"cap must be >= 1, got {cap}")
     check_f32("x", x, dev)
     check_f32("thresh", t, dev)
-    nt = num_tiles(n)
     if boundaries is not None:
         if (boundaries.device != dev or boundaries.dtype != torch.int32
                 or boundaries.numel() != R + 1
                 or not boundaries.is_contiguous()):
             raise ValueError("boundaries must be a contiguous i32 [R+1] "
                              f"tensor on {dev}")
-    if tile_counts is not None:
-        if (tile_counts.device != dev or tile_counts.dtype != torch.int32
-                or tile_counts.numel() != nt
-                or not tile_counts.is_contiguous()):
-            raise ValueError(f"tile_counts must be a contiguous i32 [{nt}] "
-                             f"tensor on {dev}")
     values = torch.empty((R, cap), dtype=torch.float32, device=dev)
     indices = torch.empty((R, cap), dtype=torch.int32, device=dev)
     counts = torch.empty((R,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2 * nt + 1 + R + 1,), dtype=torch.int32,
-                          device=dev)
-    own_counts = scratch[:nt]
-    excl = scratch[nt:2 * nt + 1]
-    before = scratch[2 * nt + 1:]
+    words = scratch_words(n, x.data_ptr(), R)
+    scratch = torch.empty((words,), dtype=torch.int64, device=dev)
     lib = _build.library("compaction")
     with torch.cuda.device(dev):
         rc = lib.oktopk_compact(
             _build.ptr(x), n, _build.ptr(t), _build.ptr(boundaries), R, cap,
-            _build.ptr(tile_counts), _build.ptr(own_counts),
-            _build.ptr(excl), _build.ptr(before), _build.ptr(values),
+            _build.ptr(scratch), words, _build.ptr(values),
             _build.ptr(indices), _build.ptr(counts),
             _build.stream_handle(dev))
     _build.check(rc, "compaction kernel")
@@ -127,14 +127,10 @@ def _compact_cuda(x, t, boundaries, R, cap, tile_counts):
 
 
 def pack_by_region(x: torch.Tensor, thresh, boundaries: torch.Tensor,
-                   num_regions: int, cap: int,
-                   tile_counts: torch.Tensor | None = None):
+                   num_regions: int, cap: int):
     """Per-region fixed-capacity pack of |x| >= clamped thresh.
 
-    ``boundaries``: i32 [num_regions + 1] spanning exactly [0, n].
-    ``tile_counts``: the fused kernel's survivors per 1024-element tile of
-    ``x`` at the same threshold (the kernel then skips its count pass); the
-    plain version does not need them."""
+    ``boundaries``: i32 [num_regions + 1] spanning exactly [0, n]."""
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -142,7 +138,7 @@ def pack_by_region(x: torch.Tensor, thresh, boundaries: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no compaction kernel for device {x.device}")
     return _compact_cuda(x, threshold_tensor(thresh, x), boundaries,
-                         num_regions, cap, tile_counts)
+                         num_regions, cap)
 
 
 def select_by_threshold(x: torch.Tensor, thresh, cap: int):
@@ -154,6 +150,5 @@ def select_by_threshold(x: torch.Tensor, thresh, cap: int):
         return select_by_threshold_plain(x, thresh, cap)
     if x.device.type != "cuda":
         raise ValueError(f"no compaction kernel for device {x.device}")
-    v, i, c = _compact_cuda(x, threshold_tensor(thresh, x), None, 1, cap,
-                            None)
+    v, i, c = _compact_cuda(x, threshold_tensor(thresh, x), None, 1, cap)
     return v[0], i[0], c[0]

@@ -32,7 +32,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-OWN_KERNELS = ("fs_sweep", "fs_zero", "cp_count", "cp_scan", "cp_write")
+OWN_KERNELS = ("fs_sweep", "fs_zero", "cp_prefill", "cp_compact")
 
 
 def emit(obj):

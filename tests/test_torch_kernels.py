@@ -19,6 +19,9 @@ The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py`` and by the ``cuda``-marked test at the end.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -290,7 +293,11 @@ class TestDeviceContract:
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card(cuda_device):
     """On a GPU: both kernels against their plain versions on the card,
-    in the three regimes, bit-equal."""
+    in the three regimes, and the compaction kernel where its tiling can
+    break (``chip_smoke.compaction_cases``: ragged and tiny n, rows off
+    16-byte alignment, empty regions, boundaries on tile edges, cap = 1,
+    a NaN threshold, all-zero x, the prototype's regime; poisoned and
+    reused scratch), bit-equal."""
     rng = np.random.RandomState(0)
     n = 64 * BLK + 333
     x = rng.randn(n).astype(np.float32) * 0.1
@@ -312,6 +319,18 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
         want = compaction.select_by_threshold(xc.cpu(), t, 16 * BLK)
         for g, w in zip(got, want):
             bits_equal(g.cpu().numpy(), w.numpy(), "select")
+    smoke = _chip_smoke()
+    for case in smoke.compaction_cases():
+        assert smoke.check_compaction_case(case, cuda_device) == 0.0
+    assert smoke.check_scratch_reset(cuda_device) == 0.0
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
