@@ -19,10 +19,11 @@ and prints one JSON line per phase:
               phase-(a) pack, R = 4, cap_pair; the phase-(b) select,
               R = 1, cap_exact, on an input nonzero in one quarter), with
               its plain version and the ``torch.nonzero`` yardstick, two
-              ways: ``call_ms``, CUDA events around one call (median of
-              25), and ``device_ms``, the device time of the call's own
-              CUDA work under ``torch.profiler`` over 25 calls, divided by
-              25. One compaction call must launch at most two kernels;
+              ways: ``ms``, CUDA events around one call (median of 25),
+              and ``device_ms``, the device time of the call's own CUDA
+              work under ``torch.profiler`` over 25 calls, divided by 25.
+              A profiling window counts only if it shows every launch of
+              the 25 calls: one compaction call is exactly two kernels;
 3. edges    — the compaction kernel bit-equal to its plain version where
               its tiling can break (``compaction_cases``), on scratch
               poisoned with ready-looking status words, and in two
@@ -39,23 +40,16 @@ and prints one JSON line per phase:
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
 no result and exits non-zero, as does a machine without CUDA.
-
-``--baseline DIR`` also builds the kernels of DIR, a checkout of an
-earlier commit whose compaction is the three-pass design (count pass,
-one-block scan, write pass, fed K1's per-1024-tile survivor counts), and
-times them beside this tree's in the same process, on the same card.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 N_VGG16 = 14728266
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -85,41 +79,57 @@ def cuda_time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_time(fn, iters: int = ITERS, warmup: int = 3):
-    """(device ms per call, device activities per call, ms per call by
-    activity name): the self device time of every kernel, copy and fill
-    that ``iters`` calls put on the card, under ``torch.profiler``."""
+def profile_window(fn, iters: int):
+    """({activity name: launches}, {activity name: device ms per call})
+    of ``iters`` calls under ``torch.profiler``: every kernel, copy and
+    fill the calls put on the card, by self device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    counts, by_op = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0)
+        name = e.key.split("(")[0][:60]
+        counts[name] = counts.get(name, 0) + e.count
+        by_op[name] = by_op.get(name, 0.0) + dt / 1e3 / iters
+    return counts, by_op
+
+
+def device_time(fn, expect=None, iters: int = ITERS, warmup: int = 3):
+    """(device ms per call, device launches per call, ms per call by
+    activity name) from a profiling window that shows every launch of the
+    ``iters`` calls. A window now and then comes back without some of its
+    device events, which would flatter the time, so a window counts only
+    if it shows exactly ``expect`` ({kernel name: launches per call}) or,
+    without ``expect``, the same launches as the window before it."""
+    import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a profiling window now and then comes back without some of its
-    # device events: take the next one
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        count, by_op = 0, {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dt = getattr(e, "self_device_time_total", None)
-            if dt is None:
-                dt = getattr(e, "self_cuda_time_total", 0)
-            name = e.key.split("(")[0][:60]
-            by_op[name] = by_op.get(name, 0.0) + dt / 1e3 / iters
-            count += e.count
-        total = sum(by_op.values())
-        if total > 0 and count % iters == 0:
-            return total, count / iters, by_op
-    raise AssertionError("three profiling windows missed device events")
+    want = None if expect is None else {k: v * iters
+                                        for k, v in expect.items()}
+    seen = []
+    for _ in range(5):
+        counts, by_op = profile_window(fn, iters)
+        if counts == (want if want is not None else
+                      (seen[-1] if seen else None)):
+            return (sum(by_op.values()), sum(counts.values()) / iters,
+                    by_op)
+        seen.append(counts)
+    raise AssertionError(f"no profiling window showed the launches of "
+                         f"{iters} calls (expected {want}): {seen}")
 
 
-def timing(fn) -> dict:
-    ms, per_call, by_op = device_time(fn)
+def timing(fn, expect=None) -> dict:
+    ms, per_call, by_op = device_time(fn, expect)
     return {"device_ms": ms, "call_ms": cuda_time_ms(fn),
             "launches_per_call": per_call, "device_ops": by_op}
 
@@ -193,7 +203,8 @@ def compaction_cases():
     None), cap, and offset (elements before x in its buffer on the card,
     whose start is 16-byte aligned)."""
     import numpy as np
-    T = 4096                             # the kernel's tile
+    from oktopk_tpu_torch.ops import compaction
+    T = compaction.TILE
     rng = np.random.RandomState(SEED)
     cases = []
 
@@ -279,73 +290,7 @@ def check_compaction_case(case, dev) -> float:
     return err
 
 
-class Baseline:
-    """The kernels of an earlier checkout whose compaction is the
-    three-pass design, built from its sources with this tree's nvcc flags
-    (C interfaces as that checkout declares them)."""
-
-    def __init__(self, root: Path):
-        import ctypes as C
-        from oktopk_tpu_torch.ops import _build
-        self.b = _build
-        out = _build.BUILD_DIR / "baseline"
-        out.mkdir(parents=True, exist_ok=True)
-        sigs = {
-            "compaction": ("oktopk_compact", [
-                C.c_void_p, C.c_int64, C.c_void_p, C.c_void_p, C.c_int,
-                C.c_int] + [C.c_void_p] * 8),
-            "fused_select": ("oktopk_fused_select", [
-                C.c_void_p, C.c_void_p, C.c_void_p, C.c_int64] +
-                [C.c_void_p] * 5),
-        }
-        procs = {nm: (subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{nm}.so"),
-             str(root / "oktopk_tpu_torch" / "csrc" / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for nm, src in _build.SOURCES.items()}
-        self.fns = {}
-        for nm, p in procs.items():
-            log, _ = p.communicate()
-            if p.returncode != 0:
-                raise RuntimeError(f"baseline {nm}: nvcc exit "
-                                   f"{p.returncode}\n{log}")
-            fn_name, argtypes = sigs[nm]
-            fn = getattr(C.CDLL(str(out / f"{nm}.so")), fn_name)
-            fn.argtypes, fn.restype = argtypes, C.c_int
-            self.fns[nm] = fn
-
-    def fused(self, g, r, t, tp):
-        """(acc, per-1024-tile survivor counts, stats)."""
-        import torch
-        b, n = self.b, g.numel()
-        acc = torch.empty_like(g)
-        tiles = torch.empty((-(-n // 1024),), dtype=torch.int32,
-                            device=g.device)
-        stats = torch.empty((258,), dtype=torch.int32, device=g.device)
-        b.check(self.fns["fused_select"](
-            b.ptr(g), b.ptr(r), b.ptr(acc), n, b.ptr(t), b.ptr(tp),
-            b.ptr(tiles), b.ptr(stats), b.stream_handle(g.device)),
-            "baseline fused select")
-        return acc, tiles, stats
-
-    def compact(self, x, t, bnd, R, cap, tiles=None):
-        """(values, indices, counts); ``tiles`` feeds K1's tile counts."""
-        import torch
-        b, n, dev = self.b, x.numel(), x.device
-        nt = -(-n // 1024)
-        values = torch.empty((R, cap), dtype=torch.float32, device=dev)
-        indices = torch.empty((R, cap), dtype=torch.int32, device=dev)
-        counts = torch.empty((R,), dtype=torch.int32, device=dev)
-        s = torch.empty((2 * nt + R + 2,), dtype=torch.int32, device=dev)
-        b.check(self.fns["compaction"](
-            b.ptr(x), n, b.ptr(t), b.ptr(bnd), R, cap, b.ptr(tiles),
-            b.ptr(s[:nt]), b.ptr(s[nt:2 * nt + 1]), b.ptr(s[2 * nt + 1:]),
-            b.ptr(values), b.ptr(indices), b.ptr(counts),
-            b.stream_handle(dev)), "baseline compaction")
-        return values, indices, counts
-
-
-def phase_build(baseline_dir):
+def phase_build():
     from oktopk_tpu_torch.ops import _build
     secs = _build.build_all()
     for nm in _build.SOURCES:
@@ -355,7 +300,6 @@ def phase_build(baseline_dir):
              for nm, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": secs, "arch": "sm_90a",
           "sources": sorted(_build.SOURCES.values()), "ptxas": ptxas})
-    return Baseline(Path(baseline_dir)) if baseline_dir else None
 
 
 def phase_b_input(n: int, cap: int, dev):
@@ -378,7 +322,20 @@ def library_call(x, t):
     return x[idx], idx
 
 
-def phase_kernels(dev, base):
+def region_bounds(n: int, dev):
+    """R = 4 region boundaries off the 1024-element block grid; the blocks
+    holding them overflow in the repair and wide inputs."""
+    import torch
+    return torch.tensor([0, n // 4 + 517, n // 2 + 3, 3 * n // 4 + 1023, n],
+                        dtype=torch.int32, device=dev)
+
+
+# the kernels one call of each wrapper launches, and how often
+K1_LAUNCHES = {"fs_zero": 1, "fs_sweep": 1}
+COMPACTION_LAUNCHES = {"cp_prefill": 1, "cp_compact": 1}
+
+
+def phase_kernels(dev):
     import torch
     from oktopk_tpu_torch.config import OkTopkConfig
     from oktopk_tpu_torch.ops import compaction, fused_select
@@ -386,10 +343,7 @@ def phase_kernels(dev, base):
     n, P = N_VGG16, 4
     cfg = OkTopkConfig(n=n, num_workers=P, density=0.02)
     cap = cfg.cap_pair
-    # region boundaries off the 1024-element block grid; the blocks
-    # holding them overflow in the repair and wide inputs
-    bnd = torch.tensor([0, n // 4 + 517, n // 2 + 3, 3 * n // 4 + 1023, n],
-                       dtype=torch.int32, device=dev)
+    bnd = region_bounds(n, dev)
     regimes = make_regimes(n, dev, [int(b) // 1024 for b in bnd[1:-1]])
     errs = {"fused_select": 0.0, "compaction": 0.0}
     fast = None
@@ -411,13 +365,6 @@ def phase_kernels(dev, base):
                 compaction.select_by_threshold_plain(st.acc, tt,
                                                      cfg.cap_gather),
                 f"{name}: select"))
-        if base is not None:
-            # the baseline is run right, or its times mean nothing
-            acc, tiles, stats = base.fused(g, r, tt, tp)
-            bits_equal(acc, ref.acc, f"{name}: baseline acc")
-            bits_equal(stats[2:], ref.hist, f"{name}: baseline hist")
-            triples_equal(base.compact(st.acc, tt, bnd, P, cap, tiles), want,
-                          f"{name}: baseline pack")
         torch.cuda.synchronize()
         emit({"phase": "kernels", "regime": name, "n": n,
               "overflowing_blocks": novf, "blocks": nb,
@@ -434,6 +381,7 @@ def phase_kernels(dev, base):
         "fused_select": {
             "kernel": lambda: fused_select.fused_select_stage(g, r, tt, tp),
             "plain": lambda: fused_select.fused_select_plain(g, r, tt, tp),
+            "expect": K1_LAUNCHES,
             "bound_ms": (12 * n + 8 + 4 * 258) / HBM_BYTES_PER_S * 1e3},
         "pack_a": {
             "R": P, "cap": cap,
@@ -442,6 +390,7 @@ def phase_kernels(dev, base):
             "plain": lambda: compaction.pack_by_region_plain(acc, tt, bnd, P,
                                                              cap),
             "library": lambda: library_call(acc, tt),
+            "expect": COMPACTION_LAUNCHES,
             "bound_ms": compaction_bound_ms(n, P, cap, True)},
         "select_b": {
             "R": 1, "cap": cfg.cap_exact,
@@ -450,38 +399,21 @@ def phase_kernels(dev, base):
             "plain": lambda: compaction.select_by_threshold_plain(
                 xb, tb, cfg.cap_exact),
             "library": lambda: library_call(xb, tb),
+            "expect": COMPACTION_LAUNCHES,
             "bound_ms": compaction_bound_ms(n, 1, cfg.cap_exact, False)},
     }
-    if base is not None:
-        b_tiles = base.fused(g, r, tt, tp)[1]
-        forms["fused_select"]["baseline"] = lambda: base.fused(g, r, tt, tp)
-        forms["pack_a"]["baseline"] = lambda: base.compact(acc, tt, bnd, P,
-                                                           cap, b_tiles)
-        forms["select_b"]["baseline"] = lambda: base.compact(
-            xb, tb, None, 1, cfg.cap_exact)
     errs["compaction"] = max(errs["compaction"], triples_equal(
         forms["select_b"]["kernel"](), forms["select_b"]["plain"](),
         "phase-(b) select"))
-    # kernel and baseline in turns: kernel, baseline, baseline, kernel
     timings = {}
     for nm, f in forms.items():
         rec = {k: v for k, v in f.items()
                if k in ("R", "cap", "bound_ms")}
-        order = (["kernel", "baseline", "baseline", "kernel"]
-                 if "baseline" in f else ["kernel"])
-        runs = {}
-        for which in order:
-            runs.setdefault(which, []).append(timing(f[which]))
-        for which, rs in runs.items():
-            rec[which] = {k: statistics.mean(x[k] for x in rs)
-                          for k in ("device_ms", "call_ms",
-                                    "launches_per_call")}
-            rec[which]["device_ms_runs"] = [x["device_ms"] for x in rs]
-            rec[which]["device_ops"] = rs[0]["device_ops"]
+        rec["kernel"] = timing(f["kernel"], f["expect"])
         for which in ("plain", "library"):
             if which in f:
                 rec[which] = timing(f[which])
-        if nm != "fused_select" and rec["kernel"]["launches_per_call"] > 2:
+        if nm != "fused_select" and rec["kernel"]["launches_per_call"] != 2:
             raise AssertionError(f"{nm}: {rec['kernel']['launches_per_call']}"
                                  " device launches per compaction call")
         timings[nm] = rec
@@ -639,26 +571,22 @@ def phase_trainer(dev):
 
 
 def kernel_line(timings, errs, launches, edge_err):
-    """The ``{"kernels": [...]}`` entries: ``ms`` is the device time of one
-    call at the main path's shapes (the compaction's phase-(a) form),
-    ``call_ms`` the event time around it; ``forms`` has every form."""
+    """The ``{"kernels": [...]}`` entries at the main path's shapes (the
+    compaction's phase-(a) form; ``forms`` has every form). ``ms``,
+    ``plain_ms`` and ``library_ms`` are call times, CUDA events around
+    one call; the ``*device_ms`` keys are the device times of the same
+    calls under the profiler."""
     def times(f):
-        out = {"device_ms": f["kernel"]["device_ms"],
-               "call_ms": f["kernel"]["call_ms"],
-               "launches_per_call": f["kernel"]["launches_per_call"],
-               "plain_ms": f["plain"]["device_ms"],
-               "plain_call_ms": f["plain"]["call_ms"],
-               "bound_ms": f["bound_ms"],
-               "library_ms": f["library"]["device_ms"]
-               if "library" in f else None,
-               "library_call_ms": f["library"]["call_ms"]
-               if "library" in f else None,
-               "device_ops": f["kernel"]["device_ops"]}
-        if "baseline" in f:
-            out["baseline"] = {k: f["baseline"][k] for k in
-                               ("device_ms", "call_ms", "launches_per_call",
-                                "device_ms_runs", "device_ops")}
-        return out
+        lib = f.get("library")
+        return {"ms": f["kernel"]["call_ms"],
+                "device_ms": f["kernel"]["device_ms"],
+                "launches_per_call": f["kernel"]["launches_per_call"],
+                "plain_ms": f["plain"]["call_ms"],
+                "plain_device_ms": f["plain"]["device_ms"],
+                "bound_ms": f["bound_ms"],
+                "library_ms": lib["call_ms"] if lib else None,
+                "library_device_ms": lib["device_ms"] if lib else None,
+                "device_ops": f["kernel"]["device_ops"]}
 
     fs = times(timings["fused_select"])
     pa = times(timings["pack_a"])
@@ -671,7 +599,7 @@ def kernel_line(timings, errs, launches, edge_err):
          "launches": launches["fused_select"],
          "max_abs_err": errs["fused_select"],
          "bit_equal": errs["fused_select"] == 0.0,
-         "ms": fs["device_ms"], "bound_by": "bytes", **fs},
+         "bound_by": "bytes", **fs},
         {"name": "compaction", "route": "cuda",
          "source": "oktopk_tpu_torch/csrc/compaction.cu",
          "replaces": "oktopk_tpu/ops/compaction.py:160",
@@ -679,7 +607,7 @@ def kernel_line(timings, errs, launches, edge_err):
                            "scripts/proto_repair_kernel.py:78"],
          "launches": launches["compaction"], "max_abs_err": comp_err,
          "bit_equal": comp_err == 0.0,
-         "ms": pa["device_ms"], "bound_by": "bytes", **pa,
+         "bound_by": "bytes", **pa,
          "forms": {"pack_a": {"R": timings["pack_a"]["R"],
                               "cap": timings["pack_a"]["cap"], **pa},
                    "select_b": {"R": 1, "cap": timings["select_b"]["cap"],
@@ -688,11 +616,6 @@ def kernel_line(timings, errs, launches, edge_err):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", metavar="DIR",
-                    help="checkout of an earlier commit whose kernels to "
-                         "time beside this tree's")
-    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -708,8 +631,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
-    base = phase_build(args.baseline)
-    timings, errs = phase_kernels(dev, base)
+    phase_build()
+    timings, errs = phase_kernels(dev)
     edge_err = phase_edges(dev)
     phase_allreduce(dev)
     launches = phase_trainer(dev)

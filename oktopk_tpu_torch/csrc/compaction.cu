@@ -45,8 +45,7 @@
 //   bnd[r+1] writes counts[r].
 //   The flag and the value of a status word travel in one 64-bit word,
 //   which is single-copy atomic, and nothing else is published through
-//   it: relaxed loads and stores suffice (ORDERED=1 builds release/acquire
-//   for comparison; it measured slower).
+//   it: relaxed loads and stores suffice.
 // Tiles are cut on 16-byte boundaries of memory, not of x: a row of a
 // [P, n] buffer may start 4, 8 or 12 bytes off, so x[0] sits `shift`
 // elements into tile 0, and a quad crossing either end of x loads its
@@ -60,30 +59,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// tile shape; scripts/compaction_tune.py builds other shapes with -D
-#ifndef THREADS
+// a tile: 256 threads x 16 elements (four 16-byte quads a lane); 5 blocks
+// an SM at 48 registers. ops/compaction.py's TILE must match.
 #define THREADS 256
-#endif
-#ifndef ITEMS
 #define ITEMS 16
-#endif
-#ifndef MIN_BLOCKS
 #define MIN_BLOCKS 5
-#endif
-#ifndef ORDERED
-#define ORDERED 0
-#endif
-// TRACE=1: each tile's thread 0 stamps the device clock at the end of each
-// phase into the scratch past the status words (8 words a tile)
-#ifndef TRACE
-#define TRACE 0
-#endif
 #define WARPS (THREADS / 32)
 #define TILE (THREADS * ITEMS)
 #define QUADS (ITEMS / 4)
-#if ITEMS % 4 != 0 || QUADS > 4 || THREADS < 64
-#error "a lane holds one to four quads; the block needs two warps or more"
-#endif
 #define MAX_REGIONS 64
 #define MIN_NORMAL 1.17549435e-38f
 #define FULL 0xffffffffu
@@ -95,20 +78,12 @@
 typedef unsigned long long u64;
 
 __device__ __forceinline__ void publish(u64* p, u64 v) {
-#if ORDERED
-  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-#else
   asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-#endif
 }
 
 __device__ __forceinline__ u64 peek(const u64* p) {
   u64 v;
-#if ORDERED
-  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-#else
   asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-#endif
   return v;
 }
 
@@ -121,12 +96,6 @@ __device__ __forceinline__ int wait_value(const u64* p) {
   u64 w;
   while (((w = peek(p)) >> 32) == 0) __nanosleep(32);
   return (int)(unsigned)w;
-}
-
-__device__ __forceinline__ u64 stamp() {
-  u64 t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
 }
 
 // bits of the elements of a quad below element e (e < 4)
@@ -181,10 +150,6 @@ cp_compact(const float* __restrict__ x, int n, int shift, int ntiles,
   u64* g_before = scratch + 1;
   u64* status = scratch + R + 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#if TRACE
-  u64 tr[6];
-  tr[0] = stamp();
-#endif
 
   if (tid == 0) s_tile = (int)atomicAdd(ticket, 1u);
   for (int r = tid; r <= R; r += THREADS)
@@ -194,9 +159,6 @@ cp_compact(const float* __restrict__ x, int n, int shift, int ntiles,
   const float t = (t0 < MIN_NORMAL) ? MIN_NORMAL : t0;
   __syncthreads();
   const int tile = s_tile;
-#if TRACE
-  tr[1] = stamp();
-#endif
 
   // ---- load: quads inside x as float4, all issued before any use; a
   // quad crossing either end of x element by element; elements outside x
@@ -234,9 +196,6 @@ cp_compact(const float* __restrict__ x, int n, int shift, int ntiles,
   unsigned m = 0;  // bit 4q + e: element e of quad q survives
 #pragma unroll
   for (int e = 0; e < ITEMS; ++e) m |= (unsigned)(fabsf(v[e]) >= t) << e;
-#if TRACE
-  tr[2] = stamp();
-#endif
 
   // ---- ranks inside the tile: qbase[q] = survivors of the tile before
   // quad q of this thread. A lane's quad counts (<= 4 each, <= 128 summed
@@ -356,9 +315,6 @@ cp_compact(const float* __restrict__ x, int n, int shift, int ntiles,
   }
   __syncthreads();
   const int excl = s_excl;
-#if TRACE
-  tr[3] = stamp();
-#endif
 
   // ---- offsets of the regions that start in this tile
   if (tid <= R && tile_of(s_bnd[tid], shift, ntiles) == tile) {
@@ -367,9 +323,6 @@ cp_compact(const float* __restrict__ x, int n, int shift, int ntiles,
     publish(&g_before[tid], flagged(FLAG_PREFIX, before));
   }
   __syncthreads();
-#if TRACE
-  tr[4] = stamp();
-#endif
   if (tid < R && tile_of(s_bnd[tid + 1], shift, ntiles) == tile)
     counts[tid] = min(s_before[tid + 1] - s_before[tid], cap);
 
@@ -384,18 +337,6 @@ cp_compact(const float* __restrict__ x, int n, int shift, int ntiles,
       indices[(int64_t)r * cap + slot] = idx;
     }
   }
-#if TRACE
-  __syncthreads();
-  if (tid == 0) {
-    tr[5] = stamp();
-    unsigned sm;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    u64* rec = status + ntiles + (int64_t)tile * 8;
-    for (int k = 0; k < 6; ++k) rec[k] = tr[k];
-    rec[6] = sm;
-    rec[7] = (u64)agg;
-  }
-#endif
 }
 
 // x: [n] f32, 4-byte aligned; t_ptr: one f32 on the device (clamped here);

@@ -128,7 +128,8 @@ class TestLaunchGeometry:
         assert compaction.scratch_words(5, 0x100C, 1) == 2 + 1 + 1
 
 
-def _chip_smoke():
+def chip_smoke():
+    """``chip_smoke.py`` as a module (it lies outside the package)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
@@ -154,7 +155,7 @@ def numpy_pack(x, t, bounds, cap):
 def test_card_cases_plain_versions_match_numpy():
     """The card's edge cases are well formed, and the plain versions the
     kernel is held to there agree with an independent reference."""
-    cases = _chip_smoke().compaction_cases()
+    cases = chip_smoke().compaction_cases()
     assert len({c["name"] for c in cases}) == len(cases) >= 14
     for case in cases:
         x, t, cap = case["x"], case["t"], case["cap"]

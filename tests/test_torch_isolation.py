@@ -1,5 +1,5 @@
 """The port stands alone: neither ``oktopk_tpu_torch/`` nor
-``chip_smoke.py`` (nor the port's profiling script) imports ``jax``,
+``chip_smoke.py`` (nor the port's profiling and A/B scripts) imports ``jax``,
 ``flax`` or ``oktopk_tpu``, and
 importing every module of the package leaves ``jax`` out of
 ``sys.modules``."""
@@ -18,8 +18,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oktopk_tpu")
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "port_profile.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "port_profile.py",
+        ROOT / "scripts" / "compaction_ab.py"]
     assert len(files) > 20
     return files
 

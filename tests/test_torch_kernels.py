@@ -19,9 +19,6 @@ The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py`` and by the ``cuda``-marked test at the end.
 """
 
-import importlib.util
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -41,6 +38,7 @@ from oktopk_tpu.ops.fused_select import (
 )
 
 from oktopk_tpu_torch.ops import compaction, fused_select
+from test_torch_compaction_edges import chip_smoke
 
 pytestmark = pytest.mark.kernels
 
@@ -319,18 +317,10 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
         want = compaction.select_by_threshold(xc.cpu(), t, 16 * BLK)
         for g, w in zip(got, want):
             bits_equal(g.cpu().numpy(), w.numpy(), "select")
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     for case in smoke.compaction_cases():
         assert smoke.check_compaction_case(case, cuda_device) == 0.0
     assert smoke.check_scratch_reset(cuda_device) == 0.0
-
-
-def _chip_smoke():
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.fixture
