@@ -15,15 +15,21 @@ and prints one JSON line per phase:
               replace, with R = 4 regions whose boundaries lie inside
               overflowing 1024-element blocks: each held bit-equal against
               its plain PyTorch version on the card. Then each kernel is
-              timed in the forms the main path calls it (K1's sweep; the
-              phase-(a) pack, R = 4, cap_pair; the phase-(b) select,
-              R = 1, cap_exact, on an input nonzero in one quarter), with
-              its plain version and the ``torch.nonzero`` yardstick, two
-              ways: ``ms``, CUDA events around one call (median of 25),
-              and ``device_ms``, the device time of the call's own CUDA
-              work under ``torch.profiler`` over 25 calls, divided by 25.
-              A profiling window counts only if it shows every launch of
-              the 25 calls: one compaction call is exactly two kernels;
+              timed in every form a path calls it in (K1's sweep; the
+              compaction as oktopk's phase-(a) pack, R = 4, cap_pair, and
+              phase-(b) select, R = 1, cap_exact, on an input nonzero in
+              one quarter; as the whole-vector select of topkAopt and
+              gaussiank, R = 1, cap_local; as topkSA's nonzero select,
+              threshold 0, R = 1, cap_local, on a reduced row nonzero in one
+              quarter; as topkSA's pack on the static equal split, R = 4,
+              cap_pair), each form first held bit-equal to its plain
+              version, with its plain version and the ``torch.nonzero``
+              yardstick, two ways: ``ms``, CUDA events around one call
+              (median of 25), and ``device_ms``, the device time of the
+              call's own CUDA work under ``torch.profiler`` over 25 calls,
+              divided by 25. A profiling window counts only if it shows
+              every launch of the 25 calls: one compaction call is exactly
+              two kernels;
 3. edges    — the compaction kernel bit-equal to its plain version where
               its tiling can break (``compaction_cases``), on scratch
               poisoned with ready-looking status words, and in two
@@ -31,11 +37,23 @@ and prints one JSON line per phase:
 4. allreduce — three oktopk steps at n = 2^20, P = 4 on the card against
               the plain path on the CPU from the same state: reduced
               result and residual bit-equal, thresholds within 64 ulps;
-5. trainer  — VGG-16 at full width, P = 4 workers stacked on the card,
+5. baselines_allreduce — the same for topkA, topkA2, topkAopt, gtopk,
+              gaussiank, topkSA and gaussiankSA (cadence 2: recompute and
+              predicted steps), and one topkSA step at density 1 that takes
+              the dense fallback: results, residuals and counters
+              bit-equal, thresholds within 8 ulps;
+6. trainer  — VGG-16 at full width, P = 4 workers stacked on the card,
               global batch 64, density 0.02, one dense warmup step then
               five oktopk steps (local_recompute_every=1,
               global_recompute_every=4, threshold "bisect"), launch
-              counters set to 0 just before and read just after.
+              counters set to 0 just before and read just after;
+7. baselines_trainer — the same model and batch through each of the
+              seven baselines: one dense warmup step, then three sparse
+              steps (local_recompute_every=2: recompute and predicted),
+              counters set to 0 just before each run and read just after;
+8. step_options — one more full-width oktopk run with two microbatches
+              per worker, a gradient clip that binds, momentum correction
+              and the ``eps_vs_dense`` metric.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -314,6 +332,21 @@ def phase_b_input(n: int, cap: int, dev):
     return x, t
 
 
+def reduced_row(n: int, dev):
+    """A row as topkSA's owner holds it after phase (a) with P = 4: the
+    summed selections of four workers, nonzero (about 8%) in its own
+    quarter only, with subnormals there that the min-normal clamp must
+    leave out."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.zeros(n, dtype=torch.float32, device=dev)
+    q = n // 4
+    z = torch.randn(q, generator=gen, device=dev)
+    x[q:2 * q] = torch.where(z.abs() >= 1.75, z, torch.zeros_like(z))
+    x[q + 5:2 * q:4099] = 1e-40
+    return x
+
+
 def library_call(x, t):
     """The yardstick: torch.nonzero of the mask plus a gather (never called
     by the port)."""
@@ -337,6 +370,7 @@ COMPACTION_LAUNCHES = {"cp_prefill": 1, "cp_compact": 1}
 
 def phase_kernels(dev):
     import torch
+    from oktopk_tpu_torch.collectives.state import equal_boundaries
     from oktopk_tpu_torch.config import OkTopkConfig
     from oktopk_tpu_torch.ops import compaction, fused_select
 
@@ -377,6 +411,10 @@ def phase_kernels(dev):
     g, r, tt, tp, st = fast
     acc = st.acc
     xb, tb = phase_b_input(n, cfg.cap_exact, dev)
+    xr = reduced_row(n, dev)
+    static = equal_boundaries(n, P, dev)
+    min_normal = torch.tensor(compaction.MIN_NORMAL, device=dev)
+    zero = torch.zeros((), device=dev)
     forms = {
         "fused_select": {
             "kernel": lambda: fused_select.fused_select_stage(g, r, tt, tp),
@@ -401,10 +439,43 @@ def phase_kernels(dev):
             "library": lambda: library_call(xb, tb),
             "expect": COMPACTION_LAUNCHES,
             "bound_ms": compaction_bound_ms(n, 1, cfg.cap_exact, False)},
+        "select_local": {
+            "R": 1, "cap": cfg.cap_local,
+            "kernel": lambda: compaction.select_by_threshold(
+                acc, tt, cfg.cap_local),
+            "plain": lambda: compaction.select_by_threshold_plain(
+                acc, tt, cfg.cap_local),
+            "library": lambda: library_call(acc, tt),
+            "expect": COMPACTION_LAUNCHES,
+            "bound_ms": compaction_bound_ms(n, 1, cfg.cap_local, False)},
+        # timed at a threshold of 0 made once: ``select_nonzero`` itself
+        # adds one 0-d fill launch per call (held bit-equal below)
+        "select_nonzero": {
+            "R": 1, "cap": cfg.cap_local,
+            "kernel": lambda: compaction.select_by_threshold(
+                xr, zero, cfg.cap_local),
+            "plain": lambda: compaction.select_nonzero_plain(
+                xr, cfg.cap_local),
+            "library": lambda: library_call(xr, min_normal),
+            "expect": COMPACTION_LAUNCHES,
+            "bound_ms": compaction_bound_ms(n, 1, cfg.cap_local, False)},
+        "pack_static": {
+            "R": P, "cap": cap,
+            "kernel": lambda: compaction.pack_by_region(acc, tt, static, P,
+                                                        cap),
+            "plain": lambda: compaction.pack_by_region_plain(
+                acc, tt, static, P, cap),
+            "library": lambda: library_call(acc, tt),
+            "expect": COMPACTION_LAUNCHES,
+            "bound_ms": compaction_bound_ms(n, P, cap, True)},
     }
+    for nm in ("select_b", "select_local", "select_nonzero", "pack_static"):
+        errs["compaction"] = max(errs["compaction"], triples_equal(
+            forms[nm]["kernel"](), forms[nm]["plain"](), nm))
     errs["compaction"] = max(errs["compaction"], triples_equal(
-        forms["select_b"]["kernel"](), forms["select_b"]["plain"](),
-        "phase-(b) select"))
+        compaction.select_nonzero(xr, cfg.cap_local),
+        compaction.select_nonzero_plain(xr, cfg.cap_local),
+        "select_nonzero wrapper"))
     timings = {}
     for nm, f in forms.items():
         rec = {k: v for k, v in f.items()
@@ -473,66 +544,115 @@ def phase_edges(dev):
     return err
 
 
-def phase_allreduce(dev):
-    """Three oktopk steps at n = 2^20, P = 4: the card (both kernels) from
-    the state the CPU (plain versions) reached, compared step by step."""
+def card_vs_cpu(name: str, cfg, steps: int, dev, ulps_limit: int):
+    """``steps`` steps of ``name`` at ``cfg``: the card from the state the
+    CPU (plain versions) reached, compared step by step. Results,
+    residuals, boundaries and counters bit-equal; thresholds within
+    ``ulps_limit``. Returns the largest threshold distance in ulps and
+    the last state."""
     import numpy as np
     import torch
     from oktopk_tpu_torch.collectives.registry import get_algorithm
     from oktopk_tpu_torch.collectives.state import SparseState, init_state
     from oktopk_tpu_torch.comm import StackedComm
+
+    P, n = cfg.num_workers, cfg.n
+    algo = get_algorithm(name, warmup=False)
+    comm = StackedComm(P)
+    rng = np.random.RandomState(SEED)
+    base = rng.randn(P, n).astype(np.float32)
+    state = init_state(cfg, P, "cpu")
+    worst = 0
+    for i in range(steps):
+        g = base + 0.3 * rng.randn(P, n).astype(np.float32)
+        gs = SparseState.from_numpy(state.to_numpy(), dev)
+        out_c, state2 = algo(torch.from_numpy(g), state, cfg, comm)
+        out_g, gs2 = algo(torch.from_numpy(g).to(dev), gs, cfg, comm)
+        what = f"{name} step {i}"
+        bits_equal(out_g.cpu(), out_c, f"{what}: result")
+        a, b = gs2.to_numpy(), state2.to_numpy()
+        for f in ("residual", "boundaries", "last_volume", "wire_bytes",
+                  "last_wire_bytes", "last_local_count",
+                  "last_global_count", "step"):
+            bits_equal(torch.from_numpy(a[f]), torch.from_numpy(b[f]),
+                       f"{what}: {f}")
+        for f in ("local_threshold", "global_threshold", "drift",
+                  "last_exact_lt"):
+            u = max_ulps(torch.from_numpy(a[f]), torch.from_numpy(b[f]))
+            worst = max(worst, u)
+            if u > ulps_limit:
+                raise AssertionError(f"{what}: {f} {u} ulps")
+        state = state2
+    return worst, state
+
+
+def phase_allreduce(dev):
+    """Three oktopk steps at n = 2^20, P = 4: the card (both kernels) from
+    the state the CPU (plain versions) reached, compared step by step."""
     from oktopk_tpu_torch.config import OkTopkConfig
 
     P, n = 4, 1 << 20
     cfg = OkTopkConfig(n=n, num_workers=P, density=0.02, warmup_steps=0,
                        local_recompute_every=2, global_recompute_every=2,
                        repartition_every=3, threshold_method="hist")
-    algo = get_algorithm("oktopk", warmup=False)
-    comm = StackedComm(P)
-    rng = np.random.RandomState(SEED)
-    base = rng.randn(P, n).astype(np.float32)
-    state = init_state(cfg, P, "cpu")
-    worst = 0
-    for i in range(3):
-        g = base + 0.3 * rng.randn(P, n).astype(np.float32)
-        gs = SparseState.from_numpy(state.to_numpy(), dev)
-        out_c, state2 = algo(torch.from_numpy(g), state, cfg, comm)
-        out_g, gs2 = algo(torch.from_numpy(g).to(dev), gs, cfg, comm)
-        bits_equal(out_g.cpu(), out_c, f"allreduce step {i}: result")
-        a, b = gs2.to_numpy(), state2.to_numpy()
-        for f in ("residual", "boundaries", "last_volume", "wire_bytes",
-                  "last_local_count", "last_global_count", "step"):
-            bits_equal(torch.from_numpy(a[f]), torch.from_numpy(b[f]),
-                       f"allreduce step {i}: {f}")
-        for f in ("local_threshold", "global_threshold", "drift",
-                  "last_exact_lt"):
-            u = max_ulps(torch.from_numpy(a[f]), torch.from_numpy(b[f]))
-            worst = max(worst, u)
-            if u > 64:
-                raise AssertionError(f"allreduce step {i}: {f} {u} ulps")
-        state = state2
+    worst, _ = card_vs_cpu("oktopk", cfg, 3, dev, 64)
     emit({"phase": "allreduce", "n": n, "P": P, "steps": 3,
           "result_bit_equal": True, "threshold_max_ulps": worst})
 
 
-def phase_trainer(dev):
+BASELINES = ("topkA", "topkA2", "topkAopt", "gtopk", "gaussiank", "topkSA",
+             "gaussiankSA")
+# the baselines that select through the compaction kernel
+COMPACTING = ("topkAopt", "gaussiank", "topkSA", "gaussiankSA")
+
+
+def phase_baselines_allreduce(dev):
+    """Each baseline, three steps at n = 2^20, P = 4 (cadence 2: recompute,
+    predicted, recompute) on the card against the CPU; thresholds by the
+    exact top-k ("sort", bit-reproducible on both); then one topkSA step
+    at density 1, where the reduced result is dense and the psum fallback
+    is taken."""
+    from oktopk_tpu_torch.config import OkTopkConfig
+
+    P, n = 4, 1 << 20
+    cfg = OkTopkConfig(n=n, num_workers=P, density=0.02, warmup_steps=0,
+                       local_recompute_every=2, threshold_method="sort")
+    ulps = {nm: card_vs_cpu(nm, cfg, 3, dev, 8)[0] for nm in BASELINES}
+    u, st = card_vs_cpu("topkSA", cfg.replace(density=1.0), 1, dev, 8)
+    if float(st.last_volume[0]) < 2.0 * n:
+        raise AssertionError("topkSA at density 1 did not take the dense "
+                             "fallback")
+    ulps["topkSA dense fallback"] = u
+    emit({"phase": "baselines_allreduce", "n": n, "P": P, "steps": 3,
+          "result_bit_equal": True, "threshold_max_ulps": ulps})
+
+
+def train_run(dev, phase: str, compressor: str, sparse_steps: int, algo,
+              profile_norm: bool = False, **train_kw):
+    """Full-width VGG-16, P = 4 workers stacked on the card, global batch
+    64, density 0.02: ``algo.warmup_steps`` dense steps, then
+    ``sparse_steps`` through ``compressor``, kernel launch counters set to
+    0 just before the steps and read just after. Emits one line per step
+    and returns (summary, trainer)."""
     import numpy as np
     import torch
-    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.config import TrainConfig
     from oktopk_tpu_torch.data import synthetic_batch
     from oktopk_tpu_torch.ops import compaction, fused_select
     from oktopk_tpu_torch.train.trainer import Trainer
 
     P, gbs = 4, 64
-    cfg = TrainConfig(dnn="vgg16", batch_size=gbs // P, lr=0.1,
-                      density=0.02, num_workers=P, seed=SEED)
-    algo = OkTopkConfig(warmup_steps=1, local_recompute_every=1,
-                        global_recompute_every=4)
-    trainer = Trainer(cfg, algo_cfg=algo, device=dev)
+    ns = train_kw.get("nsteps_update", 1)
+    cfg = TrainConfig(dnn="vgg16", batch_size=gbs // (P * ns), lr=0.1,
+                      density=0.02, num_workers=P, seed=SEED,
+                      compressor=compressor, **train_kw)
+    trainer = Trainer(cfg, algo_cfg=algo, device=dev,
+                      profile_norm=profile_norm)
     if trainer.algo_cfg.n != N_VGG16:
         raise AssertionError(f"VGG-16 has {trainer.algo_cfg.n} parameters")
     rng = np.random.RandomState(SEED)
-    batches = [synthetic_batch("vgg16", gbs, rng) for _ in range(6)]
+    batches = [synthetic_batch("vgg16", gbs, rng)
+               for _ in range(algo.warmup_steps + sparse_steps)]
     torch.cuda.synchronize()
     compaction.LAUNCHES = 0
     fused_select.LAUNCHES = 0
@@ -544,38 +664,107 @@ def phase_trainer(dev):
         times.append((time.perf_counter() - t0) * 1e3)
         rec = {k: float(v) for k, v in m.items()}
         rec.update(step=s + 1, ms=times[-1],
-                   collective="dense" if s < algo.warmup_steps else "oktopk")
+                   collective=("dense" if s < algo.warmup_steps
+                               else compressor))
         steps.append(rec)
-        emit({"phase": "trainer", **rec})
+        emit({"phase": phase, **rec})
     launches = {"fused_select": fused_select.LAUNCHES,
                 "compaction": compaction.LAUNCHES}
     losses = [r["loss"] for r in steps]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    for nm, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"{nm} kernel never launched on the path")
+        raise AssertionError(f"{compressor}: non-finite loss: {losses}")
     for p in trainer.params:
         if not bool(torch.isfinite(p).all()):
-            raise AssertionError("non-finite parameter after training")
-    sparse = [r for r in steps if r["collective"] == "oktopk"]
-    emit({"phase": "trainer_summary", "model": "vgg16", "n": N_VGG16,
-          "workers": P, "global_batch": gbs, "steps": len(steps),
-          "losses": losses, "median_step_ms": statistics.median(times),
-          "median_oktopk_step_ms": statistics.median(
-              r["ms"] for r in sparse[1:]),
-          "launches": launches,
-          "launches_per_oktopk_step": {k: v / len(sparse)
-                                       for k, v in launches.items()}})
+            raise AssertionError(f"{compressor}: non-finite parameter")
+    sparse = steps[algo.warmup_steps:]
+    summary = {
+        "compressor": compressor, "model": "vgg16", "n": N_VGG16,
+        "workers": P, "global_batch": gbs, "steps": len(steps),
+        "losses": losses, "median_step_ms": statistics.median(times),
+        "median_sparse_step_ms": statistics.median(
+            r["ms"] for r in (sparse[1:] or sparse)),
+        "volume_per_sparse_step": [r["comm_volume"] for r in sparse],
+        "wire_bytes_per_sparse_step": [r["wire_bytes"] for r in sparse],
+        "launches": launches,
+        "launches_per_sparse_step": {k: v / len(sparse)
+                                     for k, v in launches.items()}}
+    if profile_norm:
+        summary["eps_vs_dense"] = [r["eps_vs_dense"] for r in steps]
+    return summary, trainer
+
+
+def phase_trainer(dev):
+    """The main path: five oktopk steps after one dense warmup step."""
+    from oktopk_tpu_torch.config import OkTopkConfig
+    algo = OkTopkConfig(warmup_steps=1, local_recompute_every=1,
+                        global_recompute_every=4)
+    summary, _ = train_run(dev, "trainer", "oktopk", 5, algo)
+    for nm, c in summary["launches"].items():
+        if c <= 0:
+            raise AssertionError(f"{nm} kernel never launched on the path")
+    emit({"phase": "trainer_summary", **summary})
+    return summary["launches"]
+
+
+def phase_baselines_trainer(dev):
+    """Each baseline at full width: one dense warmup step, then three
+    sparse steps (local_recompute_every=2: the first sparse step and the
+    second recompute, the third predicts). Returns each path's launches
+    by kernel."""
+    import torch
+    from oktopk_tpu_torch.config import OkTopkConfig
+    algo = OkTopkConfig(warmup_steps=1, local_recompute_every=2)
+    launches = {}
+    for nm in BASELINES:
+        summary, trainer = train_run(dev, "baselines_trainer", nm, 3, algo)
+        del trainer
+        torch.cuda.empty_cache()
+        if nm in COMPACTING and summary["launches"]["compaction"] <= 0:
+            raise AssertionError(f"{nm}: the compaction kernel never "
+                                 "launched on its path")
+        launches[nm] = summary["launches"]
+        emit({"phase": "baselines_trainer_summary", **summary})
     return launches
 
 
-def kernel_line(timings, errs, launches, edge_err):
+def phase_step_options(dev):
+    """oktopk at full width with two microbatches per worker (global batch
+    64 = 4 workers x 2 x 8), a gradient clip that binds, momentum
+    correction and the eps_vs_dense metric."""
+    import torch
+    from oktopk_tpu_torch.config import OkTopkConfig
+    algo = OkTopkConfig(warmup_steps=1, local_recompute_every=1,
+                        global_recompute_every=4)
+    clip = 0.05
+    summary, trainer = train_run(
+        dev, "step_options", "oktopk", 3, algo, profile_norm=True,
+        nsteps_update=2, grad_clip=clip, momentum_correction=True)
+    norms = torch.linalg.vector_norm(trainer.flat, dim=1)
+    if not bool(torch.allclose(norms, torch.full_like(norms, clip),
+                               rtol=1e-4)):
+        raise AssertionError(f"grad_clip {clip} did not bind: {norms}")
+    if trainer.optimizer.momentum != 0.0:
+        raise AssertionError("momentum correction left SGD momentum on")
+    for nm, c in summary["launches"].items():
+        if c <= 0:
+            raise AssertionError(f"{nm} kernel never launched on the path")
+    if not all(math.isfinite(e) for e in summary["eps_vs_dense"]):
+        raise AssertionError(f"eps_vs_dense: {summary['eps_vs_dense']}")
+    emit({"phase": "step_options_summary", "nsteps_update": 2,
+          "grad_clip": clip, "momentum_correction": True,
+          "worker_grad_norms_after_clip": [float(v) for v in norms],
+          **summary})
+    return summary["launches"]
+
+
+def kernel_line(timings, errs, by_path, edge_err):
     """The ``{"kernels": [...]}`` entries at the main path's shapes (the
     compaction's phase-(a) form; ``forms`` has every form). ``ms``,
     ``plain_ms`` and ``library_ms`` are call times, CUDA events around
     one call; the ``*device_ms`` keys are the device times of the same
-    calls under the profiler."""
+    calls under the profiler. ``launches`` counts the main path's
+    (oktopk's) run; ``launches_by_path`` every trainer run's
+    (``by_path``: {path: {kernel: launches}})."""
     def times(f):
         lib = f.get("library")
         return {"ms": f["kernel"]["call_ms"],
@@ -588,30 +777,32 @@ def kernel_line(timings, errs, launches, edge_err):
                 "library_device_ms": lib["device_ms"] if lib else None,
                 "device_ops": f["kernel"]["device_ops"]}
 
-    fs = times(timings["fused_select"])
-    pa = times(timings["pack_a"])
-    sb = times(timings["select_b"])
     comp_err = max(errs["compaction"], edge_err)
+    forms = {nm: {"R": timings[nm]["R"], "cap": timings[nm]["cap"],
+                  **times(timings[nm])}
+             for nm in ("pack_a", "select_b", "select_local",
+                        "select_nonzero", "pack_static")}
+    def launches(kernel):
+        return {"launches": by_path["oktopk"][kernel],
+                "launches_by_path": {p: d[kernel]
+                                     for p, d in by_path.items()}}
+
     return [
         {"name": "fused_select", "route": "cuda",
          "source": "oktopk_tpu_torch/csrc/fused_select.cu",
          "replaces": "oktopk_tpu/ops/fused_select.py:64",
-         "launches": launches["fused_select"],
+         **launches("fused_select"),
          "max_abs_err": errs["fused_select"],
          "bit_equal": errs["fused_select"] == 0.0,
-         "bound_by": "bytes", **fs},
+         "bound_by": "bytes", **times(timings["fused_select"])},
         {"name": "compaction", "route": "cuda",
          "source": "oktopk_tpu_torch/csrc/compaction.cu",
          "replaces": "oktopk_tpu/ops/compaction.py:160",
          "also_replaces": ["oktopk_tpu/ops/compaction.py:229",
                            "scripts/proto_repair_kernel.py:78"],
-         "launches": launches["compaction"], "max_abs_err": comp_err,
-         "bit_equal": comp_err == 0.0,
-         "bound_by": "bytes", **pa,
-         "forms": {"pack_a": {"R": timings["pack_a"]["R"],
-                              "cap": timings["pack_a"]["cap"], **pa},
-                   "select_b": {"R": 1, "cap": timings["select_b"]["cap"],
-                                **sb}}},
+         **launches("compaction"),
+         "max_abs_err": comp_err, "bit_equal": comp_err == 0.0,
+         "bound_by": "bytes", **forms["pack_a"], "forms": forms},
     ]
 
 
@@ -635,8 +826,10 @@ def main() -> int:
     timings, errs = phase_kernels(dev)
     edge_err = phase_edges(dev)
     phase_allreduce(dev)
-    launches = phase_trainer(dev)
-    kernels = kernel_line(timings, errs, launches, edge_err)
+    phase_baselines_allreduce(dev)
+    by_path = {"oktopk": phase_trainer(dev), **phase_baselines_trainer(dev),
+               "oktopk step options": phase_step_options(dev)}
+    kernels = kernel_line(timings, errs, by_path, edge_err)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

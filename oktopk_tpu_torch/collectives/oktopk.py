@@ -48,6 +48,7 @@ from oktopk_tpu_torch.ops.hist_threshold import (
     k2threshold_hist,
     log2_hist,
 )
+from oktopk_tpu_torch.ops.select import scatter_rows
 from oktopk_tpu_torch.ops.topk import k2threshold_method
 
 _F32 = torch.float32
@@ -113,16 +114,6 @@ def _repartition(abs_acc, local_thresh, cfg: OkTopkConfig, comm):
     W = abs_acc.shape[0]
     zeros = torch.zeros((W, 1), dtype=torch.int32, device=abs_acc.device)
     return torch.cat([zeros, interior_i, zeros + n], dim=1)
-
-
-def _scatter_rows(n: int, values, indices) -> torch.Tensor:
-    """Per worker, scatter-add [W, R, cap] (values, indices) into [W, n],
-    one source row at a time in rank order; the sentinel n drops."""
-    W, R = values.shape[0], values.shape[1]
-    buf = torch.zeros((W, n + 1), dtype=values.dtype, device=values.device)
-    for r in range(R):
-        buf.scatter_add_(1, indices[:, r].long(), values[:, r])
-    return buf[:, :n]
 
 
 def _stack(rows):
@@ -200,15 +191,14 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
                       else state.boundaries)
         mask = abs_acc >= lt[:, None]
         local_count = mask.sum(1, dtype=torch.int32)
-        s_vals, s_idx, s_counts = _stack([
-            compaction.pack_by_region(acc[w], lt[w], boundaries[w], P,
-                                      cfg.cap_pair) for w in range(W)])
+        s_vals, s_idx, s_counts = compaction.pack_rows(
+            acc, lt, boundaries, P, cfg.cap_pair)
         local_probe = (abs_acc >= probe_t[:, None]).sum(1, dtype=torch.int32)
         hist = None
 
     r_vals = comm.all_to_all(on_wire(s_vals, cfg, step)).to(acc.dtype)
     r_idx = comm.all_to_all(s_idx)
-    reduced = _scatter_rows(n, r_vals, r_idx)        # own region only
+    reduced = scatter_rows(n, r_vals, r_idx)        # own region only
 
     sent_count = s_counts.sum(1, dtype=torch.int32)
     recv_count = (r_idx < n).sum((1, 2), dtype=torch.int32)
@@ -236,9 +226,8 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
         t_cand = torch.stack([
             k2threshold_method(absr[w], k_cand, cfg.threshold_method,
                                cfg.bisect_iters) for w in range(W)])
-        vals, idx, cand_count = _stack([
-            compaction.select_by_threshold(reduced[w], t_cand[w], k_cand)
-            for w in range(W)])
+        vals, idx, cand_count = compaction.select_rows(reduced, t_cand,
+                                                       k_cand)
         gv = comm.all_gather(on_wire(vals, cfg, step)).to(acc.dtype)
         gi = comm.all_gather(idx)
         k_pool = min(k, P * k_cand)
@@ -251,7 +240,7 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
         zero = torch.zeros((), dtype=acc.dtype, device=dev)
         # gathered indices are globally distinct: dividing by P at cap
         # scale equals dividing the dense sum
-        result = _scatter_rows(
+        result = scatter_rows(
             n, torch.where(keep, gv, zero) / P,
             torch.where(keep, gi, torch.full_like(gi, n)))
         g_count = keep.sum((1, 2), dtype=torch.int32)
@@ -260,13 +249,11 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
         gt_next = gt
     else:
         gt_use = state.global_threshold * drift
-        gvals, gidx, gcount = _stack([
-            compaction.select_by_threshold(reduced[w], gt_use[w],
-                                           cfg.cap_gather)
-            for w in range(W)])
+        gvals, gidx, gcount = compaction.select_rows(reduced, gt_use,
+                                                     cfg.cap_gather)
         gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
         gi = comm.all_gather(gidx)
-        result = _scatter_rows(n, gv / P, gi)
+        result = scatter_rows(n, gv / P, gi)
         probe_c = ((reduced.abs() >= (gt_use * _f32(cfg.probe_ratio,
                                                      gt_use))[:, None])
                    & (reduced != 0.0)).sum(1, dtype=torch.int32)

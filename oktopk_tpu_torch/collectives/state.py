@@ -62,15 +62,21 @@ class SparseState:
         return cls(**kw, host_step=int(kw["step"].reshape(-1)[0]))
 
 
+def equal_boundaries(n: int, P: int, device) -> torch.Tensor:
+    """i32 [P+1]: the equal static split of [0, n] into P regions (the
+    first ``n % P`` one element longer)."""
+    base, rem = divmod(n, P)
+    sizes = [base + (1 if i < rem else 0) for i in range(P)]
+    return torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                        dtype=torch.int32, device=device)
+
+
 def init_state(cfg: OkTopkConfig, num_local: int, device,
                dtype=torch.float32) -> SparseState:
     """Fresh state for ``num_local`` workers: the equal static region
     split and zero thresholds (the first step always recomputes)."""
     P, n, W = cfg.num_workers, cfg.n, num_local
-    base, rem = divmod(n, P)
-    sizes = [base + (1 if i < rem else 0) for i in range(P)]
-    bnd = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
-                       dtype=torch.int32, device=device)
+    bnd = equal_boundaries(n, P, device)
 
     def full(v, dt):
         return torch.full((W,), v, dtype=dt, device=device)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from oktopk_tpu_torch.config import OkTopkConfig
@@ -41,10 +42,13 @@ def on_wire(x: torch.Tensor, cfg: OkTopkConfig, step=None) -> torch.Tensor:
     return x
 
 
-def pair_wire_bytes(pairs, cfg: OkTopkConfig) -> torch.Tensor:
-    """Bytes for ``pairs`` (index, value) pairs: 4 + 2 (bf16) or 4 + 4."""
-    return torch.as_tensor(pairs).to(torch.float32) * float(
-        cfg.wire_pair_bytes)
+def pair_wire_bytes(pairs, cfg: OkTopkConfig):
+    """Bytes for ``pairs`` (index, value) pairs: 4 + 2 (bf16) or 4 + 4,
+    as a float32 product. A count tensor gives a tensor on its device; a
+    Python number (a static count) gives a Python float."""
+    if isinstance(pairs, torch.Tensor):
+        return pairs.to(torch.float32) * float(cfg.wire_pair_bytes)
+    return float(np.float32(pairs) * np.float32(cfg.wire_pair_bytes))
 
 
 def dense_wire_bytes(values, value_bytes: int = 4) -> float:
@@ -68,11 +72,13 @@ def residual_after_selection(acc, sel_mask, cfg: OkTopkConfig):
 
 
 def residual_after_winners(acc, winner_mask, sent_mask, reduced,
-                           cfg: OkTopkConfig):
+                           cfg: OkTopkConfig, owner_scale=None):
     """Zero the residual at global winners. Under bf16: keep
     ``acc - round(acc)`` at winners this worker sent, 0 at winners it did
     not, and on the region owner (``reduced != 0``) also the phase-(b)
-    rounding of its reduced sums."""
+    rounding of its reduced sums, times ``owner_scale`` (a 0/1 float32
+    tensor broadcast against ``acc``; 0 where the gather was not rounded,
+    as in topkSA's dense fallback)."""
     if cfg.wire_dtype == "float32":
         return update_residual_at_winners(acc, winner_mask)
     zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
@@ -81,4 +87,6 @@ def residual_after_winners(acc, winner_mask, sent_mask, reduced,
                       acc)
     comp = torch.where(winner_mask & (reduced != 0.0),
                        reduced - wire_round(reduced, cfg), zero)
+    if owner_scale is not None:
+        comp = comp * owner_scale
     return res + comp

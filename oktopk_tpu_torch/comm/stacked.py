@@ -1,6 +1,6 @@
 """Collectives over P data-parallel workers stacked on one device.
 
-Counterpart of ``oktopk_tpu/comm/primitives.py:19-68`` and the virtual
+Counterpart of ``oktopk_tpu/comm/primitives.py:19-114`` and the virtual
 mesh of ``oktopk_tpu/comm/mesh.py``: where the JAX package runs P shards
 of a ``shard_map`` (one per virtual CPU device or TPU core), this comm
 keeps the P workers as the leading dimension of every per-worker tensor
@@ -26,6 +26,10 @@ class StackedComm:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         self.size = int(num_workers)
         self.local_workers = self.size
+
+    def axis_size(self) -> int:
+        """World size P (``compat.axis_size``)."""
+        return self.size
 
     def rank(self, device) -> torch.Tensor:
         """[W] i32: each worker's rank (``lax.axis_index``)."""
@@ -63,3 +67,13 @@ class StackedComm:
             raise ValueError(
                 f"all_to_all wants [P, P, ...], got {tuple(x.shape)}")
         return x.transpose(0, 1)
+
+    def ppermute_pair(self, x: torch.Tensor, distance: int) -> torch.Tensor:
+        """Butterfly exchange: row i receives row ``i ^ distance``
+        (``primitives.ppermute_pair``, gtopk's XOR partner)."""
+        self._check(x)
+        src = [i ^ distance for i in range(self.size)]
+        if distance <= 0 or max(src) >= self.size:
+            raise ValueError(f"XOR distance {distance} does not pair the "
+                             f"{self.size} workers")
+        return x[src]

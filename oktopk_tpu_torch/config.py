@@ -1,5 +1,5 @@
 """Configuration: the port's own copy of ``OkTopkConfig``, ``scheduled_k``
-and the ``TrainConfig`` fields the VGG-16 slice reads.
+and the ``TrainConfig`` fields the port reads.
 
 Counterpart of ``oktopk_tpu/config.py`` (``OkTopkConfig`` :18-267,
 ``scheduled_k`` :270-286, ``TrainConfig`` :304-478). The port imports
@@ -176,8 +176,8 @@ def target_k(cfg: OkTopkConfig, k: int, factor: float) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The ``TrainConfig`` fields the VGG-16 slice reads (the rest of the
-    JAX surface is listed in ROADMAP.md)."""
+    """The ``TrainConfig`` fields the port reads, with the JAX defaults
+    (the rest of the JAX surface is listed in ROADMAP.md)."""
 
     dnn: str = "vgg16"
     dataset: str = "cifar10"
@@ -187,10 +187,17 @@ class TrainConfig:
     weight_decay: float = 5e-4
     nesterov: bool = False
     max_epochs: int = 161
+    nsteps_update: int = 1          # local microbatches per allreduce
     compressor: str = "oktopk"
     density: float = 0.02
     seed: int = 0
     num_workers: int = 1
+    # global-norm clip of each worker's local gradient, before the
+    # allreduce
+    grad_clip: Optional[float] = None
+    # fold momentum into the local gradient before compression; the SGD
+    # update then runs momentum-free
+    momentum_correction: bool = False
     num_buckets: int = 1
 
     def experiment_slug(self) -> str:
@@ -198,5 +205,5 @@ class TrainConfig:
         return (
             f"allreduce-{mode}-{self.compressor}-gwarmup-dc1-model-mgwfbp"
             f"-{self.dnn}-n{self.num_workers}-bs{self.batch_size}"
-            f"-lr{self.lr:.4f}-ns1-ds{self.density}"
+            f"-lr{self.lr:.4f}-ns{self.nsteps_update}-ds{self.density}"
         )

@@ -1,8 +1,9 @@
 """Threshold stream compaction: the Hopper kernel and its plain version.
 
 Counterpart of ``oktopk_tpu/ops/compaction.py``: ``select_by_threshold``
-(``select_by_threshold_pallas`` :435) and ``pack_by_region``
-(``pack_by_region_pallas`` :506). The kernel (``csrc/compaction.cu``)
+(``select_by_threshold_pallas`` :435), ``select_nonzero`` (the same at
+threshold 0, ``ops/select.py:389-401`` with ``use_pallas``) and
+``pack_by_region`` (``pack_by_region_pallas`` :506). The kernel (``csrc/compaction.cu``)
 replaces the TPU's staging kernel K2 (``_stage_kernel`` :160), its
 overflow repair kernel K3 (``_repair_kernel`` :229) and their cap-scale
 XLA post-processing: one pass over x with a decoupled look-back scan,
@@ -69,6 +70,12 @@ def select_by_threshold_plain(x: torch.Tensor, thresh, cap: int):
     """(values[cap], indices[cap], count) of |x| >= clamped thresh."""
     t = clamp_min_normal(threshold_tensor(thresh, x))
     return select_mask(x, x.abs() >= t, cap)
+
+
+def select_nonzero_plain(x: torch.Tensor, cap: int):
+    """(values[cap], indices[cap], count) of |x| >= the smallest normal
+    f32: the nonzeros, subnormals left out."""
+    return select_by_threshold_plain(x, 0.0, cap)
 
 
 def pack_by_region_plain(x: torch.Tensor, thresh, boundaries: torch.Tensor,
@@ -152,3 +159,40 @@ def select_by_threshold(x: torch.Tensor, thresh, cap: int):
         raise ValueError(f"no compaction kernel for device {x.device}")
     v, i, c = _compact_cuda(x, threshold_tensor(thresh, x), None, 1, cap)
     return v[0], i[0], c[0]
+
+
+def select_nonzero(x: torch.Tensor, cap: int):
+    """The nonzeros of ``x`` (the kernel at threshold 0, which it clamps to
+    the smallest normal f32, so subnormals are not selected)."""
+    return select_by_threshold(x, 0.0, cap)
+
+
+# ---- per-worker rows -------------------------------------------------------
+
+def _row(thresh, w: int):
+    return thresh[w] if isinstance(thresh, torch.Tensor) else thresh
+
+
+def _stack(rows):
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def select_rows(x: torch.Tensor, thresh, cap: int):
+    """``select_by_threshold`` of each row of ``x`` [W, n] at its entry of
+    ``thresh`` ([W] tensor, or one number): ([W, cap], [W, cap], [W])."""
+    return _stack(select_by_threshold(x[w], _row(thresh, w), cap)
+                  for w in range(x.shape[0]))
+
+
+def select_nonzero_rows(x: torch.Tensor, cap: int):
+    """``select_nonzero`` of each row of ``x`` [W, n]."""
+    return _stack(select_nonzero(x[w], cap) for w in range(x.shape[0]))
+
+
+def pack_rows(x: torch.Tensor, thresh, boundaries: torch.Tensor,
+              num_regions: int, cap: int):
+    """``pack_by_region`` of each row of ``x`` [W, n] with its row of
+    ``boundaries`` [W, R+1]: ([W, R, cap], [W, R, cap], [W, R])."""
+    return _stack(pack_by_region(x[w], _row(thresh, w), boundaries[w],
+                                 num_regions, cap)
+                  for w in range(x.shape[0]))

@@ -65,6 +65,26 @@ def scatter_sparse(n: int, values: torch.Tensor, indices: torch.Tensor,
     return buf[:n]
 
 
+def scatter_rows(n: int, values: torch.Tensor,
+                 indices: torch.Tensor) -> torch.Tensor:
+    """Per worker, scatter-add [W, R, cap] (values, indices) into [W, n],
+    one source row at a time in row order (rank order for gathered rows,
+    as the JAX scatter adds on the CPU); the sentinel n drops."""
+    W, R = values.shape[0], values.shape[1]
+    buf = torch.zeros((W, n + 1), dtype=values.dtype, device=values.device)
+    for r in range(R):
+        buf.scatter_add_(1, indices[:, r].long(), values[:, r])
+    return buf[:, :n]
+
+
+def index_mask(n: int, indices: torch.Tensor) -> torch.Tensor:
+    """[W, n] bool: True at each row's ``indices`` [W, m] (the sentinel n
+    drops), ``zeros(n).at[idx].set(True, mode="drop")`` per row."""
+    W = indices.shape[0]
+    m = torch.zeros((W, n + 1), dtype=torch.bool, device=indices.device)
+    return m.scatter_(1, indices.long(), True)[:, :n]
+
+
 def region_ids(n: int, boundaries: torch.Tensor) -> torch.Tensor:
     """Region id of every element: the number of interior boundaries
     <= its index (searchsorted side="right")."""

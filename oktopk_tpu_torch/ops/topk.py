@@ -20,10 +20,46 @@ _WAYS = 8                 # brackets per pass (3 bits per data pass)
 _LOG_RANGE_BITS = 64.0    # dynamic range below max|x| the bracket covers
 
 
+def _cumsum_rows(m: torch.Tensor) -> torch.Tensor:
+    """Inclusive int64 cumsum of each row of ``m`` [..., n], taken as one
+    scan of the flattened tensor minus each row's start: CUDA scans a 1-D
+    tensor with one device-wide scan, but a few long rows with a row-wise
+    kernel that is far slower (PERF.md, section 5)."""
+    cs = torch.cumsum(m.reshape(-1), 0).view(m.shape)
+    if m.dim() == 1:
+        return cs
+    rows = cs.reshape(-1, m.shape[-1])
+    start = torch.cat([rows.new_zeros(1), rows[:-1, -1]])
+    return (rows - start[:, None]).view(m.shape)
+
+
 def exact_topk(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest |x|; values keep their sign."""
-    _, idx = torch.topk(x.abs(), k)
-    return x[idx], idx
+    """(values, indices) of the k largest |x| along the last dimension;
+    values keep their sign. ``lax.top_k``'s rule: among equal magnitudes
+    the lower index wins, and the k come in descending order of |x|, ties
+    in ascending index order. ``torch.topk`` promises no tie order (and
+    the CPU and CUDA differ), so it gives only the k-th magnitude: the
+    winners are every element above it and the lowest-index ties at it,
+    packed in index order, then stably sorted by magnitude."""
+    absx = x.abs()
+    n = x.shape[-1]
+    kth = torch.topk(absx, k, dim=-1, sorted=False).values.amin(
+        -1, keepdim=True)
+    above = (absx > kth) | torch.isnan(absx)    # NaN ranks highest
+    ties = absx == kth
+    need = k - above.sum(-1, keepdim=True)
+    take = above | (ties & (_cumsum_rows(ties) <= need))
+    # pack the first k winners in index order (more only if k or more
+    # NaNs); slot k catches the rest
+    pos = _cumsum_rows(take) - 1
+    pos = torch.where(take & (pos < k), pos, k)
+    ids = torch.arange(n, device=x.device).expand_as(pos)
+    idx = torch.empty(pos.shape[:-1] + (k + 1,), dtype=torch.int64,
+                      device=x.device).scatter_(-1, pos, ids)[..., :k]
+    order = torch.sort(absx.gather(-1, idx), dim=-1, descending=True,
+                       stable=True).indices
+    idx = idx.gather(-1, order)
+    return x.gather(-1, idx), idx
 
 
 def k2threshold(x_abs: torch.Tensor, k: int) -> torch.Tensor:

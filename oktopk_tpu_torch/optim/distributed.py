@@ -1,12 +1,16 @@
 """The distributed gradient step: flat gradient -> sparse allreduce.
 
-Counterpart of the part of ``oktopk_tpu/optim/distributed.py`` that the
-VGG-16 slice runs: ``flat_size``, ``bucket_partition`` and
-``bucket_sizes`` (:58-99), per-bucket ``SparseState``, and the
-flat-or-bucketed collective of ``build_sparse_grad_step`` (:299-387).
-Not ported yet (ROADMAP.md): the anomaly guard, fault plans, quality
-taps, momentum correction, gradient clipping, microbatch accumulation and
-``profile_norm``.
+Counterpart of the collective half of
+``oktopk_tpu/optim/distributed.py``: ``flat_size``, ``bucket_partition``
+and ``bucket_sizes`` (:58-99), per-bucket ``SparseState``, and the
+per-bucket loop of ``build_sparse_grad_step`` (:154-243, :299-398): a
+compressor plan (one name, or one per bucket) with optional per-bucket
+densities, momentum correction (a per-bucket [W, n_b] local momentum
+folded into the gradient before compression) and ``profile_norm`` (the
+``eps_vs_dense`` metric). Microbatch accumulation and gradient clipping
+act on the local gradient before it gets here (``train/trainer.py``).
+Not ported yet (ROADMAP.md): the anomaly guard, fault plans and quality
+taps.
 
 The flat gradient [W, n] is laid out in the JAX package's leaf order and
 layout (the trainer builds it), so that buckets, region boundaries and
@@ -16,10 +20,11 @@ ranges, so each bucket is a column slice of the flat buffer.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
+from oktopk_tpu_torch import resolve_device
 from oktopk_tpu_torch.collectives.registry import get_algorithm
 from oktopk_tpu_torch.collectives.state import SparseState, init_state
 from oktopk_tpu_torch.config import OkTopkConfig
@@ -68,15 +73,35 @@ class SparseGradStep:
 
     ``__call__(flat)`` returns the reduced flat gradient [n] (every worker
     holds the same result; row 0 is returned) and the step's metrics, and
-    advances ``self.states`` (one ``SparseState`` per bucket)."""
+    advances ``self.states`` (one ``SparseState`` per bucket) and, under
+    momentum correction, ``self.momenta``.
+
+    ``compressor`` is one registry name for every bucket or one name per
+    bucket; ``bucket_densities`` overrides the density per bucket.
+    ``momentum_correction`` is the momentum factor folded in before
+    compression (0 = off). ``device`` is where the states live: CUDA
+    unless the caller asks for the CPU."""
 
     def __init__(self, cfg: OkTopkConfig, comm, leaves: Sequence,
-                 compressor: str = "oktopk", num_buckets: int = 1,
-                 warmup: bool = True, device="cpu"):
+                 compressor: Union[str, Sequence[str]] = "oktopk",
+                 num_buckets: int = 1, warmup: bool = True, device=None,
+                 bucket_densities: Optional[Sequence[float]] = None,
+                 momentum_correction: float = 0.0,
+                 profile_norm: bool = False):
+        device = resolve_device(device)
         self.cfg = cfg
         self.comm = comm
-        self.algo = get_algorithm(compressor, warmup=warmup)
         self.buckets = bucket_partition(leaves, num_buckets)
+        nb = len(self.buckets)
+        names = ([compressor] * nb if isinstance(compressor, str)
+                 else list(compressor))
+        if len(names) != nb:
+            raise ValueError(f"compressor plan has {len(names)} entries "
+                             f"for {nb} buckets")
+        if bucket_densities is not None and len(bucket_densities) != nb:
+            raise ValueError(f"bucket_densities has {len(bucket_densities)}"
+                             f" entries for {nb} buckets")
+        self.algos = [get_algorithm(nm, warmup=warmup) for nm in names]
         sizes = _sizes(leaves)
         offs = [0]
         for s in sizes:
@@ -84,19 +109,32 @@ class SparseGradStep:
         if offs[-1] != cfg.n:
             raise ValueError(f"cfg.n={cfg.n} != flat size {offs[-1]}")
         self.ranges = [(offs[b[0]], offs[b[-1] + 1]) for b in self.buckets]
-        single = len(self.buckets) == 1
-        self.cfgs = [cfg if single else cfg.replace(n=e - s, bucket_index=i)
-                     for i, (s, e) in enumerate(self.ranges)]
+        self.cfgs = []
+        for i, (s, e) in enumerate(self.ranges):
+            over = {} if nb == 1 else {"n": e - s, "bucket_index": i}
+            if bucket_densities is not None:
+                over["density"] = float(bucket_densities[i])
+            self.cfgs.append(cfg.replace(**over) if over else cfg)
         self.states: List[SparseState] = [
             init_state(c, comm.local_workers, device) for c in self.cfgs]
+        self.momentum_correction = float(momentum_correction)
+        self.momenta = ([torch.zeros((comm.local_workers, c.n),
+                                     device=device) for c in self.cfgs]
+                        if self.momentum_correction else None)
+        self.profile_norm = profile_norm
 
     def __call__(self, flat: torch.Tensor):
         reduced = torch.empty(flat.shape[1], dtype=flat.dtype,
                               device=flat.device)
         vol = wbytes = lk = gk = 0.0
+        eps_num = eps_den = 0.0
         for bi, (s, e) in enumerate(self.ranges):
             g = flat if (s, e) == (0, flat.shape[1]) else flat[:, s:e]
-            out, st = self.algo(g, self.states[bi], self.cfgs[bi], self.comm)
+            if self.momenta is not None:
+                g = self.momentum_correction * self.momenta[bi] + g
+                self.momenta[bi] = g
+            out, st = self.algos[bi](g, self.states[bi], self.cfgs[bi],
+                                     self.comm)
             reduced[s:e] = out[0]
             self.states[bi] = st
             # metrics of worker 0 (the JAX step returns them replicated)
@@ -104,5 +142,13 @@ class SparseGradStep:
             wbytes = wbytes + st.last_wire_bytes[0]
             lk = lk + st.last_local_count[0].to(torch.float32)
             gk = gk + st.last_global_count[0].to(torch.float32)
-        return reduced, {"comm_volume": vol, "wire_bytes": wbytes,
-                         "local_k": lk, "global_k": gk}
+            if self.profile_norm:
+                dense = self.comm.pmean(g)[0]
+                eps_num = eps_num + torch.sum((dense - out[0]) ** 2)
+                eps_den = eps_den + torch.sum(dense ** 2)
+        metrics = {"comm_volume": vol, "wire_bytes": wbytes,
+                   "local_k": lk, "global_k": gk}
+        if self.profile_norm:
+            metrics["eps_vs_dense"] = (torch.sqrt(eps_num)
+                                       / (torch.sqrt(eps_den) + 1e-12))
+        return reduced, metrics

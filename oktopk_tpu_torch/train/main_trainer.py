@@ -1,14 +1,16 @@
 """CLI driver for VGG data-parallel training with a sparse allreduce.
 
 Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
-:25-50 that this slice serves, under the same names, plus
+:25-50, :130-135 that the port serves, under the same names
+(``--compressor`` takes every ported registry name), plus
 ``--num-workers`` (the P workers stacked on one device) and ``--device``.
 The data is the synthetic CIFAR iterator (the real loaders are not ported
 yet, ROADMAP.md).
 
 Example:
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
-        --batch-size 16 --num-workers 4 --density 0.02 --max-iters 20
+        --batch-size 16 --num-workers 4 --density 0.02 --max-iters 20 \\
+        --compressor topkA --nsteps-update 2 --grad-clip 5.0
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+
+from oktopk_tpu_torch.collectives.registry import list_algorithms
 
 CIFAR10_TRAIN_EXAMPLES = 50000
 
@@ -33,11 +37,16 @@ def parse_args(argv=None):
     p.add_argument("--max-epochs", type=int, default=161)
     p.add_argument("--max-iters", type=int, default=0,
                    help="if set, run exactly this many iterations")
+    p.add_argument("--nsteps-update", type=int, default=1,
+                   help="local microbatches accumulated per allreduce")
     p.add_argument("--wire-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num-buckets", type=int, default=1)
-    p.add_argument("--compressor", default="oktopk")
+    p.add_argument("--compressor", default="oktopk",
+                   choices=list_algorithms())
     p.add_argument("--density", type=float, default=0.02)
+    p.add_argument("--grad-clip", type=float, default=None,
+                   help="global-norm clip of each worker's local gradient")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--warmup-steps", type=int, default=None,
                    help="dense warmup iterations (default: reference's 512)")
@@ -64,15 +73,16 @@ def main(argv=None) -> int:
         dnn=args.dnn, dataset=args.dataset, batch_size=args.batch_size,
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
         nesterov=args.nesterov, max_epochs=args.max_epochs,
-        compressor=args.compressor, density=args.density, seed=args.seed,
-        num_workers=args.num_workers, num_buckets=args.num_buckets)
+        nsteps_update=args.nsteps_update, compressor=args.compressor,
+        density=args.density, seed=args.seed, num_workers=args.num_workers,
+        grad_clip=args.grad_clip, num_buckets=args.num_buckets)
     algo_cfg = OkTopkConfig(wire_dtype=args.wire_dtype)
     if args.warmup_steps is not None:
         algo_cfg = algo_cfg.replace(warmup_steps=args.warmup_steps)
     trainer = Trainer(cfg, algo_cfg=algo_cfg, device=args.device)
     logger.info("experiment %s on %s", cfg.experiment_slug(), trainer.device)
 
-    global_bs = args.batch_size * args.num_workers
+    global_bs = args.batch_size * args.num_workers * args.nsteps_update
     data = synthetic_iterator(args.dnn, global_bs, seed=args.seed)
     iters_per_epoch = max(1, CIFAR10_TRAIN_EXAMPLES // global_bs)
     total = args.max_iters or args.max_epochs * iters_per_epoch

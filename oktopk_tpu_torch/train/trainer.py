@@ -1,23 +1,31 @@
 """A minimal data-parallel trainer: P workers stacked on one device.
 
 Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
-``optim/distributed.py::build_sparse_grad_step`` that the VGG-16 slice
-runs (init, ``train_step``, ``train``); the obs, resilience and autotune
-planes are not ported yet (ROADMAP.md).
+``optim/distributed.py::build_sparse_grad_step`` that the port runs
+(init, ``train_step``, ``train``, the step options ``nsteps_update``,
+``grad_clip``, momentum correction and ``profile_norm``); the obs,
+resilience and autotune planes are not ported yet (ROADMAP.md).
 
 One step:
 1. each of the P workers runs forward/backward on its shard of the global
-   batch (shard p = rows [p*b, (p+1)*b), as the JAX step shards it);
+   batch: shard p is ``nsteps_update * b`` contiguous rows, split in order
+   into ``nsteps_update`` microbatches of b rows whose gradients add up
+   (as the JAX step's ``lax.scan`` does); the sum and the loss are divided
+   by ``nsteps_update``;
 2. its gradient is written into row p of a flat [P, n] buffer in the JAX
    package's leaf order and layout (``VGG.jax_leaves``) — one n-scale
    copy per worker — so buckets, regions and selections match the
-   reference's;
+   reference's; with ``grad_clip`` each row is scaled by
+   ``min(1, grad_clip / (||row|| + 1e-12))``;
 3. the sparse collective (``optim/distributed.py``) reduces it;
-4. SGD updates the (single, replicated) parameters from the result.
+4. SGD updates the (single, replicated) parameters from the result,
+   momentum-free under momentum correction (the momentum is then folded
+   into the compressed gradient stream).
 
-BatchNorm running statistics come from worker 0's shard, as the JAX step
-returns them (``out_specs=P()`` takes shard 0). The reported loss is the
-mean of the P worker losses, added in rank order.
+BatchNorm running statistics come from worker 0's microbatches, in
+order, as the JAX step returns them (``out_specs=P()`` takes shard 0).
+The reported loss is the mean of the P worker losses, added in rank
+order.
 
 On the card TF32 is switched off for cuDNN convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and
@@ -58,7 +66,8 @@ class Trainer:
     def __init__(self, cfg: TrainConfig,
                  algo_cfg: Optional[OkTopkConfig] = None, device=None,
                  warmup: bool = True,
-                 model_kwargs: Optional[Dict[str, Any]] = None):
+                 model_kwargs: Optional[Dict[str, Any]] = None,
+                 profile_norm: bool = False):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -84,13 +93,15 @@ class Trainer:
         n = flat_size(self.params)
         self.algo_cfg = (algo_cfg or OkTopkConfig()).replace(
             n=n, num_workers=P, density=cfg.density)
-        self.optimizer = SGD(cfg.lr, momentum=cfg.momentum,
+        mc = cfg.momentum if cfg.momentum_correction else 0.0
+        self.optimizer = SGD(cfg.lr, momentum=0.0 if mc else cfg.momentum,
                              weight_decay=cfg.weight_decay,
                              nesterov=cfg.nesterov)
         self.optimizer.init(self.params)
         self.grad_step = SparseGradStep(
             self.algo_cfg, self.comm, self.params, cfg.compressor,
-            cfg.num_buckets, warmup=warmup, device=self.device)
+            cfg.num_buckets, warmup=warmup, device=self.device,
+            momentum_correction=mc, profile_norm=profile_norm)
         self.flat = torch.empty((P, n), dtype=torch.float32,
                                 device=self.device)
 
@@ -108,26 +119,38 @@ class Trainer:
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One data-parallel step on a global batch (dict of arrays with a
-        leading [P * b] dimension). Metrics stay on the device."""
+        leading [P * nsteps_update * b] dimension). Metrics stay on the
+        device."""
         P = self.comm.size
+        ns = self.cfg.nsteps_update
         dev = self.device
         images = torch.as_tensor(batch["image"]).to(dev)
         labels = torch.as_tensor(batch["label"]).to(dev)
-        b = images.shape[0] // P
-        if b * P != images.shape[0]:
+        b = images.shape[0] // (P * ns)
+        if b * P * ns != images.shape[0]:
             raise ValueError(f"global batch {images.shape[0]} is not a "
-                             f"multiple of {P} workers")
+                             f"multiple of {P} workers x {ns} microbatches")
         worker_losses = []
         for w in range(P):
             for p in self.params:
                 p.grad = None
-            logits = self.model(images[w * b:(w + 1) * b], train=True,
-                                update_stats=(w == 0))
-            loss = losses.softmax_cross_entropy(logits,
-                                                labels[w * b:(w + 1) * b])
-            loss.backward()
+            loss_w = 0.0
+            for j in range(ns):      # autograd adds the microbatch grads
+                rows = slice((w * ns + j) * b, (w * ns + j + 1) * b)
+                logits = self.model(images[rows], train=True,
+                                    update_stats=(w == 0))
+                loss = losses.softmax_cross_entropy(logits, labels[rows])
+                loss.backward()
+                loss_w = loss_w + loss.detach()
             self._write_flat_grad(w)
-            worker_losses.append(loss.detach())
+            worker_losses.append(loss_w / ns)
+        if ns > 1:
+            self.flat.div_(ns)
+        if self.cfg.grad_clip is not None:
+            norm = torch.sqrt(torch.sum(self.flat * self.flat, 1,
+                                        keepdim=True))
+            self.flat.mul_(torch.clamp(self.cfg.grad_clip / (norm + 1e-12),
+                                       max=1.0))
         reduced, metrics = self.grad_step(self.flat)
         grads = [from_jax_layout(reduced[s:e].view(shp), lay)
                  for (_, _, lay), shp, s, e in zip(

@@ -11,12 +11,14 @@ default), then over ``--steps`` steady-state steps reports, as JSON lines:
 - ``kernels``: ``torch.profiler`` device time by kernel name, per step,
   the top ``--top`` and the port's own two kernels, with the device busy
   share of the profiled window (busy = summed kernel time / wall time);
-- ``ab``: the same step with ``--compressor dense`` in place of oktopk,
-  so the collective's end-to-end cost reads as a difference.
+- ``ab``: the same step with the dense allreduce in place of each
+  compressor, so each collective's end-to-end cost reads as a difference.
 
-Needs a CUDA device. Example:
+``--compressors`` names the sparse compressors to profile (comma
+separated, default oktopk); each gets its ``phases`` and ``kernels``
+lines. Needs a CUDA device. Example:
 
-    python3 scripts/port_profile.py --steps 4
+    python3 scripts/port_profile.py --steps 4 --compressors oktopk,topkA
 """
 
 from __future__ import annotations
@@ -109,7 +111,10 @@ def main():
     p.add_argument("--global-every", type=int, default=4)
     p.add_argument("--threshold-method", default="bisect")
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--compressors", default="oktopk",
+                   help="comma-separated sparse compressors to profile")
     args = p.parse_args()
+    names = [c for c in args.compressors.split(",") if c]
 
     import numpy as np
     import torch
@@ -128,7 +133,7 @@ def main():
                for _ in range(args.steps + 2)]
 
     results = {}
-    for comp in ("oktopk", "dense"):
+    for comp in names + ["dense"]:
         trainer = build_trainer(args, comp)
         clock = PhaseClock(trainer)
         for b in batches[:2]:                 # dense warmup + first sparse
@@ -137,7 +142,7 @@ def main():
         results[comp] = rows
         summ = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
         emit({"phases": comp, "per_step": rows, "median": summ})
-        if comp != "oktopk":
+        if comp == "dense":
             continue
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -159,7 +164,7 @@ def main():
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:args.top]
         own = {k: v for k, v in kern.items()
                if any(o in k for o in OWN_KERNELS)}
-        emit({"kernels": [
+        emit({"compressor": comp, "kernels": [
             {"name": k[:90], "ms_per_step": v[0] / args.steps,
              "calls_per_step": v[1] / args.steps,
              "share_of_busy": v[0] / busy if busy else None}
@@ -173,10 +178,12 @@ def main():
             "device_busy_ms_per_step": busy / args.steps,
             "wall_ms_per_step": wall / args.steps,
             "device_busy_share": busy / wall if wall else None})
-    ok = statistics.median(r["wall_ms"] for r in results["oktopk"])
-    dn = statistics.median(r["wall_ms"] for r in results["dense"])
-    emit({"ab": {"oktopk_wall_ms": ok, "dense_wall_ms": dn,
-                 "collective_cost_ms": ok - dn}})
+    wall = {c: statistics.median(r["wall_ms"] for r in rows)
+            for c, rows in results.items()}
+    emit({"ab": {"dense_wall_ms": wall["dense"],
+                 **{c: {"wall_ms": wall[c],
+                        "collective_cost_ms": wall[c] - wall["dense"]}
+                    for c in names}}})
     return 0
 
 
