@@ -53,7 +53,25 @@ and prints one JSON line per phase:
               counters set to 0 just before each run and read just after;
 8. step_options — one more full-width oktopk run with two microbatches
               per worker, a gradient clip that binds, momentum correction
-              and the ``eps_vs_dense`` metric.
+              and the ``eps_vs_dense`` metric;
+9. bert_kernels — (after ``edges``) the fused select kernel and the
+              compaction's two oktopk forms at BERT-base's flat size n =
+              110,106,428 and its k at d = 0.01, on rows of [4, n] buffers:
+              bit-equal to their plain versions, then timed as above
+              (``bert_sweep``, ``bert_pack_a``, ``bert_select_b``);
+10. bert_parity — (after ``baselines_allreduce``) ``bert_tiny`` without
+              dropout from the same weights and batch (padded attention
+              mask) on the card and on the CPU: logits, loss and the flat
+              gradient in JAX leaf order within stated tolerances, then
+              three oktopk steps (cadence 2) with finite, agreeing losses
+              and equal volumes wherever the selections agree;
+11. bert_trainer — (last) the BERT slice at full width through
+              ``main_bert.build_trainer``: BERT-base, P = 4 workers, bs 8
+              each, seq 128, dropout 0.1, oktopk at d = 0.01 with the BERT
+              cadences, BertAdam; five steps (the first the exact
+              recompute and repartition), launch counters set to 0 just
+              before and read just after; then ``_repartition`` at this
+              size, its flattened scan against the row-wise one.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -757,14 +775,361 @@ def phase_step_options(dev):
     return summary["launches"]
 
 
-def kernel_line(timings, errs, by_path, edge_err):
+N_BERT = 110106428            # BERT-base's flat parameter count
+
+
+def phase_bert_kernels(dev, n: int = N_BERT):
+    """K1 and the compaction's two oktopk forms at BERT-base's flat size,
+    on rows of [4, n] buffers (row 3: its first byte lies 1.32 GB into the
+    buffer), held bit-equal to their plain versions and timed like the
+    VGG-16 forms: the sweep; phase (a)'s pack, R = 4, cap_pair, on its acc
+    at ~1% density; phase (b)'s select, R = 1, cap_exact, on a reduced
+    row nonzero in one quarter."""
+    import torch
+    from oktopk_tpu_torch.config import OkTopkConfig
+    from oktopk_tpu_torch.ops import compaction, fused_select
+
+    cfg = OkTopkConfig(n=n, num_workers=4, density=0.01)
+    P = cfg.num_workers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    gbuf = torch.randn((P, n), generator=gen, device=dev)
+    rbuf = 0.05 * torch.randn((P, n), generator=gen, device=dev)
+    g, r = gbuf[P - 1], rbuf[P - 1]
+    tt = torch.full((), 2.576, dtype=torch.float32, device=dev)  # ~1%
+    tp = tt * 1.25
+    bnd = region_bounds(n, dev)
+    st = fused_select.fused_select_stage(g, r, tt, tp)
+    ref = fused_select.fused_select_plain(g, r, tt, tp)
+    err = {"bert_sweep": max(bits_equal(getattr(st, f), getattr(ref, f),
+                                        f"bert sweep: {f}")
+                             for f in ("acc", "local_count", "probe_count",
+                                       "hist"))}
+    del ref
+    acc = st.acc
+    xb, tb = phase_b_input(n, cfg.cap_exact, dev)
+    forms = {
+        "bert_sweep": {
+            "kernel": lambda: fused_select.fused_select_stage(g, r, tt, tp),
+            "plain": lambda: fused_select.fused_select_plain(g, r, tt, tp),
+            "expect": K1_LAUNCHES,
+            "bound_ms": (12 * n + 8 + 4 * 258) / HBM_BYTES_PER_S * 1e3},
+        "bert_pack_a": {
+            "R": P, "cap": cfg.cap_pair,
+            "kernel": lambda: fused_select.fused_pack_finalize(
+                st, bnd, P, cfg.cap_pair),
+            "plain": lambda: compaction.pack_by_region_plain(
+                acc, tt, bnd, P, cfg.cap_pair),
+            "library": lambda: library_call(acc, tt),
+            "expect": COMPACTION_LAUNCHES,
+            "bound_ms": compaction_bound_ms(n, P, cfg.cap_pair, True)},
+        "bert_select_b": {
+            "R": 1, "cap": cfg.cap_exact,
+            "kernel": lambda: compaction.select_by_threshold(
+                xb, tb, cfg.cap_exact),
+            "plain": lambda: compaction.select_by_threshold_plain(
+                xb, tb, cfg.cap_exact),
+            "library": lambda: library_call(xb, tb),
+            "expect": COMPACTION_LAUNCHES,
+            "bound_ms": compaction_bound_ms(n, 1, cfg.cap_exact, False)},
+    }
+    for nm in ("bert_pack_a", "bert_select_b"):
+        err[nm] = triples_equal(forms[nm]["kernel"](), forms[nm]["plain"](),
+                                nm)
+    torch.cuda.synchronize()
+    emit({"phase": "bert_kernels", "n": n, "P": P, "k": cfg.k,
+          "local_count": int(st.local_count),
+          "survivors_b": int((xb.abs() >= tb).sum()), "bit_equal": True,
+          "max_abs_err": err})
+    timings = {}
+    for nm, f in forms.items():
+        rec = {k: v for k, v in f.items() if k in ("R", "cap", "bound_ms")}
+        rec["kernel"] = timing(f["kernel"], f["expect"])
+        for which in ("plain", "library"):
+            if which in f:
+                rec[which] = timing(f[which])
+        timings[nm] = rec
+        emit({"phase": "kernel_times", "form": nm, "n": n, **rec})
+    del gbuf, rbuf, st, acc, xb
+    torch.cuda.empty_cache()
+    return timings, err
+
+
+def bert_tiny_weights(seed: int):
+    """A ``bert_tiny`` state_dict (dropout 0) drawn on the CPU."""
+    import torch
+    from oktopk_tpu_torch.models import create_model
+    m = create_model("bert_tiny", dropout=0.0)
+    m.init_weights(torch.Generator().manual_seed(seed))
+    return m.state_dict()
+
+
+def phase_bert_parity(dev):
+    """``bert_tiny`` (dropout 0) from the same weights and the same
+    synthetic batch (padded attention mask) on the card and on the CPU:
+    logits (rtol 1e-4, atol 2e-5 of the largest), loss (rtol 1e-5) and the
+    flat gradient in JAX leaf order (atol 2e-5 of the largest) agree, TF32
+    off; then three oktopk steps, P = 4, cadence 2 (exact, predicted,
+    exact), from the same weights: losses finite and within rtol 1e-5, and
+    where both selected the same elements (the nonzeros of the reduced
+    gradient) the volumes equal."""
+    import numpy as np
+    import torch
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.models import create_model
+    from oktopk_tpu_torch.models.layout import to_jax_layout
+    from oktopk_tpu_torch.train.losses import bert_pretrain_loss
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    sd = bert_tiny_weights(SEED)
+    rng = np.random.RandomState(SEED)
+    batches = [synthetic_batch("bert_tiny", 16, rng) for _ in range(4)]
+    for b in batches:
+        b["attention_mask"][1::3, 20:] = 0
+    b = batches[0]
+    out = {}
+    for where in ("cpu", dev):
+        m = create_model("bert_tiny", dropout=0.0)
+        m.load_state_dict(sd)
+        m = m.to(where)
+        t = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+        mlm, nsp = m(t["input_ids"], t["token_type_ids"],
+                     t["attention_mask"], train=True)
+        loss = bert_pretrain_loss(mlm, nsp, t["mlm_labels"],
+                                  t["nsp_labels"])[0]
+        loss.backward()
+        grad = torch.cat([to_jax_layout(p.grad, lay).reshape(-1)
+                          for _, p, lay in m.jax_leaves()])
+        out[str(where)] = [x.detach().cpu() for x in (mlm, nsp, loss, grad)]
+    (c_mlm, c_nsp, c_loss, c_grad), (g_mlm, g_nsp, g_loss, g_grad) = (
+        out["cpu"], out[str(dev)])
+    errs = {}
+    for nm, a, w, rtol, atol in (
+            ("mlm_logits", g_mlm, c_mlm, 1e-4, 2e-5),
+            ("nsp_logits", g_nsp, c_nsp, 1e-4, 2e-5),
+            ("flat_grad", g_grad, c_grad, 0.0, 2e-5)):
+        scale = float(w.abs().max())
+        errs[nm] = float((a - w).abs().max())
+        if not torch.allclose(a, w, rtol=rtol, atol=atol * scale):
+            raise AssertionError(f"bert_parity {nm}: max abs err "
+                                 f"{errs[nm]} (largest {scale})")
+    errs["loss"] = abs(float(g_loss) - float(c_loss))
+    if errs["loss"] > 1e-5 * abs(float(c_loss)):
+        raise AssertionError(f"bert_parity loss: {float(g_loss)} vs "
+                             f"{float(c_loss)}")
+
+    algo = OkTopkConfig(warmup_steps=0, local_recompute_every=2,
+                        global_recompute_every=2, repartition_every=2)
+    cfg = TrainConfig(dnn="bert_tiny", batch_size=4, lr=4e-4,
+                      density=0.02, num_workers=4, seed=SEED,
+                      total_steps=10, warmup_proportion=0.1)
+    trainers, selected = {}, {}
+    for where in ("cpu", dev):
+        tr = Trainer(cfg, algo_cfg=algo, device=where,
+                     model_kwargs={"dropout": 0.0})
+        tr.model.load_state_dict(sd)
+        trainers[str(where)] = tr
+
+        def step(flat, inner=tr.grad_step, key=str(where)):
+            reduced, metrics = inner(flat)
+            selected[key] = (reduced != 0).cpu()
+            return reduced, metrics
+
+        tr.grad_step = step
+    steps = []
+    for s, bt in enumerate(batches[1:]):
+        ms = {w: tr.train_step(bt) for w, tr in trainers.items()}
+        lc, lg = float(ms["cpu"]["loss"]), float(ms[str(dev)]["loss"])
+        if not (math.isfinite(lc) and math.isfinite(lg)):
+            raise AssertionError(f"bert_parity step {s}: loss {lg} / {lc}")
+        if abs(lg - lc) > 1e-5 * abs(lc):
+            raise AssertionError(f"bert_parity step {s}: loss {lg} vs {lc}")
+        differ = int((selected["cpu"] != selected[str(dev)]).sum())
+        same = differ == 0
+        vc, vg = (float(ms[w]["comm_volume"]) for w in ("cpu", str(dev)))
+        if same and vc != vg:
+            raise AssertionError(f"bert_parity step {s}: selections agree, "
+                                 f"volumes {vg} vs {vc}")
+        steps.append({"step": s, "loss_card": lg, "loss_cpu": lc,
+                      "volume_card": vg, "volume_cpu": vc,
+                      "selections_agree": same,
+                      "selected_elements_differ": differ})
+    pdiff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(trainers[str(dev)].params,
+                                trainers["cpu"].params))
+    emit({"phase": "bert_parity", "model": "bert_tiny",
+          "n": trainers["cpu"].algo_cfg.n, "max_abs_err": errs,
+          "steps": steps, "params_max_abs_diff_after_3_steps": pdiff})
+    return errs
+
+
+def repartition_rowwise(abs_acc, local_thresh, cfg, comm):
+    """``collectives/oktopk.py::_repartition`` as it was, with PyTorch's
+    row-wise scan (the yardstick for the flattened one)."""
+    import torch
+    P, n = cfg.num_workers, cfg.n
+    mask = abs_acc >= local_thresh[:, None]
+    csum = torch.cumsum(mask, 1, dtype=torch.int32)
+    total = csum[:, -1]
+    steps = torch.arange(1, P, dtype=torch.int32, device=abs_acc.device)
+    targets = (steps[None, :] * total[:, None]).to(torch.float32) / P
+    interior = torch.searchsorted(csum.to(torch.float32), targets,
+                                  side="left").to(torch.float32)
+    avg = comm.psum(interior) / P
+    interior_i = torch.clamp(torch.round(avg).to(torch.int32), 0, n)
+    interior_i = torch.sort(interior_i, dim=1).values
+    zeros = torch.zeros((abs_acc.shape[0], 1), dtype=torch.int32,
+                        device=abs_acc.device)
+    return torch.cat([zeros, interior_i, zeros + n], dim=1)
+
+
+class StepClock:
+    """CUDA events around the trainer's collective: each step splits into
+    forward/backward with the flat-gradient copy, the collective, and the
+    optimizer update."""
+
+    def __init__(self, trainer):
+        import torch
+        self.torch, self.marks = torch, {}
+        self.inner = inner = trainer.grad_step
+
+        def step(flat):
+            self.mark("collective_start")
+            out = inner(flat)
+            self.mark("collective_end")
+            return out
+
+        trainer.grad_step = step
+
+    def mark(self, name):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks[name] = ev
+
+    def split(self):
+        m = self.marks
+        return {"fwd_bwd_ms": m["start"].elapsed_time(m["collective_start"]),
+                "collective_ms": m["collective_start"].elapsed_time(
+                    m["collective_end"]),
+                "optimizer_ms": m["collective_end"].elapsed_time(m["end"]),
+                "device_ms": m["start"].elapsed_time(m["end"])}
+
+
+def phase_bert_trainer(dev, steps: int = 5):
+    """The slice at full width through the CLI's own
+    ``main_bert.build_trainer``: BERT-base (n = 110,106,428), P = 4
+    workers stacked on the card, bs 8 per worker (global batch 32), seq
+    128, dropout 0.1, oktopk at d = 0.01 with ``_bert_algo_cfg`` (no dense
+    warmup: step 1 is the exact recompute and the repartition, steps 2-5
+    predicted), BertAdam; launch counters set to 0 just before the steps
+    and read just after. Then ``_repartition`` at this size, flattened
+    scan against the row-wise one."""
+    import torch
+    from oktopk_tpu_torch.collectives.oktopk import _repartition
+    from oktopk_tpu_torch.ops import compaction, fused_select
+    from oktopk_tpu_torch.train import main_bert
+
+    args = main_bert.parse_args(["--model", "bert_base", "--num-workers",
+                                 "4", "--num-minibatches", str(steps),
+                                 "--seed", str(SEED)])
+    t0 = time.perf_counter()
+    trainer, data = main_bert.build_trainer(args)
+    build_s = time.perf_counter() - t0
+    n = trainer.algo_cfg.n
+    if n != N_BERT:
+        raise AssertionError(f"BERT-base has {n} parameters")
+    batches = [next(data) for _ in range(steps)]
+    clock = StepClock(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    compaction.LAUNCHES = 0
+    fused_select.LAUNCHES = 0
+    recs = []
+    for s, b in enumerate(batches):
+        clock.mark("start")
+        t0 = time.perf_counter()
+        m = trainer.train_step(b)
+        clock.mark("end")
+        torch.cuda.synchronize()
+        rec = {k: float(v) for k, v in m.items()}
+        rec.update(step=s + 1, ms=(time.perf_counter() - t0) * 1e3,
+                   **clock.split())
+        recs.append(rec)
+        emit({"phase": "bert_trainer", **rec})
+    launches = {"fused_select": fused_select.LAUNCHES,
+                "compaction": compaction.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for nm, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"bert_trainer: the {nm} kernel never "
+                                 "launched on the path")
+    for r in recs:
+        for k in ("loss", "mlm_loss", "nsp_loss"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"bert_trainer step {r['step']}: {k} "
+                                     f"{r[k]}")
+    for p in trainer.params:
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError("bert_trainer: non-finite parameter")
+
+    # the repartition at this size, on the last step's flat gradient
+    st = clock.inner.states[0]
+    abs_acc = (trainer.flat + st.residual).abs()
+    lt = st.local_threshold
+    cfg, comm = trainer.algo_cfg, trainer.comm
+    new = _repartition(abs_acc, lt, cfg, comm)
+    old = repartition_rowwise(abs_acc, lt, cfg, comm)
+    bits_equal(new, old, "repartition: flattened vs row-wise scan")
+    rep = {"flattened_ms": cuda_time_ms(
+               lambda: _repartition(abs_acc, lt, cfg, comm), iters=5,
+               warmup=1),
+           "rowwise_ms": cuda_time_ms(
+               lambda: repartition_rowwise(abs_acc, lt, cfg, comm), iters=5,
+               warmup=1),
+           "boundaries": [int(x) for x in new[0]]}
+    del abs_acc
+    sparse = recs[1:]
+    summary = {
+        "model": "bert_base", "n": n, "workers": 4, "global_batch": 32,
+        "seq": args.max_seq_length, "density": args.density,
+        "k": cfg.k, "steps": len(recs), "build_s": build_s,
+        "step_ms": [r["ms"] for r in recs],
+        "median_step_ms": statistics.median(r["ms"] for r in recs),
+        "median_predicted_step_ms": statistics.median(r["ms"]
+                                                      for r in sparse),
+        "median_collective_ms": statistics.median(r["collective_ms"]
+                                                  for r in recs),
+        "median_fwd_bwd_ms": statistics.median(r["fwd_bwd_ms"]
+                                               for r in recs),
+        "median_optimizer_ms": statistics.median(r["optimizer_ms"]
+                                                 for r in recs),
+        "losses": [r["loss"] for r in recs],
+        "mlm_losses": [r["mlm_loss"] for r in recs],
+        "nsp_losses": [r["nsp_loss"] for r in recs],
+        "volume": [r["comm_volume"] for r in recs],
+        "local_k": [r["local_k"] for r in recs],
+        "global_k": [r["global_k"] for r in recs],
+        "wire_bytes": [r["wire_bytes"] for r in recs],
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+        "launches_per_step": {k: v / len(recs) for k, v in launches.items()},
+        "repartition": rep}
+    emit({"phase": "bert_trainer_summary", **summary})
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_line(timings, errs, by_path, edge_err, bert_timings, bert_errs):
     """The ``{"kernels": [...]}`` entries at the main path's shapes (the
-    compaction's phase-(a) form; ``forms`` has every form). ``ms``,
-    ``plain_ms`` and ``library_ms`` are call times, CUDA events around
-    one call; the ``*device_ms`` keys are the device times of the same
-    calls under the profiler. ``launches`` counts the main path's
-    (oktopk's) run; ``launches_by_path`` every trainer run's
-    (``by_path``: {path: {kernel: launches}})."""
+    compaction's phase-(a) form; ``forms`` has every form), then the BERT
+    slice's forms at n = 110,106,428 (``bert_sweep``, ``bert_pack_a``,
+    ``bert_select_b``). ``ms``, ``plain_ms`` and ``library_ms`` are call
+    times, CUDA events around one call; the ``*device_ms`` keys are the
+    device times of the same calls under the profiler. ``launches`` counts
+    the main path's run (oktopk on VGG-16; the BERT forms: BERT-base's
+    run); ``launches_by_path`` every trainer run's (``by_path``: {path:
+    {kernel: launches}})."""
     def times(f):
         lib = f.get("library")
         return {"ms": f["kernel"]["call_ms"],
@@ -803,7 +1168,20 @@ def kernel_line(timings, errs, by_path, edge_err):
          **launches("compaction"),
          "max_abs_err": comp_err, "bit_equal": comp_err == 0.0,
          "bound_by": "bytes", **forms["pack_a"], "forms": forms},
-    ]
+    ] + [
+        {"name": form, "route": "cuda",
+         "source": f"oktopk_tpu_torch/csrc/{kernel}.cu", "replaces": tpu,
+         "launches": by_path["bert"][kernel],
+         "max_abs_err": bert_errs[form],
+         "bit_equal": bert_errs[form] == 0.0, "bound_by": "bytes", "n": N_BERT,
+         **{k: bert_timings[form][k] for k in ("R", "cap")
+            if k in bert_timings[form]},
+         **times(bert_timings[form])}
+        for form, kernel, tpu in (
+            ("bert_sweep", "fused_select", "oktopk_tpu/ops/fused_select.py:64"),
+            ("bert_pack_a", "compaction", "oktopk_tpu/ops/compaction.py:160"),
+            ("bert_select_b", "compaction",
+             "oktopk_tpu/ops/compaction.py:160"))]
 
 
 def main() -> int:
@@ -825,11 +1203,16 @@ def main() -> int:
     phase_build()
     timings, errs = phase_kernels(dev)
     edge_err = phase_edges(dev)
+    bert_timings, bert_errs = phase_bert_kernels(dev)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
+    phase_bert_parity(dev)
     by_path = {"oktopk": phase_trainer(dev), **phase_baselines_trainer(dev),
                "oktopk step options": phase_step_options(dev)}
-    kernels = kernel_line(timings, errs, by_path, edge_err)
+    torch.cuda.empty_cache()
+    by_path["bert"] = phase_bert_trainer(dev)
+    kernels = kernel_line(timings, errs, by_path, edge_err, bert_timings,
+                          bert_errs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -49,7 +49,7 @@ from oktopk_tpu_torch.ops.hist_threshold import (
     log2_hist,
 )
 from oktopk_tpu_torch.ops.select import scatter_rows
-from oktopk_tpu_torch.ops.topk import k2threshold_method
+from oktopk_tpu_torch.ops.topk import cumsum_rows, k2threshold_method
 
 _F32 = torch.float32
 
@@ -99,10 +99,12 @@ def _drift_update(lt_new, state: SparseState, cfg: OkTopkConfig):
 def _repartition(abs_acc, local_thresh, cfg: OkTopkConfig, comm):
     """Load-balanced region boundaries [W, P+1]: quantile cut points of the
     cumulative local hit count, averaged over the workers (a psum in rank
-    order of P float32 positions), rounded, sorted."""
+    order of P float32 positions), rounded, sorted. The row-wise count is
+    one scan of the flattened mask (``cumsum_rows``): bit-equal to a
+    row-wise cumsum, and far faster on the card for a few long rows."""
     P, n = cfg.num_workers, cfg.n
     mask = abs_acc >= local_thresh[:, None]
-    csum = torch.cumsum(mask, 1, dtype=torch.int32)
+    csum = cumsum_rows(mask, torch.int32)
     total = csum[:, -1]
     steps = torch.arange(1, P, dtype=torch.int32, device=abs_acc.device)
     targets = (steps[None, :] * total[:, None]).to(_F32) / P

@@ -2,7 +2,8 @@
 and the ``TrainConfig`` fields the port reads.
 
 Counterpart of ``oktopk_tpu/config.py`` (``OkTopkConfig`` :18-267,
-``scheduled_k`` :270-286, ``TrainConfig`` :304-478). The port imports
+``scheduled_k`` :270-286, ``TrainConfig`` :304-478; the BERT fields
+:329-337). The port imports
 nothing of ``oktopk_tpu``, so the fields are copied here; the parity tests
 hold both copies to the same defaults.
 
@@ -198,7 +199,18 @@ class TrainConfig:
     # fold momentum into the local gradient before compression; the SGD
     # update then runs momentum-free
     momentum_correction: bool = False
+    # BertAdam's warmup fraction and schedule length (0: constant lr)
+    warmup_proportion: float = 0.01
+    total_steps: int = 0
+    # the model's compute dtype; only float32 is ported
+    compute_dtype: str = "float32"
     num_buckets: int = 1
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {self.compute_dtype!r} is not ported yet "
+                "(float32 only; ROADMAP.md)")
 
     def experiment_slug(self) -> str:
         mode = "comp" if self.compressor != "dense" else "dense"

@@ -1,26 +1,88 @@
-"""Map the flax VGG variables onto the port's ``state_dict`` and back.
+"""Map the flax model variables onto the port's ``state_dict`` and back.
 
-``from_jax_params`` takes the flax ``params`` and ``batch_stats`` trees as
-nested dicts of numpy arrays and returns a ``state_dict`` for
-``models.vgg.VGG``: conv kernels HWIO -> OIHW, the Dense kernel
-[in, out] -> the Linear weight [out, in], BatchNorm ``scale``/``bias`` and
-the ``mean``/``var`` statistics by name. ``to_jax_params`` is its inverse
-(it also maps gradients, for the flat-gradient comparison).
+``from_jax_params`` takes the flax ``params`` (and, for VGG,
+``batch_stats``) trees as nested dicts of numpy arrays and returns a
+``state_dict``; ``to_jax_params`` is its inverse (it also maps gradients,
+for the flat-gradient comparison). Both dispatch on the family: a BERT
+pretraining tree has the top-level keys ``bert``, ``mlm_*`` and ``nsp``.
+
+- VGG (``models.vgg.VGG``): conv kernels HWIO -> OIHW, the Dense kernel
+  [in, out] -> the Linear weight [out, in], BatchNorm ``scale``/``bias``
+  and the ``mean``/``var`` statistics by name;
+- BERT (``models.bert.BertForPreTraining``): each flax path maps to one
+  ``state_dict`` key and layout (``models.bert.torch_key``): Dense
+  kernels transposed, ``DenseGeneral`` kernels, embedding tables and the
+  rest as they are.
 """
 
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from oktopk_tpu_torch.models.bert import flax_path, torch_key
+
 _CONV = re.compile(r"^Conv_(\d+)$")
 _BN = re.compile(r"^BatchNorm_(\d+)$")
 
 
+_BERT_ROOTS = ("bert", "mlm_bias", "mlm_dense", "mlm_ln", "nsp")
+
+
+def _is_bert_tree(params_np) -> bool:
+    return "bert" in params_np
+
+
+def _is_bert_state(tensors) -> bool:
+    return any(k.split(".")[0] in _BERT_ROOTS for k in tensors)
+
+
+def _tensor(a, layout: str) -> torch.Tensor:
+    a = np.asarray(a)
+    if layout == "linear":
+        a = a.T
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
+
+
+def bert_from_jax_params(params_np) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of ``BertForPreTraining`` from the flax params."""
+    sd = {}
+
+    def walk(tree, prefix):
+        for name, sub in tree.items():
+            path = f"{prefix}/{name}" if prefix else name
+            if isinstance(sub, Mapping):
+                walk(sub, path)
+            else:
+                key, layout = torch_key(path)
+                sd[key] = _tensor(sub, layout)
+
+    walk(params_np, "")
+    return sd
+
+
+def bert_to_jax_params(tensors: Dict[str, torch.Tensor]) -> dict:
+    """Inverse of ``bert_from_jax_params``: the flax params tree."""
+    params = {}
+    for key, t in tensors.items():
+        path, layout = flax_path(key)
+        a = t.detach().cpu().numpy()
+        node = params
+        parts = path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.ascontiguousarray(a.T if layout == "linear"
+                                               else a)
+    return params
+
+
 def from_jax_params(params_np, batch_stats_np=None) -> Dict[str, torch.Tensor]:
+    if _is_bert_tree(params_np):
+        return bert_from_jax_params(params_np)
     sd = {}
     for mod, leaves in params_np.items():
         m = _CONV.match(mod)
@@ -53,8 +115,11 @@ def from_jax_params(params_np, batch_stats_np=None) -> Dict[str, torch.Tensor]:
 
 def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
     """Inverse of ``from_jax_params``: (params, batch_stats) as nested
-    dicts of numpy arrays in the flax layout. Keys absent from
-    ``tensors`` are skipped, so a dict of gradients maps too."""
+    dicts of numpy arrays in the flax layout (``batch_stats`` empty for
+    BERT). Keys absent from ``tensors`` are skipped, so a dict of
+    gradients maps too."""
+    if _is_bert_state(tensors):
+        return bert_to_jax_params(tensors), {}
     params, stats = {}, {}
     for key, t in tensors.items():
         a = t.detach().cpu().numpy()

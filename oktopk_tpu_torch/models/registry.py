@@ -1,13 +1,18 @@
 """Model registry (counterpart of ``oktopk_tpu/models/registry.py``; the
-VGG entries only so far)."""
+VGG and BERT entries so far). BERT factories take ``BertConfig`` fields
+as keywords (``dropout=0.0``), as the JAX registry does."""
 
 from __future__ import annotations
 
+from oktopk_tpu_torch.models.bert import BertConfig, BertForPreTraining
 from oktopk_tpu_torch.models.vgg import VGG
 
 MODELS = {
     "vgg16": lambda **kw: VGG(name_cfg="vgg16", **kw),
     "vgg19": lambda **kw: VGG(name_cfg="vgg19", **kw),
+    "bert_base": lambda **kw: BertForPreTraining(BertConfig.base(**kw)),
+    "bert_large": lambda **kw: BertForPreTraining(BertConfig.large(**kw)),
+    "bert_tiny": lambda **kw: BertForPreTraining(BertConfig.tiny(**kw)),
 }
 
 

@@ -103,8 +103,9 @@ class VGG(nn.Module):
         """(flax path, parameter, layout) in ``jax.tree.flatten`` order:
         module names sorted as strings (all ``BatchNorm_*`` first, then
         ``Conv_*``, then ``Dense_0``), ``bias`` before ``kernel``/``scale``.
-        ``layout`` is how the JAX leaf relates to the torch tensor: "oihw"
-        (conv kernel, JAX HWIO), "linear" (JAX [in, out]) or "same"."""
+        ``layout`` is how the JAX leaf relates to the torch tensor
+        (``models/layout.py``): "oihw" (conv kernel, JAX HWIO), "linear"
+        (JAX [in, out]) or "same"."""
         mods = {}
         for i, m in enumerate(self.bns):
             mods[f"BatchNorm_{i}"] = [("bias", m.bias, "same"),
@@ -119,21 +120,3 @@ class VGG(nn.Module):
             for leaf, p, layout in mods[name]:
                 out.append((f"{name}/{leaf}", p, layout))
         return out
-
-
-def to_jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
-    """A torch parameter (or its gradient) in the JAX leaf's layout."""
-    if layout == "oihw":
-        return t.permute(2, 3, 1, 0)          # OIHW -> HWIO
-    if layout == "linear":
-        return t.t()                          # [out, in] -> [in, out]
-    return t
-
-
-def from_jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
-    """Inverse of ``to_jax_layout``."""
-    if layout == "oihw":
-        return t.permute(3, 2, 0, 1)          # HWIO -> OIHW
-    if layout == "linear":
-        return t.t()
-    return t

@@ -20,12 +20,15 @@ _WAYS = 8                 # brackets per pass (3 bits per data pass)
 _LOG_RANGE_BITS = 64.0    # dynamic range below max|x| the bracket covers
 
 
-def _cumsum_rows(m: torch.Tensor) -> torch.Tensor:
-    """Inclusive int64 cumsum of each row of ``m`` [..., n], taken as one
-    scan of the flattened tensor minus each row's start: CUDA scans a 1-D
-    tensor with one device-wide scan, but a few long rows with a row-wise
-    kernel that is far slower (PERF.md, section 5)."""
-    cs = torch.cumsum(m.reshape(-1), 0).view(m.shape)
+def cumsum_rows(m: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
+    """Inclusive integer cumsum of each row of ``m`` [..., n], taken as
+    one scan of the flattened tensor minus each row's start: CUDA scans a
+    1-D tensor with one device-wide scan, but a few long rows with a
+    row-wise kernel that is far slower (PERF.md, section 5). With
+    ``dtype=torch.int32`` the whole tensor's count must fit int32."""
+    if dtype == torch.int32 and m.numel() >= 2 ** 31:
+        raise ValueError(f"{m.numel()} elements overflow an int32 scan")
+    cs = torch.cumsum(m.reshape(-1), 0, dtype=dtype).view(m.shape)
     if m.dim() == 1:
         return cs
     rows = cs.reshape(-1, m.shape[-1])
@@ -48,10 +51,10 @@ def exact_topk(x: torch.Tensor, k: int):
     above = (absx > kth) | torch.isnan(absx)    # NaN ranks highest
     ties = absx == kth
     need = k - above.sum(-1, keepdim=True)
-    take = above | (ties & (_cumsum_rows(ties) <= need))
+    take = above | (ties & (cumsum_rows(ties) <= need))
     # pack the first k winners in index order (more only if k or more
     # NaNs); slot k catches the rest
-    pos = _cumsum_rows(take) - 1
+    pos = cumsum_rows(take) - 1
     pos = torch.where(take & (pos < k), pos, k)
     ids = torch.arange(n, device=x.device).expand_as(pos)
     idx = torch.empty(pos.shape[:-1] + (k + 1,), dtype=torch.int64,

@@ -1,7 +1,9 @@
 """Loss functions (counterpart of ``oktopk_tpu/train/losses.py``; the CNN
-cross entropy only so far)."""
+cross entropy and BERT's pretraining loss so far)."""
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -11,3 +13,19 @@ def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy over integer labels [B], computed in float32."""
     return F.cross_entropy(logits.to(torch.float32), labels.long())
+
+
+def bert_pretrain_loss(mlm_logits: torch.Tensor, nsp_logits: torch.Tensor,
+                       mlm_labels: torch.Tensor, nsp_labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked-LM cross entropy over the positions with a label >= 0,
+    divided by max(count, 1), plus the mean next-sentence cross entropy
+    (``oktopk_tpu/train/losses.py:44-55``). With no masked token the MLM
+    term is 0, not the NaN of ``F.cross_entropy(ignore_index=-1)``."""
+    mask = (mlm_labels >= 0).to(torch.float32)
+    safe = torch.clamp(mlm_labels, min=0).long()
+    per_tok = F.cross_entropy(mlm_logits.flatten(0, -2), safe.flatten(),
+                              reduction="none").view(mlm_labels.shape)
+    mlm = torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    nsp = F.cross_entropy(nsp_logits, nsp_labels.long())
+    return mlm + nsp, {"mlm_loss": mlm, "nsp_loss": nsp}

@@ -1,0 +1,131 @@
+"""Command-line entry point for BERT pretraining (MLM + NSP, BertAdam)
+with a sparse allreduce: the data-parallel path.
+
+Counterpart of ``oktopk_tpu/train/main_bert.py:22-182`` and
+``_bert_algo_cfg`` (:290-299): the same flags and defaults (bs 8 per
+worker, seq 128 (32 for ``bert_tiny``), BertAdam lr 2e-4 with a 1%
+warmup-linear schedule over ``--num-minibatches``, oktopk at density
+0.01 on the bf16 wire, no dense warmup), plus ``--num-workers`` (the P
+workers stacked on one device) and ``--device``. The data is the
+synthetic MLM/NSP stream the JAX package falls back to without Wikipedia
+shards. The pipeline, sequence- and expert-parallel paths, checkpoints,
+resume and preemption are not ported yet: their flags raise
+``NotImplementedError`` unless left at their defaults (ROADMAP.md).
+
+Example:
+    python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
+        --num-workers 4 --compressor oktopk --density 0.01 \\
+        --num-minibatches 1024
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from oktopk_tpu_torch.collectives.registry import list_algorithms
+
+# flag: its default; any other value needs a path the port lacks
+UNPORTED = {"pipeline_stages": 1, "seq_shards": 1, "expert_shards": 1,
+            "resume": None, "ckpt_dir": None, "handle_preemption": False}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model", default="bert_base",
+                   choices=["bert_base", "bert_large", "bert_tiny"])
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="per-worker microbatch (reference bs 8)")
+    p.add_argument("--max-seq-length", type=int, default=None,
+                   help="default: 128 (32 for bert_tiny)")
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--warmup-proportion", type=float, default=0.01)
+    p.add_argument("--num-minibatches", type=int, default=1024)
+    p.add_argument("--gradient-accumulation-steps", type=int, default=1)
+    p.add_argument("--compressor", default="oktopk",
+                   choices=list_algorithms())
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="only float32 is ported")
+    p.add_argument("--wire-dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--density", type=float, default=0.01)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--num-workers", type=int, default=1,
+                   help="data-parallel workers stacked on the device")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda)")
+    # the JAX package's other paths, not ported yet
+    p.add_argument("--pipeline-stages", type=int, default=1)
+    p.add_argument("--seq-shards", type=int, default=1)
+    p.add_argument("--expert-shards", type=int, default=1)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--resume", default=None)
+    p.add_argument("--handle-preemption", action="store_true")
+    args = p.parse_args(argv)
+    if args.max_seq_length is None:
+        args.max_seq_length = 32 if args.model == "bert_tiny" else 128
+    return args
+
+
+def _bert_algo_cfg(args, **kw):
+    """The BERT sparse-allreduce tuning: dense warmup off, recompute
+    cadences 128, repartition every 64, Newton scales 1.025 / 1.036 (one
+    definition for every BERT path, as in the JAX package)."""
+    from oktopk_tpu_torch.config import OkTopkConfig
+    return OkTopkConfig(
+        warmup_steps=0, local_recompute_every=128,
+        global_recompute_every=128, repartition_every=64,
+        local_adapt_scale=1.025, global_adapt_scale=1.036,
+        wire_dtype=args.wire_dtype, **kw)
+
+
+def build_trainer(args, model_kwargs=None):
+    """(Trainer, synthetic batch iterator) of the data-parallel path."""
+    from oktopk_tpu_torch.config import TrainConfig
+    from oktopk_tpu_torch.data import synthetic_iterator
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    for flag, default in UNPORTED.items():
+        if getattr(args, flag) != default:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to "
+                "oktopk_tpu_torch yet (ROADMAP.md)")
+    cfg = TrainConfig(
+        dnn=args.model, dataset="wikipedia", batch_size=args.batch_size,
+        lr=args.lr, compressor=args.compressor, density=args.density,
+        nsteps_update=args.gradient_accumulation_steps, seed=args.seed,
+        warmup_proportion=args.warmup_proportion,
+        compute_dtype=args.compute_dtype,
+        total_steps=args.num_minibatches, num_workers=args.num_workers)
+    trainer = Trainer(cfg, algo_cfg=_bert_algo_cfg(args), device=args.device,
+                      model_kwargs=model_kwargs)
+    global_bs = (args.batch_size * args.num_workers
+                 * args.gradient_accumulation_steps)
+    data = synthetic_iterator(args.model, global_bs, seed=args.seed,
+                              seq_len=args.max_seq_length)
+    return trainer, data
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    logger = logging.getLogger("oktopk_tpu_torch.bert")
+    trainer, data = build_trainer(args)
+    logger.info("BERT pretrain: %s, %d workers on %s, compressor=%s "
+                "density=%g", args.model, args.num_workers, trainer.device,
+                args.compressor, args.density)
+    logger.warning("synthetic MLM/NSP data (the Wikipedia loaders are not "
+                   "ported yet)")
+    m = trainer.train(data, args.num_minibatches, log_every=args.log_every,
+                      logger=logger)
+    if m:
+        logger.info("done: loss %.4f comm volume/step %.0f elems",
+                    m["loss"], m["comm_volume"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

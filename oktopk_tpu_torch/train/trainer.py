@@ -3,8 +3,9 @@
 Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``optim/distributed.py::build_sparse_grad_step`` that the port runs
 (init, ``train_step``, ``train``, the step options ``nsteps_update``,
-``grad_clip``, momentum correction and ``profile_norm``); the obs,
-resilience and autotune planes are not ported yet (ROADMAP.md).
+``grad_clip``, momentum correction and ``profile_norm``, and the
+workload dispatch of :98-107, :558-612 for VGG and BERT pretraining);
+the obs, resilience and autotune planes are not ported yet (ROADMAP.md).
 
 One step:
 1. each of the P workers runs forward/backward on its shard of the global
@@ -13,18 +14,28 @@ One step:
    (as the JAX step's ``lax.scan`` does); the sum and the loss are divided
    by ``nsteps_update``;
 2. its gradient is written into row p of a flat [P, n] buffer in the JAX
-   package's leaf order and layout (``VGG.jax_leaves``) — one n-scale
-   copy per worker — so buckets, regions and selections match the
+   package's leaf order and layout (the model's ``jax_leaves``) — one
+   n-scale copy per worker — so buckets, regions and selections match the
    reference's; with ``grad_clip`` each row is scaled by
    ``min(1, grad_clip / (||row|| + 1e-12))``;
 3. the sparse collective (``optim/distributed.py``) reduces it;
-4. SGD updates the (single, replicated) parameters from the result,
-   momentum-free under momentum correction (the momentum is then folded
-   into the compressed gradient stream).
+4. the optimizer updates the (single, replicated) parameters from the
+   result: SGD (VGG) leaf by leaf, momentum-free under momentum
+   correction (the momentum is then folded into the compressed gradient
+   stream); BertAdam (BERT) over the flat buffers.
 
-BatchNorm running statistics come from worker 0's microbatches, in
-order, as the JAX step returns them (``out_specs=P()`` takes shard 0).
-The reported loss is the mean of the P worker losses, added in rank
+The workload decides the loss and the optimizer, as in the JAX Trainer:
+- VGG: softmax cross entropy; BatchNorm running statistics come from
+  worker 0's microbatches, in order, as the JAX step returns them
+  (``out_specs=P()`` takes shard 0);
+- BERT (``dnn`` ``bert*``): the batch keys ``input_ids``,
+  ``token_type_ids``, ``attention_mask``, ``mlm_labels`` and
+  ``nsp_labels``; ``bert_pretrain_loss`` (``mlm_loss`` and ``nsp_loss``
+  join the metrics); no batch statistics; BertAdam with
+  ``t_total = cfg.total_steps or -1``; momentum correction ignored with
+  the JAX warning; dropout masks from one generator on the device,
+  seeded from ``cfg.seed``, drawn worker after worker.
+The reported losses are the means of the P worker losses, added in rank
 order.
 
 On the card TF32 is switched off for cuDNN convolutions and matmuls
@@ -38,6 +49,7 @@ from __future__ import annotations
 import logging
 import math
 import time
+import warnings
 from typing import Any, Dict, Iterable, Optional
 
 import torch
@@ -47,10 +59,13 @@ from oktopk_tpu_torch.comm import StackedComm
 from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
 from oktopk_tpu_torch.convert import from_jax_params
 from oktopk_tpu_torch.models import create_model
-from oktopk_tpu_torch.models.vgg import from_jax_layout, to_jax_layout
-from oktopk_tpu_torch.optim import SGD
+from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
+from oktopk_tpu_torch.optim import SGD, BertAdam
 from oktopk_tpu_torch.optim.distributed import SparseGradStep, flat_size
 from oktopk_tpu_torch.train import losses
+
+BERT_KEYS = ("input_ids", "token_type_ids", "attention_mask", "mlm_labels",
+             "nsp_labels")
 
 
 def _lecun_normal_(p: torch.Tensor, fan_in: int, gen: torch.Generator):
@@ -60,8 +75,8 @@ def _lecun_normal_(p: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 class Trainer:
-    """Data-parallel SGD over ``cfg.num_workers`` workers stacked on one
-    device, every gradient through ``cfg.compressor``."""
+    """Data-parallel training over ``cfg.num_workers`` workers stacked on
+    one device, every gradient through ``cfg.compressor``."""
 
     def __init__(self, cfg: TrainConfig,
                  algo_cfg: Optional[OkTopkConfig] = None, device=None,
@@ -73,14 +88,18 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
+        self.bert = cfg.dnn.startswith("bert")
         P = cfg.num_workers
         self.comm = StackedComm(P)
         model = create_model(cfg.dnn, **(model_kwargs or {}))
         gen = torch.Generator().manual_seed(cfg.seed)
-        for m in model.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
-                _lecun_normal_(m.weight, m.weight[0].numel(), gen)
-                torch.nn.init.zeros_(m.bias)
+        if self.bert:
+            model.init_weights(gen)
+        else:
+            for m in model.modules():
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                    _lecun_normal_(m.weight, m.weight[0].numel(), gen)
+                    torch.nn.init.zeros_(m.bias)
         self.model = model.to(self.device)
         self.leaves = self.model.jax_leaves()
         self.params = [p for _, p, _ in self.leaves]
@@ -93,11 +112,24 @@ class Trainer:
         n = flat_size(self.params)
         self.algo_cfg = (algo_cfg or OkTopkConfig()).replace(
             n=n, num_workers=P, density=cfg.density)
-        mc = cfg.momentum if cfg.momentum_correction else 0.0
-        self.optimizer = SGD(cfg.lr, momentum=0.0 if mc else cfg.momentum,
-                             weight_decay=cfg.weight_decay,
-                             nesterov=cfg.nesterov)
-        self.optimizer.init(self.params)
+        if self.bert:
+            if cfg.momentum_correction:
+                warnings.warn(
+                    "momentum_correction is an SGD-path feature (reference "
+                    "VGG/distributed_optimizer.py:56,81-88); ignored for "
+                    "BERT/Adam workloads", stacklevel=2)
+            mc = 0.0
+            self.optimizer = BertAdam(lr=cfg.lr, warmup=cfg.warmup_proportion,
+                                      t_total=cfg.total_steps or -1)
+            self.optimizer.init(n, self.device)
+            self.dropout_gen = torch.Generator(
+                device=self.device).manual_seed(cfg.seed)
+        else:
+            mc = cfg.momentum if cfg.momentum_correction else 0.0
+            self.optimizer = SGD(cfg.lr, momentum=0.0 if mc else cfg.momentum,
+                                 weight_decay=cfg.weight_decay,
+                                 nesterov=cfg.nesterov)
+            self.optimizer.init(self.params)
         self.grad_step = SparseGradStep(
             self.algo_cfg, self.comm, self.params, cfg.compressor,
             cfg.num_buckets, warmup=warmup, device=self.device,
@@ -108,14 +140,43 @@ class Trainer:
     def load_jax_variables(self, params_np, batch_stats_np=None) -> None:
         """Take the flax model's weights (``convert.from_jax_params``)."""
         sd = from_jax_params(params_np, batch_stats_np)
-        self.model.load_state_dict(sd, strict=batch_stats_np is not None)
+        self.model.load_state_dict(sd, strict=self.bert
+                                   or batch_stats_np is not None)
+
+    def _jax_views(self, flat: torch.Tensor):
+        """Each parameter's segment of the flat [n] ``flat``, viewed in the
+        torch layout."""
+        return [from_jax_layout(flat[s:e].view(shp), lay)
+                for (_, _, lay), shp, s, e in zip(
+                    self.leaves, self.jax_shapes, self.offsets[:-1],
+                    self.offsets[1:])]
 
     def _write_flat_grad(self, w: int) -> None:
-        row = self.flat[w]
-        for (_, p, lay), shp, s, e in zip(self.leaves, self.jax_shapes,
-                                          self.offsets[:-1],
-                                          self.offsets[1:]):
-            row[s:e].view(shp).copy_(to_jax_layout(p.grad, lay))
+        for view, p in zip(self._jax_views(self.flat[w]), self.params):
+            view.copy_(p.grad)
+
+    def _loss(self, mb, w: int):
+        """(loss, {aux metrics}) of worker ``w`` on microbatch ``mb``."""
+        if self.bert:
+            mlm, nsp = self.model(mb["input_ids"], mb["token_type_ids"],
+                                  mb["attention_mask"], train=True,
+                                  generator=self.dropout_gen)
+            return losses.bert_pretrain_loss(mlm, nsp, mb["mlm_labels"],
+                                             mb["nsp_labels"])
+        logits = self.model(mb["image"], train=True, update_stats=(w == 0))
+        return losses.softmax_cross_entropy(logits, mb["label"]), {}
+
+    @torch.no_grad()
+    def _apply_update(self, reduced: torch.Tensor) -> None:
+        if not self.bert:
+            self.optimizer.update(self.params, self._jax_views(reduced))
+            return
+        flat_p = torch.empty_like(reduced)
+        for view, p in zip(self._jax_views(flat_p), self.params):
+            view.copy_(p)
+        upd = self.optimizer.update(reduced, flat_p)
+        for view, p in zip(self._jax_views(upd), self.params):
+            p.add_(view)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One data-parallel step on a global batch (dict of arrays with a
@@ -123,27 +184,27 @@ class Trainer:
         device."""
         P = self.comm.size
         ns = self.cfg.nsteps_update
-        dev = self.device
-        images = torch.as_tensor(batch["image"]).to(dev)
-        labels = torch.as_tensor(batch["label"]).to(dev)
-        b = images.shape[0] // (P * ns)
-        if b * P * ns != images.shape[0]:
-            raise ValueError(f"global batch {images.shape[0]} is not a "
+        keys = BERT_KEYS if self.bert else ("image", "label")
+        data = {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
+        rows_total = data[keys[0]].shape[0]
+        b = rows_total // (P * ns)
+        if b * P * ns != rows_total:
+            raise ValueError(f"global batch {rows_total} is not a "
                              f"multiple of {P} workers x {ns} microbatches")
-        worker_losses = []
+        worker = []
         for w in range(P):
             for p in self.params:
                 p.grad = None
-            loss_w = 0.0
+            sums = {}
             for j in range(ns):      # autograd adds the microbatch grads
                 rows = slice((w * ns + j) * b, (w * ns + j + 1) * b)
-                logits = self.model(images[rows], train=True,
-                                    update_stats=(w == 0))
-                loss = losses.softmax_cross_entropy(logits, labels[rows])
+                loss, aux = self._loss({k: v[rows] for k, v in data.items()},
+                                       w)
                 loss.backward()
-                loss_w = loss_w + loss.detach()
+                for k, v in {"loss": loss, **aux}.items():
+                    sums[k] = sums.get(k, 0.0) + v.detach()
             self._write_flat_grad(w)
-            worker_losses.append(loss_w / ns)
+            worker.append({k: v / ns for k, v in sums.items()})
         if ns > 1:
             self.flat.div_(ns)
         if self.cfg.grad_clip is not None:
@@ -152,17 +213,16 @@ class Trainer:
             self.flat.mul_(torch.clamp(self.cfg.grad_clip / (norm + 1e-12),
                                        max=1.0))
         reduced, metrics = self.grad_step(self.flat)
-        grads = [from_jax_layout(reduced[s:e].view(shp), lay)
-                 for (_, _, lay), shp, s, e in zip(
-                     self.leaves, self.jax_shapes, self.offsets[:-1],
-                     self.offsets[1:])]
-        self.optimizer.update(self.params, grads)
+        self._apply_update(reduced)
         for p in self.params:
             p.grad = None
-        total = worker_losses[0]
-        for lw in worker_losses[1:]:
-            total = total + lw
-        return {"loss": total / P, **metrics}
+        means = {}
+        for k in worker[0]:
+            total = worker[0][k]
+            for wm in worker[1:]:
+                total = total + wm[k]
+            means[k] = total / P
+        return {**means, **metrics}
 
     def train(self, data_iter: Iterable, num_iters: int, log_every: int = 50,
               logger: Optional[logging.Logger] = None,

@@ -1,13 +1,20 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training step on one GPU.
 
-Runs ``oktopk_tpu_torch``'s Trainer at VGG-16 full width with P workers
-stacked on the card (the ``chip_smoke.py`` trainer configuration by
-default), then over ``--steps`` steady-state steps reports, as JSON lines:
+Runs ``oktopk_tpu_torch``'s Trainer at full width with P workers stacked
+on the card: VGG-16 (the ``chip_smoke.py`` trainer configuration, by
+default) or, with ``--model bert_base``, BERT-base pretraining as
+``main_bert.build_trainer`` builds it (the ``chip_smoke.py`` bert_trainer
+configuration: bs 8 per worker, seq 128, d = 0.01, the BERT cadences, no
+dense warmup). It profiles the first sparse step on its own (``kernels``
+line with ``"window": "first"``: for BERT the exact recompute and the
+repartition), then over ``--steps`` steady-state steps reports, as JSON
+lines:
 
 - ``phases``: per step, the device-clock time (CUDA events, synchronised
   per step) of forward/backward + flat-gradient copy, the sparse
-  collective, and the SGD update; and the host wall clock of the step;
+  collective, and the optimizer update (SGD, or BertAdam with its flat
+  copies); and the host wall clock of the step;
 - ``kernels``: ``torch.profiler`` device time by kernel name, per step,
   the top ``--top`` and the port's own two kernels, with the device busy
   share of the profiled window (busy = summed kernel time / wall time);
@@ -19,6 +26,7 @@ separated, default oktopk); each gets its ``phases`` and ``kernels``
 lines. Needs a CUDA device. Example:
 
     python3 scripts/port_profile.py --steps 4 --compressors oktopk,topkA
+    python3 scripts/port_profile.py --model bert_base --steps 3
 """
 
 from __future__ import annotations
@@ -42,16 +50,32 @@ def emit(obj):
 
 
 def build_trainer(args, compressor):
+    """(trainer, batches, warmup steps) for ``args.model``."""
+    import numpy as np
     import torch
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.data import synthetic_batch
     from oktopk_tpu_torch.train.trainer import Trainer
+    steps = args.steps + 2
+    if args.model.startswith("bert"):
+        from oktopk_tpu_torch.train import main_bert
+        bargs = main_bert.parse_args([
+            "--model", args.model, "--num-workers", str(args.workers),
+            "--batch-size", str(args.batch // args.workers),
+            "--num-minibatches", str(steps), "--compressor", compressor,
+            "--density", str(args.density), "--seed", "0"])
+        trainer, data = main_bert.build_trainer(bargs)
+        return trainer, [next(data) for _ in range(steps)], 0
     cfg = TrainConfig(dnn="vgg16", batch_size=args.batch // args.workers,
                       lr=0.1, density=args.density, num_workers=args.workers,
                       compressor=compressor, seed=0)
     algo = OkTopkConfig(warmup_steps=1, local_recompute_every=1,
                         global_recompute_every=args.global_every,
                         threshold_method=args.threshold_method)
-    return Trainer(cfg, algo_cfg=algo, device=torch.device("cuda"))
+    rng = np.random.RandomState(0)
+    return (Trainer(cfg, algo_cfg=algo, device=torch.device("cuda")),
+            [synthetic_batch("vgg16", args.batch, rng) for _ in range(steps)],
+            1)
 
 
 class PhaseClock:
@@ -70,10 +94,11 @@ class PhaseClock:
             self._mark("collective_end")
             return out
 
-        def update(params, grads):
+        def update(*a):
             self._mark("optimizer_start")
-            inner_upd(params, grads)
+            out = inner_upd(*a)
             self._mark("optimizer_end")
+            return out
 
         trainer.grad_step = step
         trainer.optimizer.update = update
@@ -102,24 +127,69 @@ class PhaseClock:
                     ev["optimizer_end"])}
 
 
+def profile_window(trainer, batches, args, comp, window):
+    """Emit the ``kernels`` line of ``batches`` run under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            trainer.train_step(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = {}
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0)
+        if dt and e.device_type == torch.autograd.DeviceType.CUDA:
+            kern[e.key] = (kern.get(e.key, (0.0, 0))[0] + dt / 1e3,
+                           kern.get(e.key, (0.0, 0))[1] + e.count)
+    busy = sum(v[0] for v in kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:args.top]
+    own = {k: v for k, v in kern.items()
+           if any(o in k for o in OWN_KERNELS)}
+    n = len(batches)
+    emit({"compressor": comp, "window": window, "steps": n, "kernels": [
+        {"name": k[:90], "ms_per_step": v[0] / n, "calls_per_step": v[1] / n,
+         "share_of_busy": v[0] / busy if busy else None}
+        for k, v in top],
+        "own": {k: {"ms_per_step": v[0] / n, "calls_per_step": v[1] / n}
+                for k, v in own.items()},
+        "distinct_kernels": len(kern),
+        "kernel_launches_per_step": sum(v[1] for v in kern.values()) / n,
+        "device_busy_ms_per_step": busy / n,
+        "wall_ms_per_step": wall / n,
+        "device_busy_share": busy / wall if wall else None})
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model", default="vgg16",
+                   choices=["vgg16", "bert_base", "bert_tiny"])
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--workers", type=int, default=4)
-    p.add_argument("--batch", type=int, default=64, help="global batch")
-    p.add_argument("--density", type=float, default=0.02)
+    p.add_argument("--batch", type=int, default=None,
+                   help="global batch (default: 64 for VGG-16, 8 per "
+                        "worker for BERT)")
+    p.add_argument("--density", type=float, default=None,
+                   help="default: 0.02 for VGG-16, 0.01 for BERT")
     p.add_argument("--global-every", type=int, default=4)
     p.add_argument("--threshold-method", default="bisect")
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--compressors", default="oktopk",
                    help="comma-separated sparse compressors to profile")
     args = p.parse_args()
+    bert = args.model.startswith("bert")
+    if args.batch is None:
+        args.batch = 8 * args.workers if bert else 64
+    if args.density is None:
+        args.density = 0.01 if bert else 0.02
     names = [c for c in args.compressors.split(",") if c]
 
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from oktopk_tpu_torch.data import synthetic_batch
 
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -128,56 +198,27 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     emit({"card": smi, "torch": torch.__version__, **vars(args)})
-    rng = np.random.RandomState(0)
-    batches = [synthetic_batch("vgg16", args.batch, rng)
-               for _ in range(args.steps + 2)]
 
     results = {}
     for comp in names + ["dense"]:
-        trainer = build_trainer(args, comp)
+        trainer, batches, warm = build_trainer(args, comp)
         clock = PhaseClock(trainer)
-        for b in batches[:2]:                 # dense warmup + first sparse
+        for b in batches[:warm]:                    # dense warmup steps
             clock.run(trainer, b)
-        rows = [clock.run(trainer, b) for b in batches[2:]]
+        if comp == "dense":
+            clock.run(trainer, batches[warm])
+        else:                          # the first sparse step on its own
+            profile_window(trainer, batches[warm:warm + 1], args, comp,
+                           "first")
+        rows = [clock.run(trainer, b) for b in batches[warm + 1:]]
         results[comp] = rows
         summ = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
         emit({"phases": comp, "per_step": rows, "median": summ})
-        if comp == "dense":
-            continue
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for b in batches[2:]:
-                trainer.train_step(b)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kern = {}
-        for e in prof.key_averages():
-            dt = getattr(e, "self_device_time_total", None)
-            if dt is None:
-                dt = getattr(e, "self_cuda_time_total", 0)
-            if dt and e.device_type == torch.autograd.DeviceType.CUDA:
-                kern[e.key] = (kern.get(e.key, (0.0, 0))[0] + dt / 1e3,
-                               kern.get(e.key, (0.0, 0))[1] + e.count)
-        busy = sum(v[0] for v in kern.values())
-        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:args.top]
-        own = {k: v for k, v in kern.items()
-               if any(o in k for o in OWN_KERNELS)}
-        emit({"compressor": comp, "kernels": [
-            {"name": k[:90], "ms_per_step": v[0] / args.steps,
-             "calls_per_step": v[1] / args.steps,
-             "share_of_busy": v[0] / busy if busy else None}
-            for k, v in top],
-            "own": {k: {"ms_per_step": v[0] / args.steps,
-                        "calls_per_step": v[1] / args.steps}
-                    for k, v in own.items()},
-            "distinct_kernels": len(kern),
-            "kernel_launches_per_step": sum(v[1] for v in kern.values())
-            / args.steps,
-            "device_busy_ms_per_step": busy / args.steps,
-            "wall_ms_per_step": wall / args.steps,
-            "device_busy_share": busy / wall if wall else None})
+        if comp != "dense":
+            profile_window(trainer, batches[warm + 1:], args, comp,
+                           "steady")
+        del trainer, clock
+        torch.cuda.empty_cache()
     wall = {c: statistics.median(r["wall_ms"] for r in rows)
             for c, rows in results.items()}
     emit({"ab": {"dense_wall_ms": wall["dense"],

@@ -175,6 +175,53 @@ def test_stacked_comm_matches_jax_collectives(mesh8):
     np.testing.assert_array_equal(comm.rank("cpu").numpy(), np.arange(P))
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 1001), torch.int32), ((3, 7), torch.int64), ((1, 50), torch.int32),
+    ((2, 3, 40), torch.int64), ((513,), torch.int32)])
+def test_cumsum_rows_equals_the_row_wise_scan(shape, dtype):
+    """One scan of the flattened mask less each row's start is bit-equal
+    to the row-wise cumsum (``_repartition`` and ``exact_topk`` use it)."""
+    from oktopk_tpu_torch.ops.topk import cumsum_rows
+    m = torch.from_numpy(np.random.RandomState(3).rand(*shape) < 0.4)
+    got = cumsum_rows(m, dtype)
+    want = torch.cumsum(m, -1, dtype=dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,density", [(4099, 0.02), (1 << 14, 0.3),
+                                       (1000, 0.0)])
+def test_repartition_matches_jax(mesh8, n, density):
+    """The port's ``_repartition`` (flattened scan, rank-order psum)
+    against the JAX one under shard_map on the 8-device mesh: the same
+    boundaries, bit for bit, with skewed rows and a row with no hit."""
+    from jax.sharding import PartitionSpec as Ps
+    from oktopk_tpu.collectives.oktopk import _repartition as jax_rep
+    from oktopk_tpu.comm import compat
+    from oktopk_tpu_torch.collectives.oktopk import _repartition
+
+    P = 8
+    rng = np.random.RandomState(5)
+    a = np.abs(rng.randn(P, n)).astype(np.float32)
+    a[:, : n // 5] *= 3.0                     # hits crowd the first fifth
+    lt = np.array([np.sort(r)[-max(1, int(density * n))] for r in a],
+                  np.float32)
+    lt[3] = np.inf                            # a worker with no hit
+    cfg = JaxConfig(n=n, num_workers=P)
+
+    def body(x, t):
+        return jax_rep(x[0], t[0], cfg, "data")[None]
+
+    f = jax.jit(compat.shard_map(body, mesh=mesh8, in_specs=(Ps("data"),
+                                                             Ps("data")),
+                                 out_specs=Ps("data"), check_vma=False))
+    want = np.asarray(f(jnp.asarray(a), jnp.asarray(lt)))
+    got = _repartition(torch.from_numpy(a), torch.from_numpy(lt),
+                       OkTopkConfig(n=n, num_workers=P), StackedComm(P))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_init_state_matches_jax():
     from oktopk_tpu.collectives.state import init_state as jax_init
     for n, P in ((1000, 8), (1 << 15, 4), (7, 3)):

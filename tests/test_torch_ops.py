@@ -232,6 +232,20 @@ class TestConfig:
         tf = {f.name: f.default for f in dataclasses.fields(tcfg.OkTopkConfig)}
         assert jf == tf
 
+    def test_train_config_fields_and_defaults_match(self):
+        """Every field of the port's TrainConfig is a JAX TrainConfig
+        field with the same default, the BERT ones included."""
+        jf = {f.name: f.default for f in dataclasses.fields(jcfg.TrainConfig)}
+        tf = {f.name: f.default for f in dataclasses.fields(tcfg.TrainConfig)}
+        assert {"warmup_proportion", "total_steps", "compute_dtype"} <= set(tf)
+        assert tf == {k: jf[k] for k in tf}
+
+    def test_train_config_serves_float32_only(self):
+        assert tcfg.TrainConfig(compute_dtype="float32").compute_dtype \
+            == "float32"
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tcfg.TrainConfig(compute_dtype="bfloat16")
+
     @pytest.mark.parametrize("kw", [
         dict(n=14728266, num_workers=4, density=0.02),
         dict(n=1 << 15, num_workers=8, density=0.01),

@@ -27,6 +27,7 @@ import oktopk_tpu.models.vgg as jax_vgg
 import oktopk_tpu_torch.models.registry as torch_registry
 import oktopk_tpu_torch.models.vgg as torch_vgg
 from oktopk_tpu_torch.convert import from_jax_params, to_jax_params
+from oktopk_tpu_torch.models.layout import to_jax_layout
 
 NARROW = [8, "M", 16, "M", 16, "M"]
 
@@ -79,7 +80,7 @@ def test_bucket_partition_matches_jax(num_buckets):
     from oktopk_tpu_torch.optim.distributed import (bucket_partition,
                                                     bucket_sizes)
     model = torch_vgg.VGG(name_cfg="vgg16")
-    leaves = [torch_vgg.to_jax_layout(p, lay) for _, p, lay in
+    leaves = [to_jax_layout(p, lay) for _, p, lay in
               model.jax_leaves()]
     tree = {str(i).zfill(3): np.zeros(tuple(t.shape), np.float32)
             for i, t in enumerate(leaves)}
@@ -95,7 +96,7 @@ def test_jax_leaf_order_matches_tree_flatten(narrow):
     model = torch_vgg.VGG(name_cfg="vgg_narrow")
     got = [name for name, _, _ in model.jax_leaves()]
     assert got == paths
-    shapes = [tuple(torch_vgg.to_jax_layout(p, lay).shape)
+    shapes = [tuple(to_jax_layout(p, lay).shape)
               for _, p, lay in model.jax_leaves()]
     assert shapes == [np.asarray(x).shape for x in jax.tree.leaves(params)]
     full = torch_vgg.VGG(name_cfg="vgg16")
@@ -149,7 +150,7 @@ def test_flat_gradient_in_jax_order(narrow):
     loss = softmax_cross_entropy(tm(torch.from_numpy(b["image"])),
                                  torch.from_numpy(b["label"]))
     loss.backward()
-    got = torch.cat([torch_vgg.to_jax_layout(p.grad, lay).reshape(-1)
+    got = torch.cat([to_jax_layout(p.grad, lay).reshape(-1)
                      for _, p, lay in tm.jax_leaves()]).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0,
