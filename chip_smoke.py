@@ -71,7 +71,26 @@ and prints one JSON line per phase:
               cadences, BertAdam; five steps (the first the exact
               recompute and repartition), launch counters set to 0 just
               before and read just after; then ``_repartition`` at this
-              size, its flattened scan against the row-wise one.
+              size, its flattened scan against the row-wise one;
+12. dist_allreduce — one worker per process: every case of
+              ``dist_cases`` (oktopk fused and unfused, each baseline,
+              topkSA with a dense-fallback step; bf16 wire, n = 2^20) run
+              by four gloo processes on the one card (NCCL refuses two
+              ranks on one device), each a ``ProcessGroupComm`` rank,
+              every rank's results and state bit-equal to the stacked
+              comm's row on the card from the same seed; then one NCCL
+              process at world size 1 against ``StackedComm(1)``;
+13. dist_trainer — full-width VGG-16 through ``main_trainer.
+              build_trainer`` as four gloo ranks on the card against the
+              stacked Trainer from the same seed (one dense warmup step,
+              three oktopk steps, global batch 64, cuDNN deterministic):
+              losses and volumes equal, parameters and BatchNorm buffers
+              bit-equal on every rank, launch counters of each rank read
+              around its steps; then the ``torchrun`` CLI, four ranks of
+              three steps, exit 0 with rank 0's log lines. Spawned ranks
+              are joined by a deadline and killed past it, and the CLI
+              runs in its own session, killed whole on timeout: a rank
+              that dies or hangs fails the run.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -1120,6 +1139,422 @@ def phase_bert_trainer(dev, steps: int = 5):
     return launches
 
 
+# ---- one worker per process: phases 12 and 13 ----------------------------
+
+DIST_P = 4
+DIST_N = 1 << 20
+DIST_DEADLINE_S = 420        # a rank that dies or hangs fails the phase
+DIST_COLLECTIVE_TIMEOUT_S = 180
+
+
+def dist_cases():
+    """(name, registry name, config, per-step overrides) of the
+    ``dist_allreduce`` phase, all on the bf16 wire: oktopk fused and
+    unfused (cadences 2/2/3: step 0 recomputes and repartitions, step 1
+    predicts, step 2 recomputes), each baseline (cadence 2, exact top-k
+    thresholds), and topkSA whose first step takes the dense fallback
+    (density 1) and whose second does not."""
+    ok = dict(n=DIST_N, num_workers=DIST_P, density=0.02, warmup_steps=0,
+              local_recompute_every=2, global_recompute_every=2,
+              repartition_every=3, threshold_method="hist")
+    base = dict(n=DIST_N, num_workers=DIST_P, density=0.02, warmup_steps=0,
+                local_recompute_every=2, threshold_method="sort")
+    three = [{}, {}, {}]
+    return ([("oktopk", "oktopk", ok, three),
+             ("oktopk unfused", "oktopk", dict(ok, fuse_select=False),
+              three)]
+            + [(nm, nm, base, three) for nm in BASELINES]
+            + [("topkSA dense fallback", "topkSA",
+                dict(base, local_recompute_every=1), [{"density": 1.0},
+                                                      {}])])
+
+
+def dist_grads(steps: int, P: int, n: int):
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    base = rng.randn(P, n).astype(np.float32)
+    return [base + 0.3 * rng.randn(P, n).astype(np.float32)
+            for _ in range(steps)]
+
+
+def row_digests(arrays, row: int) -> dict:
+    """sha1 of the bytes of row ``row`` of each array."""
+    import hashlib
+    import numpy as np
+    return {k: hashlib.sha1(np.ascontiguousarray(v[row]).tobytes())
+            .hexdigest() for k, v in arrays.items()}
+
+
+def run_dist_case(case, comm, dev, P: int = DIST_P):
+    """The case's steps over ``comm`` from the fresh state, on this
+    process's gradient rows: per step, the host arrays of the result and
+    of every state field ([W, ...]) and the step's host ms."""
+    import torch
+    from oktopk_tpu_torch.collectives.api import build_allreduce_step
+    from oktopk_tpu_torch.collectives.state import init_state
+    from oktopk_tpu_torch.config import OkTopkConfig
+
+    _, algo, kw, steps = case
+    rows = slice(comm.first_worker, comm.first_worker + comm.local_workers)
+    grads = dist_grads(len(steps), P, kw["n"])
+    state = init_state(OkTopkConfig(**kw), comm.local_workers, dev)
+    out = []
+    for i, over in enumerate(steps):
+        step = build_allreduce_step(algo, OkTopkConfig(**dict(kw, **over)),
+                                    comm, warmup=False)
+        g = torch.from_numpy(grads[i][rows]).to(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res, state = step(g, state)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append(({"result": res.cpu().numpy(), **state.to_numpy()}, ms))
+    return out
+
+
+def dist_join(rank: int, world: int, tmp: str, backend: str, dev: str):
+    """Join a group of ``world`` over a file store in ``tmp`` (no port to
+    race for) through the launch layer; returns its comm."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from oktopk_tpu_torch import launch
+    from oktopk_tpu_torch.comm import ProcessGroupComm
+    # the variables torchrun would set; the rendezvous is the file store
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = f"file://{tmp}/store"
+    if world > 1:
+        launch.maybe_initialize(backend, dev, init_method=store,
+                                timeout_s=DIST_COLLECTIVE_TIMEOUT_S)
+    else:           # the launch layer leaves one process alone
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=store, rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=DIST_COLLECTIVE_TIMEOUT_S))
+    return ProcessGroupComm()
+
+
+def dist_guard(job, rank: int, tmp: str, *args):
+    """Run ``job`` as a rank: its JSON result to ``rank{r}.json``, or its
+    traceback to ``rank{r}.err`` and exit code 1."""
+    import os
+    import traceback
+    try:
+        res = job(rank, tmp, *args)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _allreduce_rank(rank: int, tmp: str, world: int, dev: str):
+    from oktopk_tpu_torch.ops import compaction, fused_select
+    comm = dist_join(rank, world, tmp, "gloo", dev)
+    out = {"backend": comm.backend, "cases": {}}
+    for case in dist_cases():
+        compaction.LAUNCHES = 0
+        fused_select.LAUNCHES = 0
+        steps = run_dist_case(case, comm, dev)
+        out["cases"][case[0]] = {
+            "digests": [row_digests(a, 0) for a, _ in steps],
+            "ms": [ms for _, ms in steps],
+            "launches": {"fused_select": fused_select.LAUNCHES,
+                         "compaction": compaction.LAUNCHES}}
+    return out
+
+
+def allreduce_rank(rank, tmp, world, dev):
+    """Spawn target: every ``dist_cases`` case as one gloo rank."""
+    dist_guard(_allreduce_rank, rank, tmp, world, dev)
+
+
+def _nccl_rank(rank: int, tmp: str, dev: str):
+    """World size 1 over NCCL: the comm's verbs with the path's dtypes and
+    three oktopk steps, each against ``StackedComm(1)``."""
+    import torch
+    from oktopk_tpu_torch.comm import StackedComm
+    comm = dist_join(rank, 1, tmp, "nccl", dev)
+    stacked = StackedComm(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((1, 1, 4096), generator=gen, device=dev)
+    idx = torch.randint(0, 1 << 20, (1, 1, 4096), generator=gen,
+                        device=dev, dtype=torch.int32)
+    verbs = {}
+    for nm, fn, t in (
+            ("psum f32", "psum", x[0]), ("psum i32", "psum", idx[0]),
+            ("psum i64", "psum", idx[0].long()),
+            ("all_gather bf16", "all_gather", x[0].bfloat16()),
+            ("all_gather i32", "all_gather", idx[0]),
+            ("all_to_all bf16", "all_to_all", x.bfloat16()),
+            ("all_to_all i32", "all_to_all", idx),
+            ("all_to_all i64", "all_to_all", idx.long())):
+        bits_equal(getattr(comm, fn)(t).float(),
+                   getattr(stacked, fn)(t).float(), f"nccl {nm}")
+        verbs[nm] = True
+    name, algo, kw, steps = dist_cases()[0]
+    case = (name, algo, dict(kw, num_workers=1), steps)
+    got = run_dist_case(case, comm, dev, P=1)
+    want = run_dist_case(case, stacked, dev, P=1)
+    for i, ((a, ms), (b, _)) in enumerate(zip(got, want)):
+        if row_digests(a, 0) != row_digests(b, 0):
+            raise AssertionError(f"nccl oktopk step {i} differs from "
+                                 "StackedComm(1)")
+    return {"backend": comm.backend, "verbs_bit_equal": verbs,
+            "oktopk_steps_bit_equal": len(got),
+            "oktopk_ms": [ms for _, ms in got]}
+
+
+def nccl_rank(rank, tmp, dev):
+    """Spawn target: the NCCL check at world size 1."""
+    dist_guard(_nccl_rank, rank, tmp, dev)
+
+
+def spawn_ranks(target, world: int, args, what: str):
+    """Run ``target(rank, tmp, *args)`` in ``world`` spawned processes and
+    join them by ``DIST_DEADLINE_S``; raise with the ranks' tracebacks if
+    any failed or hung (those still running are killed). Returns the
+    ranks' JSON results."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="oktopk_dist_") as tmp:
+        procs = [ctx.Process(target=target, args=(r, tmp) + tuple(args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()
+                for r in range(world)
+                if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
+        codes = [p.exitcode for p in procs]
+        if hung or errs or any(c != 0 for c in codes):
+            raise AssertionError(f"{what}: exit codes {codes}, hung ranks "
+                                 f"{hung}, errors {errs}")
+        return [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                for r in range(world)]
+
+
+def phase_dist_allreduce(dev):
+    """(a) Every ``dist_cases`` case on ``StackedComm(4)`` on the card in
+    this process, then in four gloo processes on the same card (NCCL
+    refuses two ranks on one device), each a ``ProcessGroupComm`` rank,
+    from the same seeded state: every rank's result, residual,
+    thresholds, boundaries, counts and volumes bit-equal (sha1 of their
+    bytes) to the stacked comm's row. (b) One NCCL process at world size
+    1 against ``StackedComm(1)``."""
+    from oktopk_tpu_torch.comm import StackedComm
+
+    t0 = time.perf_counter()
+    want = {}
+    for case in dist_cases():
+        steps = run_dist_case(case, StackedComm(DIST_P), dev)
+        want[case[0]] = [[row_digests(a, r) for r in range(DIST_P)]
+                         for a, _ in steps]
+    ranks = spawn_ranks(allreduce_rank, DIST_P, (DIST_P, str(dev)),
+                        "dist_allreduce gloo")
+    for name, per_step in want.items():
+        for r, res in enumerate(ranks):
+            got = res["cases"][name]["digests"]
+            for i, (g, w) in enumerate(zip(got, per_step)):
+                bad = sorted(k for k in w[r] if g[k] != w[r][k])
+                if bad:
+                    raise AssertionError(f"dist_allreduce {name} step {i} "
+                                         f"rank {r}: {bad} differ")
+    nccl = spawn_ranks(nccl_rank, 1, (str(dev),), "dist_allreduce nccl")[0]
+    emit({"phase": "dist_allreduce", "n": DIST_N, "P": DIST_P,
+          "backend": ranks[0]["backend"], "placement": f"4 ranks on {dev}",
+          "bit_equal_to_stacked": True,
+          "fields": sorted(next(iter(want.values()))[0][0]),
+          "cases": {nm: {"steps": len(per_step),
+                         "per_rank_step_ms": [res["cases"][nm]["ms"]
+                                              for res in ranks],
+                         "per_rank_launches": [res["cases"][nm]["launches"]
+                                               for res in ranks]}
+                    for nm, per_step in want.items()},
+          "nccl_world_1": nccl, "wall_s": time.perf_counter() - t0})
+
+
+def vgg_args(extra):
+    from oktopk_tpu_torch.train import main_trainer
+    return main_trainer.parse_args(
+        ["--dnn", "vgg16", "--batch-size", "16", "--seed", str(SEED),
+         "--warmup-steps", "1", "--max-iters", "4"] + extra)
+
+
+def run_vgg_steps(trainer, data, steps: int):
+    """``steps`` trainer steps, launch counters set to 0 just before and
+    read just after: per-step metrics and host ms, and the launches."""
+    import torch
+    from oktopk_tpu_torch.ops import compaction, fused_select
+    batches = [next(data) for _ in range(steps)]
+    torch.cuda.synchronize()
+    compaction.LAUNCHES = 0
+    fused_select.LAUNCHES = 0
+    recs = []
+    for b in batches:
+        t0 = time.perf_counter()
+        m = trainer.train_step(b)
+        torch.cuda.synchronize()
+        recs.append({**{k: float(v) for k, v in m.items()},
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    return recs, {"fused_select": fused_select.LAUNCHES,
+                  "compaction": compaction.LAUNCHES}
+
+
+def _trainer_rank(rank: int, tmp: str, world: int, dev: str,
+                  want_path: str):
+    import torch
+    from oktopk_tpu_torch.train import main_trainer
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist_join(rank, world, tmp, "gloo", dev)
+    trainer, data, penv = main_trainer.build_trainer(
+        vgg_args(["--device", dev, "--backend", "gloo"]))
+    if not trainer.distributed or penv.num_processes != world:
+        raise AssertionError("build_trainer did not take the "
+                             "multi-process path")
+    recs, launches = run_vgg_steps(trainer, data, 4)
+    got = trainer.model.state_dict()
+    want = {k: v.to(dev) for k, v in torch.load(want_path).items()}
+    return {"steps": recs, "launches": launches,
+            "comm": type(trainer.comm).__name__,
+            "backend": trainer.comm.backend, "source": penv.source,
+            "state_bit_equal": all(torch.equal(got[k], want[k])
+                                   for k in want),
+            "state_max_abs_diff": {
+                k: float((got[k].double() - want[k].double()).abs().max())
+                for k in want}}
+
+
+def trainer_rank(rank, tmp, world, dev, want_path):
+    """Spawn target: full-width VGG-16 as one gloo rank of ``world``,
+    built by ``main_trainer.build_trainer``; its final state compared
+    with the stacked trainer's, saved by the parent at ``want_path``."""
+    dist_guard(_trainer_rank, rank, tmp, world, dev, want_path)
+
+
+def run_cli(cmd, timeout_s: float):
+    """Run ``cmd`` in its own session; on timeout kill the whole session
+    (the launcher and its workers) and raise."""
+    import os
+    import signal
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f"{' '.join(cmd)} did not end in "
+                             f"{timeout_s} s")
+    return p.returncode, out
+
+
+def phase_dist_trainer(dev):
+    """Full-width VGG-16 (n = 14,728,266) through ``main_trainer.
+    build_trainer``: four gloo ranks on the card against the stacked
+    Trainer (4 workers) on the card from the same seed, one dense warmup
+    step then three oktopk steps, global batch 64, cuDNN deterministic in
+    both: per-step losses and ``comm_volume`` equal, parameters and
+    BatchNorm buffers bit-equal on every rank. Then the ``torchrun`` CLI,
+    four ranks of three steps, which must exit 0 with rank 0's log
+    lines. Returns rank 0's launches on the path."""
+    import os
+    import tempfile
+
+    import torch
+    from oktopk_tpu_torch.train import main_trainer
+
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        trainer, data, _ = main_trainer.build_trainer(vgg_args(
+            ["--device", str(dev), "--num-workers", str(DIST_P)]))
+        if trainer.algo_cfg.n != N_VGG16 or trainer.distributed:
+            raise AssertionError("the stacked VGG-16 trainer was not built")
+        want, want_launches = run_vgg_steps(trainer, data, 4)
+        with tempfile.TemporaryDirectory(prefix="oktopk_want_") as wd:
+            want_path = os.path.join(wd, "stacked.pt")
+            torch.save({k: v.cpu() for k, v in
+                        trainer.model.state_dict().items()}, want_path)
+            del trainer
+            torch.cuda.empty_cache()
+            ranks = spawn_ranks(trainer_rank, DIST_P,
+                                (DIST_P, str(dev), want_path),
+                                "dist_trainer")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    for r, res in enumerate(ranks):
+        for s, (g, w) in enumerate(zip(res["steps"], want)):
+            for k in ("loss", "comm_volume", "wire_bytes", "local_k",
+                      "global_k"):
+                if g[k] != w[k]:
+                    raise AssertionError(f"dist_trainer rank {r} step {s}: "
+                                         f"{k} {g[k]} vs stacked {w[k]}")
+        if not res["state_bit_equal"]:
+            raise AssertionError(
+                f"dist_trainer rank {r}: parameters or buffers differ from "
+                f"the stacked trainer: {res['state_max_abs_diff']}")
+        for nm, c in res["launches"].items():
+            if c <= 0:
+                raise AssertionError(f"dist_trainer rank {r}: the {nm} "
+                                     "kernel never launched on the path")
+    emit({"phase": "dist_trainer", "model": "vgg16", "n": N_VGG16,
+          "ranks": DIST_P, "placement": f"4 gloo ranks on {dev}",
+          "global_batch": 64, "steps": 4, "collective": ["dense"]
+          + ["oktopk"] * 3, "bit_equal_to_stacked": True,
+          "losses": [w["loss"] for w in want],
+          "comm_volume": [w["comm_volume"] for w in want],
+          "stacked_step_ms": [w["ms"] for w in want],
+          "per_rank_step_ms": [[s["ms"] for s in res["steps"]]
+                               for res in ranks],
+          "stacked_launches": want_launches,
+          "per_rank_launches": [res["launches"] for res in ranks],
+          "note": "four processes share one card and gloo stages through "
+                  "the host: the step times are no multi-card number"})
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DIST_P), "-m",
+           "oktopk_tpu_torch.train.main_trainer", "--backend", "gloo",
+           "--device", str(dev), "--dnn", "vgg16", "--max-iters", "3",
+           "--warmup-steps", "1"]
+    t0 = time.perf_counter()
+    rc, out = run_cli(cmd, DIST_DEADLINE_S)
+    cli_s = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines()
+             if "experiment" in ln or "done:" in ln]
+    if rc != 0 or len(lines) != 2 or "4 processes (torchrun, gloo)" \
+            not in lines[0]:
+        raise AssertionError(f"torchrun CLI: exit {rc}, log lines {lines}"
+                             f"\n{out[-4000:]}")
+    emit({"phase": "dist_trainer_cli", "cmd": " ".join(cmd[1:]),
+          "exit": rc, "rank0_log": lines, "seconds": cli_s})
+    return ranks[0]["launches"]
+
+
 def kernel_line(timings, errs, by_path, edge_err, bert_timings, bert_errs):
     """The ``{"kernels": [...]}`` entries at the main path's shapes (the
     compaction's phase-(a) form; ``forms`` has every form), then the BERT
@@ -1211,6 +1646,9 @@ def main() -> int:
                "oktopk step options": phase_step_options(dev)}
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
+    phase_dist_allreduce(dev)
+    by_path["oktopk, one worker per process (rank 0 of 4)"] = \
+        phase_dist_trainer(dev)
     kernels = kernel_line(timings, errs, by_path, edge_err, bert_timings,
                           bert_errs)
     smi = subprocess.run(

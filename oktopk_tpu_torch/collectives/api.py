@@ -3,9 +3,10 @@
 Counterpart of ``oktopk_tpu/collectives/api.py:26-207``
 (``batched_init_state``, ``build_allreduce_step``, ``time_allreduce_step``,
 ``eps_vs_dense``). Where the JAX step is a jitted ``shard_map`` over a
-device mesh, the port's step is the algorithm over ``StackedComm``, whose
-workers are the leading dimension of every tensor. The hierarchical and
-quality-tap variants are not ported yet (ROADMAP.md).
+device mesh, the port's step is the algorithm over a comm: by default
+``StackedComm``, whose workers are the leading dimension of every tensor;
+or ``ProcessGroupComm``, one worker per process (W = 1). The
+hierarchical and quality-tap variants are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ from oktopk_tpu_torch.comm import StackedComm
 from oktopk_tpu_torch.config import OkTopkConfig
 
 
-def batched_init_state(cfg: OkTopkConfig, device,
-                       dtype=torch.float32) -> SparseState:
-    """Fresh state for all ``cfg.num_workers`` workers, each row its own
-    residual and thresholds."""
-    return init_state(cfg, cfg.num_workers, device, dtype)
+def batched_init_state(cfg: OkTopkConfig, device, dtype=torch.float32,
+                       comm=None) -> SparseState:
+    """Fresh state for the comm's W local workers (all
+    ``cfg.num_workers`` without a comm), each row its own residual and
+    thresholds."""
+    W = cfg.num_workers if comm is None else comm.local_workers
+    return init_state(cfg, W, device, dtype)
 
 
 def build_allreduce_step(name: str, cfg: OkTopkConfig, comm=None,
@@ -32,6 +35,9 @@ def build_allreduce_step(name: str, cfg: OkTopkConfig, comm=None,
     """``step(grads [W, n], state) -> (results [W, n], state)``: every
     worker row of ``results`` holds the same reduced vector."""
     comm = StackedComm(cfg.num_workers) if comm is None else comm
+    if comm.size != cfg.num_workers:
+        raise ValueError(f"comm of {comm.size} workers for "
+                         f"cfg.num_workers={cfg.num_workers}")
     algo = get_algorithm(name, warmup=warmup)
 
     def step(grads: torch.Tensor, state: SparseState):

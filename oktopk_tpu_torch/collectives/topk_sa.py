@@ -8,11 +8,15 @@ is at least ``sa_dense_fallback_ratio`` dense, a dense psum of the
 disjoint regions, whose gather is not wire-rounded.
 
 The JAX form chooses the branch with ``lax.cond`` on ``total_nnz``, a
-value on the device, not the step counter. The port computes both
-branches and selects with ``torch.where`` (the owner-rounding term as a
-0/1 float32 tensor, as JAX does): one more n-scale psum per step, and no
-step waits for the device, where reading ``total_nnz`` on the host would
-make every step wait for the whole of phase (a).
+value on the device, not the step counter. On the stacked comm the port
+computes both branches and selects with ``torch.where`` (the
+owner-rounding term as a 0/1 float32 tensor, as JAX does): one more
+n-scale psum per step, which costs only a sum on one card, and no step
+waits for the device. Across processes (``comm.branch_on_host``) that
+psum would be an all_gather of (P-1)·n floats on every sparse step, so
+the branch is taken on the host instead: ``total_nnz`` is an integer
+psum, equal on every rank, so every rank takes the same branch, and
+reading it costs one wait for phase (a). Both forms give the same bits.
 """
 
 from __future__ import annotations
@@ -58,26 +62,40 @@ def _split_allreduce(acc, lt, state: SparseState, cfg: OkTopkConfig, comm,
     own_count = s_counts.gather(1, rank.long()[:, None])[:, 0]
     vol_a = 2.0 * (sent_count - own_count) + 2.0 * (recv_count - own_count)
     total_nnz = comm.psum((reduced != 0.0).sum(1, dtype=torch.int32))
-
-    # sparse gather: each owner's nonzeros, allgathered
-    gvals, gidx, gcount = compaction.select_nonzero_rows(reduced,
-                                                         cfg.cap_local)
-    gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
-    result = scatter_rows(n, gv, comm.all_gather(gidx))
-    total = comm.psum(gcount)
-    vol_b = 2.0 * gcount + 2.0 * (total - gcount)
-    wb_b = pair_wire_bytes(total, cfg)
-    owner_scale = torch.ones_like(vol_b)
+    dense = host_dense = None
     if dense_fallback:
         dense = total_nnz.to(f32) >= torch.full(
             (), cfg.sa_dense_fallback_ratio * n, dtype=f32,
             device=acc.device)
-        result = torch.where(dense[:, None], comm.psum(reduced), result)
-        vol_b = torch.where(dense, torch.full_like(vol_b, 2.0 * n), vol_b)
-        wb_b = torch.where(dense, torch.full_like(
-            wb_b, dense_wire_bytes(2.0 * n)), wb_b)
-        owner_scale = torch.where(dense, torch.zeros_like(owner_scale),
-                                  owner_scale)
+        if comm.branch_on_host:     # see the module docstring
+            host_dense, dense = bool(dense[0]), None
+
+    if host_dense:
+        # dense fallback: a psum of the disjoint regions, not wire-rounded
+        W = acc.shape[0]
+        result = comm.psum(reduced)
+        vol_b = torch.full((W,), 2.0 * n, dtype=f32, device=acc.device)
+        wb_b = torch.full((W,), dense_wire_bytes(2.0 * n), dtype=f32,
+                          device=acc.device)
+        owner_scale = torch.zeros((W,), dtype=f32, device=acc.device)
+    else:
+        # sparse gather: each owner's nonzeros, allgathered
+        gvals, gidx, gcount = compaction.select_nonzero_rows(reduced,
+                                                             cfg.cap_local)
+        gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
+        result = scatter_rows(n, gv, comm.all_gather(gidx))
+        total = comm.psum(gcount)
+        vol_b = 2.0 * gcount + 2.0 * (total - gcount)
+        wb_b = pair_wire_bytes(total, cfg)
+        owner_scale = torch.ones_like(vol_b)
+        if dense is not None:       # both branches, picked on the device
+            result = torch.where(dense[:, None], comm.psum(reduced), result)
+            vol_b = torch.where(dense, torch.full_like(vol_b, 2.0 * n),
+                                vol_b)
+            wb_b = torch.where(dense, torch.full_like(
+                wb_b, dense_wire_bytes(2.0 * n)), wb_b)
+            owner_scale = torch.where(dense, torch.zeros_like(owner_scale),
+                                      owner_scale)
 
     result = result / P
     residual = residual_after_winners(acc, result != 0.0, mask, reduced,

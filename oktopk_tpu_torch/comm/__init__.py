@@ -1,3 +1,4 @@
+from oktopk_tpu_torch.comm.process_group import ProcessGroupComm
 from oktopk_tpu_torch.comm.stacked import StackedComm
 
-__all__ = ["StackedComm"]
+__all__ = ["ProcessGroupComm", "StackedComm"]

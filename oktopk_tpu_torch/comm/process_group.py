@@ -1,0 +1,141 @@
+"""Collectives over a ``torch.distributed`` process group: one worker per
+process.
+
+Counterpart of ``oktopk_tpu/comm/primitives.py:19-114`` over the mesh of
+``comm/mesh.py`` when it spans processes: the same interface as
+``StackedComm`` (``comm/stacked.py``) with ``local_workers = 1``, so every
+per-worker tensor is ``[1, ...]`` and holds this rank's row.
+
+Every result is bit-equal to ``StackedComm``'s row for this rank:
+
+- ``psum`` of floats adds in rank order (0 + 1 + ... + P-1), as the JAX
+  CPU mesh does (H6). NCCL's and gloo's ``all_reduce`` add in ring or
+  tree order, which is not bit-equal to that, so a float ``psum`` is an
+  all_gather followed by a local sum in rank order. Its cost: each rank
+  receives (P-1)·n floats where a ring allreduce would move 2(P-1)/P·n.
+  The path's float psums are small (P cut positions, two totals) except
+  the dense warmup's and topkSA's fallback. An integer ``psum`` is one
+  ``all_reduce``: integer sums are exact in any order.
+- ``all_to_all`` is one ``all_to_all_single`` on the ``[P, ...]`` buffer;
+  row q of the result is what rank q addressed here, in source-rank
+  order (``ops/select.py::scatter_rows`` adds them in that order, H2).
+- ``ppermute_pair`` (gtopk's XOR butterfly) is one
+  ``all_to_all_single`` whose split sizes are nonzero only for the
+  partner: gloo has no send/recv of CUDA tensors.
+- The data-moving verbs carry bf16 values as they are; no verb does
+  arithmetic on bf16.
+
+The gloo backend takes CUDA tensors for these verbs and stages them
+through the host itself; NCCL moves them card to card.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+
+class ProcessGroupComm:
+    """This process's one worker in the default ``torch.distributed``
+    group."""
+
+    local_workers = 1
+    # a branch on a value every rank holds equal is taken on the host
+    # (collectives/topk_sa.py); see that module for why
+    branch_on_host = True
+
+    def __init__(self):
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessGroupComm needs an initialised "
+                               "process group (launch.maybe_initialize)")
+        self.size = dist.get_world_size()
+        self.first_worker = dist.get_rank()
+        self.backend = dist.get_backend()
+
+    def axis_size(self) -> int:
+        """World size P (``compat.axis_size``)."""
+        return self.size
+
+    def rank(self, device) -> torch.Tensor:
+        """[1] i32: this worker's rank (``lax.axis_index``)."""
+        return torch.full((1,), self.first_worker, dtype=torch.int32,
+                          device=device)
+
+    @staticmethod
+    def _check(x: torch.Tensor):
+        if x.shape[0] != 1:
+            raise ValueError(
+                f"leading worker dimension {x.shape[0]} != 1")
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Allreduce-sum; floats added in rank order (see the module
+        docstring), integers by ``all_reduce``."""
+        self._check(x)
+        if not x.is_floating_point():
+            out = x.clone()
+            dist.all_reduce(out)
+            return out
+        if x.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"psum adds float32 or float64, not {x.dtype}")
+        g = self.all_gather(x)[0]
+        s = g[0].clone()
+        for p in range(1, self.size):
+            s = s + g[p]
+        return s.unsqueeze(0)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """psum then divide by P (``lax.pmean``)."""
+        return self.psum(x) / self.size
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] -> [1, P, ...]: every rank's row, in rank order."""
+        self._check(x)
+        out = torch.empty((1, self.size) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather(list(out[0].unbind(0)), x[0].contiguous())
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, P, ...] -> [1, P, ...]: row q is what rank q addressed to
+        this rank (``lax.all_to_all`` with split and concat axis 0)."""
+        self._check(x)
+        if x.shape[1] != self.size:
+            raise ValueError(
+                f"all_to_all wants [1, P, ...], got {tuple(x.shape)}")
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out[0], x[0].contiguous())
+        return out
+
+    def ppermute_pair(self, x: torch.Tensor, distance: int) -> torch.Tensor:
+        """Butterfly exchange: receive the row of rank ``rank ^ distance``
+        (``primitives.ppermute_pair``, gtopk's XOR partner)."""
+        self._check(x)
+        if distance <= 0 or max(i ^ distance
+                                for i in range(self.size)) >= self.size:
+            raise ValueError(f"XOR distance {distance} does not pair the "
+                             f"{self.size} workers")
+        splits = [0] * self.size
+        splits[self.first_worker ^ distance] = 1
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(),
+                               output_split_sizes=splits,
+                               input_split_sizes=splits)
+        return out
+
+    def replicate_(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Overwrite ``tensors`` with rank 0's, in place, by one broadcast
+        of their concatenation (the trainer's initial weights and
+        BatchNorm statistics); returns how many of this rank's elements
+        it changed (a 0-d int64 on their device)."""
+        flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+        mine = flat.clone()
+        dist.broadcast(flat, src=0)
+        changed = (flat != mine).sum()
+        off = 0
+        with torch.no_grad():
+            for t in tensors:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+        return changed

@@ -9,8 +9,9 @@ that dimension.
 
 Every per-worker tensor has a leading ``[W, ...]`` dimension, W being the
 number of workers this process holds (``local_workers``): all P of them
-here. A ``torch.distributed`` backend for a multi-card cell keeps the
-same interface with W = 1.
+here, the first being worker 0 (``first_worker``).
+``comm/process_group.py::ProcessGroupComm`` keeps the same interface with
+W = 1 worker per process.
 """
 
 from __future__ import annotations
@@ -20,6 +21,11 @@ import torch
 
 class StackedComm:
     """P workers as dimension 0 of every tensor on one device."""
+
+    first_worker = 0
+    # a branch on a device value is taken by ``torch.where`` on the device
+    # (collectives/topk_sa.py): no step waits for the card
+    branch_on_host = False
 
     def __init__(self, num_workers: int):
         if num_workers < 1:

@@ -72,7 +72,8 @@ class SparseGradStep:
     """One sparse collective per bucket over a flat [W, n] gradient.
 
     ``__call__(flat)`` returns the reduced flat gradient [n] (every worker
-    holds the same result; row 0 is returned) and the step's metrics, and
+    holds the same result; row 0 is returned) and the step's metrics
+    (worker 0's, on every rank), and
     advances ``self.states`` (one ``SparseState`` per bucket) and, under
     momentum correction, ``self.momenta``.
 
@@ -137,15 +138,18 @@ class SparseGradStep:
                                      self.comm)
             reduced[s:e] = out[0]
             self.states[bi] = st
-            # metrics of worker 0 (the JAX step returns them replicated)
-            vol = vol + st.last_volume[0]
-            wbytes = wbytes + st.last_wire_bytes[0]
-            lk = lk + st.last_local_count[0].to(torch.float32)
-            gk = gk + st.last_global_count[0].to(torch.float32)
+            vol = vol + st.last_volume
+            wbytes = wbytes + st.last_wire_bytes
+            lk = lk + st.last_local_count.to(torch.float32)
+            gk = gk + st.last_global_count.to(torch.float32)
             if self.profile_norm:
                 dense = self.comm.pmean(g)[0]
                 eps_num = eps_num + torch.sum((dense - out[0]) ** 2)
                 eps_den = eps_den + torch.sum(dense ** 2)
+        # the metrics of worker 0, on every rank (the JAX step returns them
+        # replicated): one small all_gather across processes
+        vol, wbytes, lk, gk = self.comm.all_gather(
+            torch.stack([vol, wbytes, lk, gk], 1))[0, 0]
         metrics = {"comm_volume": vol, "wire_bytes": wbytes,
                    "local_k": lk, "global_k": gk}
         if self.profile_norm:

@@ -10,7 +10,8 @@ workers stacked on one device) and ``--device``. The data is the
 synthetic MLM/NSP stream the JAX package falls back to without Wikipedia
 shards. The pipeline, sequence- and expert-parallel paths, checkpoints,
 resume and preemption are not ported yet: their flags raise
-``NotImplementedError`` unless left at their defaults (ROADMAP.md).
+``NotImplementedError`` unless left at their defaults (ROADMAP.md), and
+so does a multi-process launch.
 
 Example:
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
@@ -86,8 +87,14 @@ def build_trainer(args, model_kwargs=None):
     """(Trainer, synthetic batch iterator) of the data-parallel path."""
     from oktopk_tpu_torch.config import TrainConfig
     from oktopk_tpu_torch.data import synthetic_iterator
+    from oktopk_tpu_torch.launch import discover
     from oktopk_tpu_torch.train.trainer import Trainer
 
+    if discover().num_processes > 1:
+        raise NotImplementedError(
+            "BERT across processes is not ported yet: its dropout masks "
+            "come from one generator drawn worker after worker (ROADMAP.md, "
+            "Queue 1)")
     for flag, default in UNPORTED.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(

@@ -3,14 +3,25 @@
 Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 :25-50, :130-135 that the port serves, under the same names
 (``--compressor`` takes every ported registry name), plus
-``--num-workers`` (the P workers stacked on one device) and ``--device``.
-The data is the synthetic CIFAR iterator (the real loaders are not ported
-yet, ROADMAP.md).
+``--num-workers``, ``--device`` and ``--backend``. The data is the
+synthetic CIFAR iterator (the real loaders are not ported yet,
+ROADMAP.md).
 
-Example:
+One process holds its P workers stacked on its device
+(``--num-workers``, default 1). A multi-process launch (``torchrun``,
+SLURM, OpenMPI or the ``OKTOPK_*`` variables, ``launch.py``) runs one
+worker per process over a ``torch.distributed`` group: ``--num-workers``
+is then the world size, the device ``cuda:{local_rank}`` unless
+``--device`` names one, and the backend nccl on a card, gloo on the CPU,
+unless ``--backend`` names one (gloo on CUDA tensors only when named).
+Only rank 0 logs.
+
+Examples:
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
         --batch-size 16 --num-workers 4 --density 0.02 --max-iters 20 \\
         --compressor topkA --nsteps-update 2 --grad-clip 5.0
+    torchrun --standalone --nproc-per-node 4 \\
+        -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 --max-iters 20
 """
 
 from __future__ import annotations
@@ -51,44 +62,82 @@ def parse_args(argv=None):
     p.add_argument("--warmup-steps", type=int, default=None,
                    help="dense warmup iterations (default: reference's 512)")
     p.add_argument("--log-every", type=int, default=50)
-    p.add_argument("--num-workers", type=int, default=1,
-                   help="data-parallel workers stacked on the device")
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="data-parallel workers: stacked on the device in "
+                        "one process (default 1); the world size across "
+                        "processes")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda)")
+                   help="torch device (default: cuda, cuda:{local_rank} "
+                        "across processes)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend across processes (default: "
+                        "nccl on a card, gloo on the CPU)")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    if args.dataset != "cifar10":
-        raise NotImplementedError(
-            f"dataset {args.dataset!r} is not ported yet (ROADMAP.md)")
+def build_trainer(args):
+    """(Trainer, synthetic batch iterator, ProcessEnv): joins the process
+    group on a multi-process launch (``launch.maybe_initialize``) and puts
+    the trainer on ``ProcessGroupComm`` there, else on its stacked
+    workers."""
+    from oktopk_tpu_torch import launch
+    from oktopk_tpu_torch.comm import ProcessGroupComm
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
     from oktopk_tpu_torch.data import synthetic_iterator
     from oktopk_tpu_torch.train.trainer import Trainer
 
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    logger = logging.getLogger("oktopk_tpu_torch")
+    if args.dataset != "cifar10":
+        raise NotImplementedError(
+            f"dataset {args.dataset!r} is not ported yet (ROADMAP.md)")
+    penv = launch.discover()
+    dev = launch.local_device(penv, args.device)
+    backend = args.backend or ("nccl" if dev.type == "cuda" else "gloo")
+    comm = None
+    workers = args.num_workers or 1
+    if penv.num_processes > 1:
+        if args.num_workers not in (None, penv.num_processes):
+            raise ValueError(
+                f"--num-workers {args.num_workers} on a launch of "
+                f"{penv.num_processes} processes: one worker per process")
+        workers = penv.num_processes
+        penv, dev = launch.maybe_initialize(backend, dev)
+        comm = ProcessGroupComm()
     cfg = TrainConfig(
         dnn=args.dnn, dataset=args.dataset, batch_size=args.batch_size,
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
         nesterov=args.nesterov, max_epochs=args.max_epochs,
         nsteps_update=args.nsteps_update, compressor=args.compressor,
-        density=args.density, seed=args.seed, num_workers=args.num_workers,
+        density=args.density, seed=args.seed, num_workers=workers,
         grad_clip=args.grad_clip, num_buckets=args.num_buckets)
     algo_cfg = OkTopkConfig(wire_dtype=args.wire_dtype)
     if args.warmup_steps is not None:
         algo_cfg = algo_cfg.replace(warmup_steps=args.warmup_steps)
-    trainer = Trainer(cfg, algo_cfg=algo_cfg, device=args.device)
-    logger.info("experiment %s on %s", cfg.experiment_slug(), trainer.device)
-
-    global_bs = args.batch_size * args.num_workers * args.nsteps_update
+    trainer = Trainer(cfg, algo_cfg=algo_cfg, device=dev, comm=comm)
+    global_bs = args.batch_size * workers * args.nsteps_update
     data = synthetic_iterator(args.dnn, global_bs, seed=args.seed)
+    return trainer, data, penv
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    trainer, data, penv = build_trainer(args)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    logger = (logging.getLogger("oktopk_tpu_torch") if penv.is_coordinator
+              else None)
+    cfg = trainer.cfg
+    if logger:
+        logger.info("experiment %s: %d workers, %s on %s",
+                    cfg.experiment_slug(), cfg.num_workers,
+                    f"{penv.num_processes} processes ({penv.source}, "
+                    f"{trainer.comm.backend})" if trainer.distributed
+                    else "one process", trainer.device)
+    global_bs = cfg.batch_size * cfg.num_workers * cfg.nsteps_update
     iters_per_epoch = max(1, CIFAR10_TRAIN_EXAMPLES // global_bs)
     total = args.max_iters or args.max_epochs * iters_per_epoch
     m = trainer.train(data, total, log_every=args.log_every, logger=logger)
-    logger.info("done: %d iterations, loss %.4f, vol/step %.0f", total,
-                m["loss"], m["comm_volume"])
+    if logger:
+        logger.info("done: %d iterations, loss %.4f, vol/step %.0f", total,
+                    m["loss"], m["comm_volume"])
     return 0
 
 

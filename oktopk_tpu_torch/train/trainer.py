@@ -1,4 +1,5 @@
-"""A minimal data-parallel trainer: P workers stacked on one device.
+"""A minimal data-parallel trainer: P workers stacked on one device, or
+one worker per process.
 
 Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``optim/distributed.py::build_sparse_grad_step`` that the port runs
@@ -6,6 +7,16 @@ Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``grad_clip``, momentum correction and ``profile_norm``, and the
 workload dispatch of :98-107, :558-612 for VGG and BERT pretraining);
 the obs, resilience and autotune planes are not ported yet (ROADMAP.md).
+
+The comm decides where the workers live: ``StackedComm`` (the default)
+holds all P on one device; ``ProcessGroupComm`` one per process, the rank
+being the worker's id. Each process runs its ``comm.local_workers``
+workers, whose ids start at ``comm.first_worker``, and every process draws
+the same global batch and keeps its workers' rows. Across processes the
+initial parameters are checked against rank 0's by a broadcast (the
+reference broadcasts them, ``VGG/main_trainer.py:52-54``; here they are
+already equal from the seed), and after each step the BatchNorm
+statistics are rank 0's on every rank (one small broadcast).
 
 One step:
 1. each of the P workers runs forward/backward on its shard of the global
@@ -34,7 +45,9 @@ The workload decides the loss and the optimizer, as in the JAX Trainer:
   join the metrics); no batch statistics; BertAdam with
   ``t_total = cfg.total_steps or -1``; momentum correction ignored with
   the JAX warning; dropout masks from one generator on the device,
-  seeded from ``cfg.seed``, drawn worker after worker.
+  seeded from ``cfg.seed``, drawn worker after worker (so BERT runs on
+  the stacked comm only: rank r could not draw its masks without the
+  draws of ranks 0..r-1, ROADMAP.md).
 The reported losses are the means of the P worker losses, added in rank
 order.
 
@@ -75,14 +88,15 @@ def _lecun_normal_(p: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 class Trainer:
-    """Data-parallel training over ``cfg.num_workers`` workers stacked on
-    one device, every gradient through ``cfg.compressor``."""
+    """Data-parallel training over ``cfg.num_workers`` workers, every
+    gradient through ``cfg.compressor``; ``comm`` defaults to all of them
+    stacked on one device."""
 
     def __init__(self, cfg: TrainConfig,
                  algo_cfg: Optional[OkTopkConfig] = None, device=None,
                  warmup: bool = True,
                  model_kwargs: Optional[Dict[str, Any]] = None,
-                 profile_norm: bool = False):
+                 profile_norm: bool = False, comm=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -90,7 +104,16 @@ class Trainer:
         self.cfg = cfg
         self.bert = cfg.dnn.startswith("bert")
         P = cfg.num_workers
-        self.comm = StackedComm(P)
+        self.comm = StackedComm(P) if comm is None else comm
+        if self.comm.size != P:
+            raise ValueError(f"comm of {self.comm.size} workers for "
+                             f"cfg.num_workers={P}")
+        W = self.comm.local_workers
+        self.distributed = W < P
+        if self.bert and self.distributed:
+            raise NotImplementedError(
+                "BERT across processes needs per-worker dropout generators "
+                "(ROADMAP.md, Queue 1)")
         model = create_model(cfg.dnn, **(model_kwargs or {}))
         gen = torch.Generator().manual_seed(cfg.seed)
         if self.bert:
@@ -134,8 +157,14 @@ class Trainer:
             self.algo_cfg, self.comm, self.params, cfg.compressor,
             cfg.num_buckets, warmup=warmup, device=self.device,
             momentum_correction=mc, profile_norm=profile_norm)
-        self.flat = torch.empty((P, n), dtype=torch.float32,
+        self.flat = torch.empty((W, n), dtype=torch.float32,
                                 device=self.device)
+        self.stats = list(self.model.buffers())
+        if self.distributed:
+            changed = self.comm.replicate_(self.params).reshape(1, 1)
+            if int(self.comm.psum(changed)[0, 0]):
+                raise RuntimeError("initial parameters differ from rank "
+                                   "0's; every rank must use the same seed")
 
     def load_jax_variables(self, params_np, batch_stats_np=None) -> None:
         """Take the flax model's weights (``convert.from_jax_params``)."""
@@ -180,30 +209,33 @@ class Trainer:
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One data-parallel step on a global batch (dict of arrays with a
-        leading [P * nsteps_update * b] dimension). Metrics stay on the
-        device."""
-        P = self.comm.size
+        leading [P * nsteps_update * b] dimension), of which this process
+        takes its workers' rows. Metrics stay on the device."""
+        P, W = self.comm.size, self.comm.local_workers
+        first = self.comm.first_worker
         ns = self.cfg.nsteps_update
         keys = BERT_KEYS if self.bert else ("image", "label")
-        data = {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
-        rows_total = data[keys[0]].shape[0]
+        rows_total = len(batch[keys[0]])
         b = rows_total // (P * ns)
         if b * P * ns != rows_total:
             raise ValueError(f"global batch {rows_total} is not a "
                              f"multiple of {P} workers x {ns} microbatches")
+        lo, hi = first * ns * b, (first + W) * ns * b
+        data = {k: torch.as_tensor(batch[k][lo:hi]).to(self.device)
+                for k in keys}
         worker = []
-        for w in range(P):
+        for i in range(W):
             for p in self.params:
                 p.grad = None
             sums = {}
             for j in range(ns):      # autograd adds the microbatch grads
-                rows = slice((w * ns + j) * b, (w * ns + j + 1) * b)
+                rows = slice((i * ns + j) * b, (i * ns + j + 1) * b)
                 loss, aux = self._loss({k: v[rows] for k, v in data.items()},
-                                       w)
+                                       first + i)
                 loss.backward()
                 for k, v in {"loss": loss, **aux}.items():
                     sums[k] = sums.get(k, 0.0) + v.detach()
-            self._write_flat_grad(w)
+            self._write_flat_grad(i)
             worker.append({k: v / ns for k, v in sums.items()})
         if ns > 1:
             self.flat.div_(ns)
@@ -216,12 +248,12 @@ class Trainer:
         self._apply_update(reduced)
         for p in self.params:
             p.grad = None
-        means = {}
-        for k in worker[0]:
-            total = worker[0][k]
-            for wm in worker[1:]:
-                total = total + wm[k]
-            means[k] = total / P
+        if self.distributed and self.stats:
+            self.comm.replicate_(self.stats)        # worker 0's (H7)
+        names = list(worker[0])
+        total = self.comm.psum(torch.stack(
+            [torch.stack([wm[k] for k in names]) for wm in worker]))[0]
+        means = dict(zip(names, (total / P).unbind(0)))
         return {**means, **metrics}
 
     def train(self, data_iter: Iterable, num_iters: int, log_every: int = 50,

@@ -1,0 +1,301 @@
+"""The port across processes: ``ProcessGroupComm`` over four gloo
+processes on the CPU, held to ``StackedComm`` and to the JAX package.
+
+The reference tested its multi-node behaviour with local processes over
+gloo (``tests/conftest.py:3-6``); so do these tests. One spawn of four
+processes (``torch_dist_child.checks_worker``) runs every check of the
+module, and each test reads what its part wrote:
+
+- each comm verb on seeded inputs, bit-equal to the stacked comm's row
+  for that rank, including a float ``psum`` whose value depends on the
+  order of its adds (H6);
+- every registered compressor (dense, oktopk in each threshold method,
+  fused and unfused, on both wires, with a dense warmup; each baseline on
+  both wires; topkSA on its dense fallback on one step and not on the
+  next) at n = 2^15, three steps: results and every state field bit-equal
+  to the stacked comm's;
+- oktopk one step deep from the JAX state of each step, against JAX's
+  ``build_allreduce_step`` on the 4-device CPU mesh: results, residuals
+  and counters bit-equal, thresholds within ``ULPS`` ulps (H1, as in
+  ``test_torch_oktopk.py``);
+- three narrow-VGG Trainer steps: bit-equal to the stacked Trainer on
+  every rank, and within ``test_torch_vgg.py``'s tolerances of the JAX
+  Trainer on the 4-device mesh.
+
+A second spawn runs ``main_trainer`` as two ranks.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import torch_dist_child as child
+
+P = child.P
+ULPS = 8
+EXACT = ("step", "boundaries", "residual", "volume_elems", "last_volume",
+         "wire_bytes", "last_wire_bytes", "last_local_count",
+         "last_global_count")
+THRESHOLDS = ("local_threshold", "global_threshold", "drift",
+              "last_exact_lt")
+SPAWN_TIMEOUT_S = 300
+
+
+def narrow_models(mp):
+    """Register ``vgg_narrow`` in both packages' registries (as
+    ``test_torch_vgg.py`` does), undone when ``mp`` is."""
+    import oktopk_tpu.models.registry as jax_registry
+    import oktopk_tpu.models.vgg as jax_vgg
+    import oktopk_tpu_torch.models.registry as torch_registry
+    import oktopk_tpu_torch.models.vgg as torch_vgg
+
+    for cfgs in (jax_vgg.CFG, torch_vgg.CFG):
+        mp.setitem(cfgs, "vgg_narrow", child.NARROW)
+    mp.setitem(jax_registry.MODELS, "vgg_narrow",
+               lambda **kw: (jax_vgg.VGG(name_cfg="vgg_narrow", **kw),
+                             lambda bs: jnp.zeros((bs, 32, 32, 3),
+                                                  jnp.float32)))
+    mp.setitem(torch_registry.MODELS, "vgg_narrow",
+               lambda **kw: torch_vgg.VGG(name_cfg="vgg_narrow", **kw))
+
+
+def jax_trajectory(mesh, case):
+    """JAX's outputs and states (as dicts of arrays, the first the initial
+    one) over the case's steps."""
+    from oktopk_tpu.collectives.api import batched_init_state, \
+        build_allreduce_step
+    from oktopk_tpu.config import OkTopkConfig as JaxConfig
+    from oktopk_tpu_torch.collectives.state import TENSOR_FIELDS
+
+    name, cfg_kw, steps, warmup, _ = case
+    cfg = JaxConfig(**cfg_kw)
+    step = build_allreduce_step(name, cfg, mesh, warmup=warmup)
+    state = batched_init_state(cfg)
+
+    def arrays(st):
+        return {f: np.asarray(getattr(st, f)) for f in TENSOR_FIELDS}
+
+    states, outs = [arrays(state)], []
+    for g in child.make_grads(len(steps), seed=1):
+        out, state = step(jnp.asarray(g), state)
+        outs.append(np.asarray(out))
+        states.append(arrays(state))
+    return outs, states
+
+
+def jax_trainer(mesh):
+    """The JAX Trainer on the mesh and its initial (params, batch_stats)."""
+    from oktopk_tpu.config import OkTopkConfig as JCfg
+    from oktopk_tpu.config import TrainConfig as JTrain
+    from oktopk_tpu.train.trainer import Trainer as JTrainer
+
+    jt = JTrainer(JTrain(**child.TRAIN), mesh=mesh,
+                  algo_cfg=JCfg(**child.TRAIN_ALGO), profile_norm=False)
+    return jt, (jax.device_get(jt.state.params),
+                jax.device_get(jt.state.model_state["batch_stats"]))
+
+
+@pytest.fixture(scope="module")
+def dist(tmp_path_factory, mesh4):
+    """Spawn the four ranks, compute the JAX and stacked sides while they
+    run (the JAX states and the weights go to the ranks as files), and
+    return all of it."""
+    from oktopk_tpu_torch.comm import StackedComm
+
+    d = tmp_path_factory.mktemp("dist")
+    cases = child.compressor_cases()
+    with pytest.MonkeyPatch.context() as mp:
+        narrow_models(mp)
+        procs = child.start(child.checks_worker, P, (str(d),))
+        try:
+            jax_runs = {nm: jax_trajectory(mesh4, c)
+                        for nm, c in cases.items() if c[4]}
+            child.save({nm: states[:-1] for nm, (_, states)
+                        in jax_runs.items()}, str(d / "jax.pt"))
+            jt, weights = jax_trainer(mesh4)
+            child.save(weights, str(d / "weights.pt"))
+            # one thread, as on the ranks: the CPU convolutions' weight
+            # gradients add in an order that depends on the thread count
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                stacked = {nm: child.run_compressor(
+                    c, StackedComm(P), slice(0, P),
+                    jax_runs[nm][1][:-1] if nm in jax_runs else None)
+                    for nm, c in cases.items()}
+                stacked_trainer = child.run_trainer(None, weights)
+            finally:
+                torch.set_num_threads(threads)
+            jax_metrics = [jt.train_step(child.train_batch(s))
+                           for s in range(3)]
+            jax_final = (jax.device_get(jt.state.params),
+                         jax.device_get(jt.state.model_state["batch_stats"]))
+        finally:
+            codes = child.join(procs, SPAWN_TIMEOUT_S)
+    errors = {r: (d / f"rank{r}.err").read_text() for r in range(P)
+              if (d / f"rank{r}.err").exists()}
+    assert codes == [0] * P, (codes, errors)
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+             for r in range(P)]
+    return {"ranks": ranks, "stacked": stacked, "jax": jax_runs,
+            "stacked_trainer": stacked_trainer,
+            "jax_trainer": (jax_metrics, jax_final)}
+
+
+def bits(a, b, what):
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (what, a.shape,
+                                                       b.shape)
+    if a.is_floating_point():
+        a, b = a.float().view(torch.int32), b.float().view(torch.int32)
+    assert torch.equal(a, b), what
+
+
+def assert_ulps(a, b, ulps, what):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    assert np.array_equal(np.sign(a), np.sign(b)), what
+    d = np.abs(a.view(np.int32).astype(np.int64)
+               - b.view(np.int32).astype(np.int64))
+    assert d.max() <= ulps, f"{what}: {d.max()} ulps apart"
+
+
+def test_every_rank_joined_through_the_launch_layer(dist):
+    for r, res in enumerate(dist["ranks"]):
+        assert (res["source"], res["rank"], res["size"]) == ("explicit", r,
+                                                             P)
+
+
+def test_api_with_one_worker_per_process(dist):
+    """``batched_init_state(comm=)`` gives [1, ...] rows and
+    ``time_allreduce_step`` runs its warmup and timed steps at W = 1."""
+    for res in dist["ranks"]:
+        assert res["timed"] == (2, 3)
+        st = res["compressors"]["oktopk sort float32"][0][1]
+        assert st["residual"].shape == (1, child.N)
+
+
+@pytest.mark.parametrize("name", list(child.verb_inputs()))
+def test_verb_matches_stacked(dist, name):
+    from oktopk_tpu_torch.comm import StackedComm
+    x = torch.from_numpy(child.verb_inputs()[name])
+    want = child.apply_verb(name, StackedComm(P), x)
+    for r, res in enumerate(dist["ranks"]):
+        bits(res["verbs"][name], want[r:r + 1], f"{name}, rank {r}")
+
+
+def test_float_psum_adds_in_rank_order(dist):
+    """1e8 + 1 rounds to 1e8 in float32: in rank order the sum is 1; a
+    pairwise or ring order gives 2 or 0."""
+    x = child.verb_inputs()["psum order-sensitive"][:, 0]
+    assert (x[0] + x[2]) + (x[1] + x[3]) == 2.0
+    for res in dist["ranks"]:
+        assert float(res["verbs"]["psum order-sensitive"]) == 1.0
+
+
+@pytest.mark.parametrize("name", list(child.compressor_cases()))
+def test_compressor_matches_stacked(dist, name):
+    """Every step's result and every state field, bit-equal on every
+    rank to the stacked comm's row for that rank."""
+    want = dist["stacked"][name]
+    for r, res in enumerate(dist["ranks"]):
+        for i, ((out, st), (w_out, w_st)) in enumerate(
+                zip(res["compressors"][name], want)):
+            bits(out, w_out[r:r + 1], f"{name} step {i} rank {r}: result")
+            for f, v in st.items():
+                bits(v, w_st[f][r:r + 1], f"{name} step {i} rank {r}: {f}")
+
+
+@pytest.mark.parametrize("name", [nm for nm, c in
+                                  child.compressor_cases().items() if c[4]])
+def test_oktopk_matches_jax(dist, name):
+    """One step deep from the JAX state of each step (H1)."""
+    outs, states = dist["jax"][name]
+    for r, res in enumerate(dist["ranks"]):
+        for i, (out, st) in enumerate(res["compressors"][name]):
+            np.testing.assert_array_equal(out.numpy()[0], outs[i][r],
+                                          err_msg=f"result, step {i}")
+            for f in EXACT:
+                np.testing.assert_array_equal(
+                    st[f][0], states[i + 1][f][r],
+                    err_msg=f"{f}, step {i}, rank {r}")
+            for f in THRESHOLDS:
+                assert_ulps(st[f][0], states[i + 1][f][r], ULPS,
+                            f"{f}, step {i}, rank {r}")
+
+
+def test_topksa_fallback_on_the_host(dist):
+    """The process-group comm takes topkSA's dense fallback on the host:
+    step 0 (density 1) takes it, step 1 does not; both bit-equal to the
+    stacked comm's ``torch.where`` (test_compressor_matches_stacked)."""
+    n = child.N
+    for res in dist["ranks"]:
+        (_, s0), (_, s1) = res["compressors"]["topkSA fallback then sparse"]
+        assert float(s0["last_volume"][0]) >= 2.0 * n
+        assert float(s1["last_volume"][0]) < 2.0 * n
+
+
+def test_trainer_matches_stacked(dist):
+    """Per-step losses and metrics, parameters and BatchNorm statistics:
+    bit-equal on every rank to the stacked Trainer."""
+    want_m, want_sd = dist["stacked_trainer"]
+    for r, res in enumerate(dist["ranks"]):
+        got_m, got_sd = res["trainer"]
+        for s, (gm, wm) in enumerate(zip(got_m, want_m)):
+            assert gm.keys() == wm.keys()
+            for k in gm:
+                bits(gm[k], wm[k], f"rank {r} step {s}: {k}")
+        for k in want_sd:
+            bits(got_sd[k], want_sd[k], f"rank {r}: {k}")
+
+
+def test_trainer_matches_jax(dist):
+    """The tolerances of ``test_torch_vgg.py::
+    test_trainer_three_steps_match_jax``, and why, are stated there."""
+    from oktopk_tpu_torch.convert import to_jax_params
+
+    jm, (want_p, want_s) = dist["jax_trainer"]
+    for res in dist["ranks"]:
+        tm, sd = res["trainer"]
+        for s in range(3):
+            np.testing.assert_allclose(float(tm[s]["loss"]),
+                                       float(jm[s]["loss"]), rtol=1e-5)
+            for key in ("comm_volume", "local_k", "global_k"):
+                assert abs(float(tm[s][key]) - float(jm[s][key])) <= \
+                    0.01 * abs(float(jm[s][key])) + 2, (s, key)
+        params, stats = to_jax_params(sd)
+        for mod in want_p:
+            for leaf in want_p[mod]:
+                np.testing.assert_allclose(
+                    params[mod][leaf], np.asarray(want_p[mod][leaf]),
+                    rtol=0, atol=1e-4, err_msg=f"{mod}/{leaf}")
+        for mod in want_s:
+            for leaf in want_s[mod]:
+                np.testing.assert_allclose(
+                    stats[mod][leaf], np.asarray(want_s[mod][leaf]),
+                    rtol=1e-4, atol=1e-5)
+
+
+def test_main_trainer_two_ranks(tmp_path):
+    """``main_trainer`` on a 2-rank CPU launch (``RANK`` / ``WORLD_SIZE``
+    as ``torchrun`` sets them): both ranks exit 0, only rank 0 logs."""
+    argv = ["--dnn", "vgg_narrow", "--device", "cpu", "--batch-size", "2",
+            "--max-iters", "3", "--warmup-steps", "1", "--log-every", "1",
+            "--density", "0.05"]
+    codes = child.join(child.start(child.cli_worker, 2,
+                                   (str(tmp_path), 2, argv)),
+                       SPAWN_TIMEOUT_S)
+    errors = [(tmp_path / f"rank{r}.err").read_text() for r in range(2)
+              if (tmp_path / f"rank{r}.err").exists()]
+    assert codes == [0, 0], errors
+    assert [(tmp_path / f"rank{r}.rc").read_text() for r in range(2)] == \
+        ["0", "0"]
+    log0 = (tmp_path / "rank0.log").read_text()
+    assert "2 processes (torchrun, gloo)" in log0, log0
+    assert "iter 3 loss" in log0 and "done: 3 iterations" in log0, log0
+    assert (tmp_path / "rank1.log").read_text() == ""
+    assert not os.environ.get("WORLD_SIZE")

@@ -1,7 +1,8 @@
-"""The port stands alone: neither ``oktopk_tpu_torch/`` nor
-``chip_smoke.py`` (nor the port's profiling and A/B scripts) imports ``jax``,
-``flax`` or ``oktopk_tpu``, and
-importing every module of the package leaves ``jax`` out of
+"""The port stands alone: neither ``oktopk_tpu_torch/`` (its launch
+layer and process-group comm included) nor ``chip_smoke.py`` (nor the
+port's profiling and A/B scripts, nor the worker module that the
+process-group tests spawn) imports ``jax``, ``flax`` or ``oktopk_tpu``,
+and importing every module of the package leaves ``jax`` out of
 ``sys.modules``."""
 
 import ast
@@ -20,8 +21,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oktopk_tpu")
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "port_profile.py",
-        ROOT / "scripts" / "compaction_ab.py"]
+        ROOT / "scripts" / "compaction_ab.py",
+        ROOT / "tests" / "torch_dist_child.py"]
     assert len(files) > 20
+    for mod in ("launch.py", "comm/process_group.py"):
+        assert PKG / mod in files
     return files
 
 

@@ -1,0 +1,308 @@
+"""The worker side of ``tests/test_torch_dist.py``: what each of the P
+gloo processes on the CPU runs, and the cases both sides share.
+
+Spawned processes import this module by name, so it imports ``torch``,
+``numpy`` and the port only, never JAX (the parent imports JAX in the
+test module). Each worker joins a ``file://`` store under the test's
+temporary directory, so parallel test workers never race for a port,
+pins torch to one thread, runs every check of its job and writes its
+results to ``rank{r}.pt``; an exception is written to ``rank{r}.err``
+and the process exits 1.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+
+P = 4
+N = 1 << 15
+NARROW = [8, "M", 16, "M", 16, "M"]
+
+
+# ---- the comm verbs: (name, inputs [P, ...] from a seed, verb) ---------
+
+def verb_inputs():
+    rng = np.random.RandomState(0)
+    f32 = np.float32
+    order = np.array([[1e8], [1.0], [-1e8], [1.0]], f32)
+    return {
+        # rank order gives ((1e8 + 1) - 1e8) + 1 = 1; other orders do not
+        "psum order-sensitive": order,
+        "psum f32": rng.randn(P, 5, 3).astype(f32),
+        "psum i32": rng.randint(-1000, 1000, (P, 7)).astype(np.int32),
+        "psum i64": rng.randint(-1000, 1000, (P, 7)).astype(np.int64),
+        "pmean f32": rng.randn(P, 9).astype(f32),
+        "all_gather f32": rng.randn(P, 6).astype(f32),
+        "all_gather bf16": rng.randn(P, 6).astype(f32),
+        "all_gather i32": rng.randint(0, 99, (P, 2, 3)).astype(np.int32),
+        "all_to_all f32": rng.randn(P, P, 5).astype(f32),
+        "all_to_all bf16": rng.randn(P, P, 5).astype(f32),
+        "all_to_all i32": rng.randint(0, 99, (P, P, 5)).astype(np.int32),
+        "all_to_all i64": rng.randint(0, 99, (P, P, 5)).astype(np.int64),
+        "ppermute_pair d=1": rng.randn(P, 4).astype(f32),
+        "ppermute_pair d=2 i64": rng.randint(0, 99, (P, 4)).astype(np.int64),
+        "rank": np.zeros((P, 1), f32),
+    }
+
+
+def apply_verb(name: str, comm, x: torch.Tensor) -> torch.Tensor:
+    if "bf16" in name:
+        x = x.to(torch.bfloat16)
+    verb = name.split()[0]
+    if verb == "ppermute_pair":
+        return comm.ppermute_pair(x, int(name.split()[1][2:]))
+    if verb == "rank":
+        return comm.rank(x.device)
+    return getattr(comm, verb)(x)
+
+
+# ---- the compressor steps ---------------------------------------------
+# name: (registry name, config, steps, warmup, held to JAX). ``steps`` is a
+# list of per-step config overrides. Cadences 2/2/3 cover an exact
+# recompute, a predicted step and a repartition in three steps.
+
+OKTOPK = dict(n=N, num_workers=P, density=0.02, warmup_steps=0,
+              local_recompute_every=2, global_recompute_every=2,
+              repartition_every=3)
+BASELINE = dict(n=N, num_workers=P, density=0.02, warmup_steps=0,
+                local_recompute_every=2)
+THREE = [{}, {}, {}]
+
+
+def compressor_cases():
+    cases = {"dense": ("dense", dict(n=N, num_workers=P), [{}], False,
+                       False)}
+    for method, wire, fuse in (("sort", "float32", None),
+                               ("hist", "bfloat16", None),
+                               ("bisect", "bfloat16", None),
+                               ("hist", "float32", False)):
+        cfg = dict(OKTOPK, threshold_method=method, wire_dtype=wire,
+                   fuse_select=fuse)
+        nm = f"oktopk {method} {wire}" + (" unfused" if fuse is False
+                                          else "")
+        cases[nm] = ("oktopk", cfg, THREE, False, True)
+    for name in ("topkA", "topkA2", "topkAopt", "gtopk", "gaussiank",
+                 "topkSA", "gaussiankSA"):
+        for wire in ("float32", "bfloat16"):
+            cases[f"{name} {wire}"] = (
+                name, dict(BASELINE, wire_dtype=wire), THREE, False, False)
+    # topkSA forced onto its dense fallback on the first step (density 1:
+    # the reduced result is dense) and not on the second
+    cases["topkSA fallback then sparse"] = (
+        "topkSA", dict(BASELINE, wire_dtype="bfloat16",
+                       local_recompute_every=1),
+        [{"density": 1.0}, {}], False, False)
+    cases["oktopk warmup"] = ("oktopk", dict(OKTOPK, warmup_steps=1,
+                                              wire_dtype="bfloat16"),
+                              THREE, True, False)
+    return cases
+
+
+def make_grads(steps: int, seed: int):
+    rng = np.random.RandomState(seed)
+    base = rng.randn(P, N).astype(np.float32)
+    return [base + 0.3 * rng.randn(P, N).astype(np.float32)
+            for _ in range(steps)]
+
+
+def run_compressor(case, comm, rows: slice, start_states=None):
+    """The case's steps over ``comm`` on the gradient rows ``rows``:
+    [(results [W, n], state arrays)] per step. Step i starts from
+    ``start_states[i]`` (arrays for all P workers) where given, else from
+    the previous step's state."""
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+    from oktopk_tpu_torch.collectives.state import SparseState
+    from oktopk_tpu_torch.config import OkTopkConfig
+
+    name, cfg_kw, steps, warmup, _ = case
+    grads = make_grads(len(steps), seed=1)
+    state = batched_init_state(OkTopkConfig(**cfg_kw), "cpu", comm=comm)
+    out = []
+    for i, over in enumerate(steps):
+        cfg = OkTopkConfig(**dict(cfg_kw, **over))
+        if start_states is not None:
+            state = SparseState.from_numpy(
+                {f: np.asarray(v)[rows] for f, v in
+                 start_states[i].items()}, "cpu")
+        step = build_allreduce_step(name, cfg, comm, warmup=warmup)
+        res, state = step(torch.from_numpy(grads[i][rows]), state)
+        out.append((res.clone(), state.to_numpy()))
+    return out
+
+
+def time_steps(comm, rows: slice):
+    """``time_allreduce_step`` over ``comm``: (number of timed steps, the
+    state's step counter after them)."""
+    from oktopk_tpu_torch.collectives import api
+    from oktopk_tpu_torch.config import OkTopkConfig
+    cfg = OkTopkConfig(**OKTOPK)
+    step = api.build_allreduce_step("oktopk", cfg, comm, warmup=False)
+    times, state = api.time_allreduce_step(
+        step, torch.from_numpy(make_grads(1, seed=2)[0][rows]),
+        api.batched_init_state(cfg, "cpu", comm=comm), iters=2)
+    return len(times), state.host_step
+
+
+# ---- the trainer ------------------------------------------------------
+
+TRAIN = dict(dnn="vgg_narrow", batch_size=4, lr=0.05, density=0.05,
+             num_workers=P)
+TRAIN_ALGO = dict(warmup_steps=1, local_recompute_every=1,
+                  global_recompute_every=2)
+
+
+def register_narrow():
+    import oktopk_tpu_torch.models.registry as registry
+    import oktopk_tpu_torch.models.vgg as vgg
+    vgg.CFG["vgg_narrow"] = NARROW
+    registry.MODELS["vgg_narrow"] = (
+        lambda **kw: vgg.VGG(name_cfg="vgg_narrow", **kw))
+
+
+def train_batch(s: int):
+    rng = np.random.RandomState(10 + s)
+    return {"image": rng.randn(16, 32, 32, 3).astype(np.float32),
+            "label": rng.randint(0, 10, size=(16,)).astype(np.int32)}
+
+
+def run_trainer(comm, weights, steps: int = 3):
+    """Three steps of the narrow VGG from the given flax weights: per-step
+    metrics, then the state_dict."""
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    register_narrow()
+    tt = Trainer(TrainConfig(**TRAIN), algo_cfg=OkTopkConfig(**TRAIN_ALGO),
+                 device="cpu", comm=comm)
+    tt.load_jax_variables(*weights)
+    metrics = [{k: v.clone() for k, v in tt.train_step(train_batch(s))
+                .items()} for s in range(steps)]
+    return metrics, {k: v.clone() for k, v in tt.model.state_dict().items()}
+
+
+# ---- the worker processes ---------------------------------------------
+
+def _join(rank: int, world: int, init_file: str):
+    from oktopk_tpu_torch import launch
+    torch.set_num_threads(1)
+    return launch.maybe_initialize(
+        "gloo", "cpu", env={"OKTOPK_NUM_PROCS": str(world),
+                            "OKTOPK_PROC_ID": str(rank)},
+        init_method=f"file://{init_file}", timeout_s=120)
+
+
+def _guard(fn, rank: int, out_dir: str, *args):
+    try:
+        fn(rank, out_dir, *args)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def save(obj, path: str):
+    """``torch.save`` that a reader polling for ``path`` never sees half
+    written."""
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def wait_load(path: str, timeout_s: float = 240.0):
+    """Load ``path`` once the parent has written it."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} was never written")
+        time.sleep(0.05)
+    return torch.load(path, weights_only=False)
+
+
+def _checks(rank: int, out_dir: str):
+    from oktopk_tpu_torch.comm import ProcessGroupComm
+    penv, _ = _join(rank, P, os.path.join(out_dir, "store"))
+    comm = ProcessGroupComm()
+    row = slice(rank, rank + 1)
+    res = {"source": penv.source, "rank": penv.process_id,
+           "size": comm.size, "verbs": {}, "compressors": {}}
+    for name, x in verb_inputs().items():
+        res["verbs"][name] = apply_verb(name, comm,
+                                        torch.from_numpy(x[row])).clone()
+    cases = compressor_cases()
+    for name, case in cases.items():
+        if not case[4]:
+            res["compressors"][name] = run_compressor(case, comm, row)
+    jax_states = wait_load(os.path.join(out_dir, "jax.pt"))
+    for name, states in jax_states.items():
+        res["compressors"][name] = run_compressor(cases[name], comm, row,
+                                                  states)
+    res["timed"] = time_steps(comm, row)
+    weights = wait_load(os.path.join(out_dir, "weights.pt"))
+    res["trainer"] = run_trainer(comm, weights)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def checks_worker(rank, out_dir):
+    """Spawn target: every comm verb, every compressor case and three
+    trainer steps over a 4-rank gloo group. The cases held to JAX start
+    from the JAX states the parent writes to ``jax.pt``, the trainer from
+    the weights it writes to ``weights.pt``, while these run."""
+    _guard(_checks, rank, out_dir)
+
+
+def _cli(rank: int, out_dir: str, world: int, argv):
+    # the launch as ``torchrun`` would describe it; the store is a file
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    _join(rank, world, os.path.join(out_dir, "store"))
+    register_narrow()
+    import logging
+    log = logging.getLogger("oktopk_tpu_torch")
+    log.setLevel(logging.INFO)
+    log.addHandler(logging.FileHandler(
+        os.path.join(out_dir, f"rank{rank}.log")))
+    from oktopk_tpu_torch.train import main_trainer
+    rc = main_trainer.main(argv)
+    with open(os.path.join(out_dir, f"rank{rank}.rc"), "w") as f:
+        f.write(str(rc))
+
+
+def cli_worker(rank, out_dir, world, argv):
+    """Spawn target: ``main_trainer.main(argv)`` as one rank of
+    ``world``."""
+    _guard(_cli, rank, out_dir, world, argv)
+
+
+def start(target, world: int, args):
+    """Start ``world`` spawned processes of ``target(rank, *args)``."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r,) + tuple(args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join(procs, timeout_s: float):
+    """Join ``procs`` by a deadline and kill the ones still running;
+    returns their exit codes (None for one killed at the deadline)."""
+    deadline = time.monotonic() + timeout_s
+    codes = []
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+        codes.append(None if p.is_alive() else p.exitcode)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return codes
