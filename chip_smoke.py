@@ -65,14 +65,35 @@ and prints one JSON line per phase:
               gradient in JAX leaf order within stated tolerances, then
               three oktopk steps (cadence 2) with finite, agreeing losses
               and equal volumes wherever the selections agree;
-11. bert_trainer — (last) the BERT slice at full width through
+11. bert_trainer — (after step_options) the BERT slice at full width through
               ``main_bert.build_trainer``: BERT-base, P = 4 workers, bs 8
               each, seq 128, dropout 0.1, oktopk at d = 0.01 with the BERT
               cadences, BertAdam; five steps (the first the exact
               recompute and repartition), launch counters set to 0 just
               before and read just after; then ``_repartition`` at this
               size, its flattened scan against the row-wise one;
-12. dist_allreduce — one worker per process: every case of
+12. lstm_kernels — (after ``bert_kernels``) the same three forms at
+              DeepSpeech's (``lstman4``) n = 54,791,168 and its k at
+              d = 0.02 (``lstman4_sweep``, ``lstman4_pack_a``,
+              ``lstman4_select_b``), bit-equal and timed as above;
+13. lstman4_parity — (after ``bert_trainer``) ``lstman4_tiny`` from the
+              same seed's weights on the card (cuDNN's RNN, CUDA CTC) and
+              on the CPU, 201 frames, batch 4: logits, CTC loss and the
+              flat gradient within 1e-4 of their largest; then whether
+              the fwd/bwd, CTC's backward and the cuDNN LSTM backward
+              each repeat bit for bit on the card;
+14. lstman4_trainer — the LSTM slice at full width through
+              ``main_trainer.build_trainer`` (``--dnn lstman4 --dataset
+              an4``): 5 x 800, P = 4 stacked, bs 2 each, 201 frames,
+              d = 0.02, ``--grad-clip 400``, bf16 wire; one dense warmup
+              step, four oktopk steps, the split into fwd/bwd, collective
+              and optimizer, peak memory, kernel calls per step; run
+              twice from the same seed, with the verdict whether losses,
+              volumes and parameters repeat bit for bit;
+15. lstm_trainer — the PTB LSTM at full width (2 x 1500, vocabulary
+              10,000, 35 tokens), P = 4 stacked, bs 20 each, dropout 0.65
+              from the per-worker generators, three oktopk steps;
+16. dist_allreduce — one worker per process: every case of
               ``dist_cases`` (oktopk fused and unfused, each baseline,
               topkSA with a dense-fallback step; bf16 wire, n = 2^20) run
               by four gloo processes on the one card (NCCL refuses two
@@ -80,17 +101,24 @@ and prints one JSON line per phase:
               every rank's results and state bit-equal to the stacked
               comm's row on the card from the same seed; then one NCCL
               process at world size 1 against ``StackedComm(1)``;
-13. dist_trainer — full-width VGG-16 through ``main_trainer.
+17. dist_trainer — full-width VGG-16 through ``main_trainer.
               build_trainer`` as four gloo ranks on the card against the
               stacked Trainer from the same seed (one dense warmup step,
               three oktopk steps, global batch 64, cuDNN deterministic):
               losses and volumes equal, parameters and BatchNorm buffers
               bit-equal on every rank, launch counters of each rank read
-              around its steps; then the ``torchrun`` CLI, four ranks of
-              three steps, exit 0 with rank 0's log lines. Spawned ranks
-              are joined by a deadline and killed past it, and the CLI
-              runs in its own session, killed whole on timeout: a rank
-              that dies or hangs fails the run.
+              around its steps, the dense warmup's time per rank; then
+              the ``torchrun`` CLI, four ranks of three steps, exit 0 with
+              rank 0's log lines and its last loss and volume equal to
+              dist_trainer's third step;
+18. dist_bert — ``bert_tiny`` with dropout 0.1 through
+              ``main_bert.build_trainer`` as four gloo ranks on the card,
+              each drawing its own worker's masks, against the stacked
+              Trainer: losses, volumes and every state_dict entry
+              bit-equal on every rank. Spawned ranks are joined by a
+              deadline and killed past it, and the CLI runs in its own
+              session, killed whole on timeout: a rank that dies or hangs
+              fails the run.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -101,6 +129,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -795,44 +825,50 @@ def phase_step_options(dev):
 
 
 N_BERT = 110106428            # BERT-base's flat parameter count
+N_LSTMAN4 = 54791168          # DeepSpeech (lstman4, 5 x 800)'s
 
 
-def phase_bert_kernels(dev, n: int = N_BERT):
-    """K1 and the compaction's two oktopk forms at BERT-base's flat size,
-    on rows of [4, n] buffers (row 3: its first byte lies 1.32 GB into the
-    buffer), held bit-equal to their plain versions and timed like the
-    VGG-16 forms: the sweep; phase (a)'s pack, R = 4, cap_pair, on its acc
-    at ~1% density; phase (b)'s select, R = 1, cap_exact, on a reduced
-    row nonzero in one quarter."""
+def phase_big_kernels(dev, phase: str, prefix: str, n: int, density: float,
+                      t: float, seed: int):
+    """K1 and the compaction's two oktopk forms at a model's flat size n,
+    on rows of [4, n] buffers (row 3: its first byte lies 12·n bytes into
+    the buffer), held bit-equal to their plain versions and timed like
+    the VGG-16 forms: the sweep; phase (a)'s pack, R = 4, cap_pair, on
+    its acc at about ``density`` (|x| >= ``t`` of a normal draw); phase
+    (b)'s select, R = 1, cap_exact, on a reduced row nonzero in one
+    quarter. Forms ``{prefix}_sweep``, ``{prefix}_pack_a``,
+    ``{prefix}_select_b``."""
     import torch
     from oktopk_tpu_torch.config import OkTopkConfig
     from oktopk_tpu_torch.ops import compaction, fused_select
 
-    cfg = OkTopkConfig(n=n, num_workers=4, density=0.01)
+    cfg = OkTopkConfig(n=n, num_workers=4, density=density)
     P = cfg.num_workers
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     gbuf = torch.randn((P, n), generator=gen, device=dev)
     rbuf = 0.05 * torch.randn((P, n), generator=gen, device=dev)
     g, r = gbuf[P - 1], rbuf[P - 1]
-    tt = torch.full((), 2.576, dtype=torch.float32, device=dev)  # ~1%
+    tt = torch.full((), t, dtype=torch.float32, device=dev)
     tp = tt * 1.25
     bnd = region_bounds(n, dev)
     st = fused_select.fused_select_stage(g, r, tt, tp)
     ref = fused_select.fused_select_plain(g, r, tt, tp)
-    err = {"bert_sweep": max(bits_equal(getattr(st, f), getattr(ref, f),
-                                        f"bert sweep: {f}")
-                             for f in ("acc", "local_count", "probe_count",
-                                       "hist"))}
+    sweep, pack, select = (f"{prefix}_{f}" for f in ("sweep", "pack_a",
+                                                     "select_b"))
+    err = {sweep: max(bits_equal(getattr(st, f), getattr(ref, f),
+                                 f"{sweep}: {f}")
+                      for f in ("acc", "local_count", "probe_count",
+                                "hist"))}
     del ref
     acc = st.acc
     xb, tb = phase_b_input(n, cfg.cap_exact, dev)
     forms = {
-        "bert_sweep": {
+        sweep: {
             "kernel": lambda: fused_select.fused_select_stage(g, r, tt, tp),
             "plain": lambda: fused_select.fused_select_plain(g, r, tt, tp),
             "expect": K1_LAUNCHES,
             "bound_ms": (12 * n + 8 + 4 * 258) / HBM_BYTES_PER_S * 1e3},
-        "bert_pack_a": {
+        pack: {
             "R": P, "cap": cfg.cap_pair,
             "kernel": lambda: fused_select.fused_pack_finalize(
                 st, bnd, P, cfg.cap_pair),
@@ -841,7 +877,7 @@ def phase_bert_kernels(dev, n: int = N_BERT):
             "library": lambda: library_call(acc, tt),
             "expect": COMPACTION_LAUNCHES,
             "bound_ms": compaction_bound_ms(n, P, cfg.cap_pair, True)},
-        "bert_select_b": {
+        select: {
             "R": 1, "cap": cfg.cap_exact,
             "kernel": lambda: compaction.select_by_threshold(
                 xb, tb, cfg.cap_exact),
@@ -851,11 +887,11 @@ def phase_bert_kernels(dev, n: int = N_BERT):
             "expect": COMPACTION_LAUNCHES,
             "bound_ms": compaction_bound_ms(n, 1, cfg.cap_exact, False)},
     }
-    for nm in ("bert_pack_a", "bert_select_b"):
+    for nm in (pack, select):
         err[nm] = triples_equal(forms[nm]["kernel"](), forms[nm]["plain"](),
                                 nm)
     torch.cuda.synchronize()
-    emit({"phase": "bert_kernels", "n": n, "P": P, "k": cfg.k,
+    emit({"phase": phase, "n": n, "P": P, "density": density, "k": cfg.k,
           "local_count": int(st.local_count),
           "survivors_b": int((xb.abs() >= tb).sum()), "bit_equal": True,
           "max_abs_err": err})
@@ -1139,6 +1175,283 @@ def phase_bert_trainer(dev, steps: int = 5):
     return launches
 
 
+# ---- the LSTM slice: DeepSpeech on AN4 (CTC) and the PTB LSTM ------------
+
+def lstman4_tiny_weights(seed: int):
+    """An ``lstman4_tiny`` state_dict drawn on the CPU."""
+    import torch
+    from oktopk_tpu_torch.models import create_model
+    m = create_model("lstman4_tiny")
+    m.init_weights(torch.Generator().manual_seed(seed))
+    return m.state_dict()
+
+
+def ctc_fwd_bwd(model, b, where):
+    """Logits, CTC loss and the flat gradient in JAX leaf order of
+    ``model`` (train mode) on the numpy batch ``b``, on ``where``."""
+    import torch
+    from oktopk_tpu_torch.models.layout import to_jax_layout
+    from oktopk_tpu_torch.train.losses import ctc_loss
+    from oktopk_tpu_torch.train.trainer import ctc_frame_len
+    t = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+    model.zero_grad(set_to_none=True)
+    logits = model(t["spect"], train=True, update_stats=False)
+    frames = torch.clamp(ctc_frame_len(t["spect_lengths"]),
+                         max=logits.shape[1])
+    loss = ctc_loss(logits, frames, t["labels"], t["label_lengths"])
+    loss.backward()
+    grad = torch.cat([to_jax_layout(p.grad, lay).reshape(-1)
+                      for _, p, lay in model.jax_leaves()])
+    return logits.detach(), loss.detach(), grad
+
+
+def repeats(fn) -> bool:
+    """Whether two calls of ``fn`` give bit-equal tensors."""
+    import torch
+    a, b = fn(), fn()
+    return all(torch.equal(x.float().view(torch.int32),
+                           y.float().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def phase_lstman4_parity(dev):
+    """``lstman4_tiny`` (2 x 128) from the same seed's weights on the card
+    (cuDNN's RNN, CUDA CTC) and on the CPU, train mode, 201 spectrogram
+    frames (T' = 101), batch 4: logits within 1e-4 of the largest, loss
+    within rtol 1e-4, the flat gradient in JAX leaf order within 1e-4 of
+    its largest element (cuDNN's and the CPU's LSTM and CTC add in other
+    orders); TF32 off. Then whether each piece repeats bit for bit on the
+    card (two calls on the same inputs): the whole fwd/bwd, CTC's
+    backward alone, and the cuDNN LSTM layer's backward alone."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.models import create_model
+    from oktopk_tpu_torch.models.rnn import lstm
+
+    sd = lstman4_tiny_weights(SEED)
+    b = synthetic_batch("lstman4_tiny", 4, np.random.RandomState(SEED))
+    out, models = {}, {}
+    for where in ("cpu", dev):
+        m = create_model("lstman4_tiny")
+        m.load_state_dict(sd)
+        models[str(where)] = m = m.to(where)
+        out[str(where)] = [x.cpu() for x in ctc_fwd_bwd(m, b, where)]
+    (c_lg, c_loss, c_grad), (g_lg, g_loss, g_grad) = (out["cpu"],
+                                                      out[str(dev)])
+    errs, tol = {}, 1e-4
+    for nm, a, w in (("logits", g_lg, c_lg), ("flat_grad", g_grad, c_grad)):
+        scale = float(w.abs().max())
+        errs[nm] = float((a - w).abs().max())
+        errs[nm + "_rel_largest"] = errs[nm] / scale
+        if errs[nm] > tol * scale:
+            raise AssertionError(f"lstman4_parity {nm}: max abs err "
+                                 f"{errs[nm]} (largest {scale})")
+    errs["loss"] = abs(float(g_loss) - float(c_loss))
+    if not math.isfinite(float(g_loss)) or \
+            errs["loss"] > tol * abs(float(c_loss)):
+        raise AssertionError(f"lstman4_parity loss: {float(g_loss)} vs "
+                             f"{float(c_loss)}")
+
+    m = models[str(dev)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lg = torch.randn((2, 101, 29), generator=gen, device=dev)
+    frames = torch.tensor([101, 80], device=dev)
+    labels = torch.randint(1, 29, (2, 40), generator=gen, device=dev)
+    lab_len = torch.tensor([20, 12], device=dev)
+
+    def ctc_grad():
+        x = lg.clone().requires_grad_()
+        F.ctc_loss(F.log_softmax(x, -1).transpose(0, 1), labels, frames,
+                   lab_len, reduction="none").mean().backward()
+        return [x.grad]
+
+    x_rnn = torch.randn((2, 101, 128), generator=gen, device=dev)
+    cells = (m.BatchRNN_1.OptimizedLSTMCell_0,
+             m.BatchRNN_1.OptimizedLSTMCell_1)
+
+    def rnn_grad():
+        m.zero_grad(set_to_none=True)
+        x = x_rnn.clone().requires_grad_()
+        (lstm(x, cells) * x_rnn[..., :128]).sum().backward()
+        return [x.grad] + [p.grad for c in cells for p in c.parameters()]
+
+    verdict = {"fwd_bwd": repeats(lambda: ctc_fwd_bwd(m, b, dev)),
+               "ctc_backward": repeats(ctc_grad),
+               "cudnn_lstm_backward": repeats(rnn_grad)}
+    emit({"phase": "lstman4_parity", "model": "lstman4_tiny",
+          "n": sum(p.numel() for p in m.parameters()), "frames": 201,
+          "batch": 4, "loss_card": float(g_loss), "loss_cpu": float(c_loss),
+          "max_abs_err": errs, "tolerance_rel_largest": tol,
+          "cudnn_deterministic": torch.backends.cudnn.deterministic,
+          "cublas_workspace_config": os.environ.get(
+              "CUBLAS_WORKSPACE_CONFIG"),
+          "repeats_bit_equal_on_card": verdict})
+    return errs, verdict
+
+
+def trainer_run(dev, argv, steps: int, phase: str):
+    """``steps`` steps of ``main_trainer.build_trainer(argv)`` on the card
+    (P = 4 workers stacked), CUDA events around the collective, launch
+    counters set to 0 just before the steps and read after each: per-step
+    records, the launches, the peak memory and the trainer's digests."""
+    import hashlib
+
+    import torch
+    from oktopk_tpu_torch.ops import compaction, fused_select
+    from oktopk_tpu_torch.train import main_trainer
+
+    args = main_trainer.parse_args(argv + ["--device", str(dev), "--seed",
+                                           str(SEED), "--num-workers", "4",
+                                           "--max-iters", str(steps)])
+    t0 = time.perf_counter()
+    trainer, data, _ = main_trainer.build_trainer(args)
+    build_s = time.perf_counter() - t0
+    batches = [next(data) for _ in range(steps)]
+    clock = StepClock(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    compaction.LAUNCHES = 0
+    fused_select.LAUNCHES = 0
+    recs, seen = [], (0, 0)
+    for s, b in enumerate(batches):
+        clock.mark("start")
+        t0 = time.perf_counter()
+        m = trainer.train_step(b)
+        clock.mark("end")
+        torch.cuda.synchronize()
+        now = (fused_select.LAUNCHES, compaction.LAUNCHES)
+        rec = {k: float(v) for k, v in m.items()}
+        rec.update(step=s + 1, ms=(time.perf_counter() - t0) * 1e3,
+                   collective=("dense" if s < trainer.algo_cfg.warmup_steps
+                               else trainer.cfg.compressor),
+                   fused_select_calls=now[0] - seen[0],
+                   compaction_calls=now[1] - seen[1], **clock.split())
+        seen = now
+        recs.append(rec)
+        emit({"phase": phase, **rec})
+    launches = {"fused_select": fused_select.LAUNCHES,
+                "compaction": compaction.LAUNCHES}
+    for r in recs:
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"{phase} step {r['step']}: loss "
+                                 f"{r['loss']}")
+    digest = hashlib.sha1()
+    for p in trainer.params:
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{phase}: non-finite parameter")
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out = {"n": trainer.algo_cfg.n, "k": trainer.algo_cfg.k,
+           "build_s": build_s, "recs": recs, "launches": launches,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated(dev) / 1e9,
+           "params_sha1": digest.hexdigest()}
+    del trainer, clock
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_summary(recs):
+    """Medians and spreads of a run's steps (host ms, and the CUDA-event
+    split into fwd/bwd with the flat copy, collective and optimizer)."""
+    out = {}
+    for k in ("ms", "fwd_bwd_ms", "collective_ms", "optimizer_ms"):
+        v = [r[k] for r in recs]
+        out[k] = {"median": statistics.median(v), "min": min(v),
+                  "max": max(v)}
+    return out
+
+
+LSTMAN4_ARGV = ["--dnn", "lstman4", "--dataset", "an4", "--batch-size",
+                "2", "--lr", "0.001", "--density", "0.02", "--grad-clip",
+                "400", "--wire-dtype", "bfloat16", "--warmup-steps", "1"]
+
+
+def phase_lstman4_trainer(dev, steps: int = 5):
+    """The slice at full width through ``main_trainer.build_trainer``:
+    DeepSpeech 5 x 800 (n = 54,791,168), P = 4 workers stacked on the
+    card, bs 2 each (``LSTM/exp_configs/lstman4.conf``), 201 spectrogram
+    frames (T' = 101), d = 0.02, ``--grad-clip 400``, bf16 wire: one
+    dense warmup step, then four oktopk steps (the first the exact
+    recomputes). Run twice from the same seed: whether the losses,
+    volumes and final parameters repeat bit for bit. Returns the first
+    run's launches."""
+    runs = [trainer_run(dev, LSTMAN4_ARGV, steps, "lstman4_trainer")
+            for _ in range(2)]
+    first = runs[0]
+    if first["n"] != N_LSTMAN4:
+        raise AssertionError(f"lstman4 has {first['n']} parameters")
+    sparse = first["recs"][1:]
+    for r in sparse:
+        if r["comm_volume"] <= 0:
+            raise AssertionError(f"lstman4_trainer step {r['step']}: "
+                                 "volume 0")
+    for nm, c in first["launches"].items():
+        if c <= 0:
+            raise AssertionError(f"lstman4_trainer: the {nm} kernel never "
+                                 "launched on the path")
+    keys = ("loss", "comm_volume", "wire_bytes", "local_k", "global_k")
+    differ = [{"step": a["step"], **{k: [a[k], b[k]] for k in keys
+                                     if a[k] != b[k]}}
+              for a, b in zip(first["recs"], runs[1]["recs"])
+              if any(a[k] != b[k] for k in keys)]
+    emit({"phase": "lstman4_trainer_summary", "model": "lstman4",
+          "n": first["n"], "k": first["k"], "workers": 4,
+          "batch_per_worker": 2, "frames": 201, "density": 0.02,
+          "grad_clip": 400, "steps": steps, "build_s": first["build_s"],
+          "losses": [r["loss"] for r in first["recs"]],
+          "volume": [r["comm_volume"] for r in first["recs"]],
+          "local_k": [r["local_k"] for r in first["recs"]],
+          "global_k": [r["global_k"] for r in first["recs"]],
+          "wire_bytes": [r["wire_bytes"] for r in first["recs"]],
+          "step_ms": [r["ms"] for r in first["recs"]],
+          "oktopk_steps": split_summary(sparse),
+          "predicted_steps": split_summary(sparse[1:]),
+          "dense_step": {k: first["recs"][0][k] for k in (
+              "ms", "fwd_bwd_ms", "collective_ms", "optimizer_ms")},
+          "calls_per_oktopk_step": [
+              {"fused_select": r["fused_select_calls"],
+               "compaction": r["compaction_calls"]} for r in sparse],
+          "launches": first["launches"],
+          "max_memory_allocated_gb": first["max_memory_allocated_gb"],
+          "second_run_step_ms": [r["ms"] for r in runs[1]["recs"]],
+          "repeats_bit_equal": {
+              "losses_and_volumes": not differ,
+              "params": first["params_sha1"] == runs[1]["params_sha1"]},
+          "differ": differ})
+    return first["launches"]
+
+
+def phase_lstm_trainer(dev, steps: int = 3):
+    """The PTB LSTM at full width (2 x 1500, vocabulary 10,000, 35
+    tokens, n = 66,022,000) through ``main_trainer.build_trainer``: P = 4
+    workers stacked, bs 20 each (``VGG/exp_configs/lstm.conf``), lr 1.0,
+    dropout 0.65 from the per-worker generators, oktopk at d = 0.02 with
+    no dense warmup (step 1 the exact recomputes): three steps, losses
+    finite, volumes reported. Returns the launches."""
+    run = trainer_run(dev, ["--dnn", "lstm", "--dataset", "ptb",
+                            "--batch-size", "20", "--lr", "1.0",
+                            "--density", "0.02", "--warmup-steps", "0"],
+                      steps, "lstm_trainer")
+    for nm, c in run["launches"].items():
+        if c <= 0:
+            raise AssertionError(f"lstm_trainer: the {nm} kernel never "
+                                 "launched on the path")
+    emit({"phase": "lstm_trainer_summary", "model": "lstm", "n": run["n"],
+          "k": run["k"], "workers": 4, "batch_per_worker": 20, "seq": 35,
+          "dropout": 0.65, "steps": steps, "build_s": run["build_s"],
+          "losses": [r["loss"] for r in run["recs"]],
+          "volume": [r["comm_volume"] for r in run["recs"]],
+          "local_k": [r["local_k"] for r in run["recs"]],
+          "global_k": [r["global_k"] for r in run["recs"]],
+          "step_ms": [r["ms"] for r in run["recs"]],
+          "split": split_summary(run["recs"]),
+          "launches": run["launches"],
+          "max_memory_allocated_gb": run["max_memory_allocated_gb"]})
+    return run["launches"]
+
+
 # ---- one worker per process: phases 12 and 13 ----------------------------
 
 DIST_P = 4
@@ -1216,7 +1529,6 @@ def dist_join(rank: int, world: int, tmp: str, backend: str, dev: str):
     """Join a group of ``world`` over a file store in ``tmp`` (no port to
     race for) through the launch layer; returns its comm."""
     import datetime
-    import os
 
     import torch
     import torch.distributed as dist
@@ -1242,7 +1554,6 @@ def dist_join(rank: int, world: int, tmp: str, backend: str, dev: str):
 def dist_guard(job, rank: int, tmp: str, *args):
     """Run ``job`` as a rank: its JSON result to ``rank{r}.json``, or its
     traceback to ``rank{r}.err`` and exit code 1."""
-    import os
     import traceback
     try:
         res = job(rank, tmp, *args)
@@ -1326,7 +1637,6 @@ def spawn_ranks(target, world: int, args, what: str):
     any failed or hung (those still running are killed). Returns the
     ranks' JSON results."""
     import multiprocessing as mp
-    import os
     import tempfile
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="oktopk_dist_") as tmp:
@@ -1455,7 +1765,6 @@ def trainer_rank(rank, tmp, world, dev, want_path):
 def run_cli(cmd, timeout_s: float):
     """Run ``cmd`` in its own session; on timeout kill the whole session
     (the launcher and its workers) and raise."""
-    import os
     import signal
     p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True,
@@ -1479,7 +1788,6 @@ def phase_dist_trainer(dev):
     BatchNorm buffers bit-equal on every rank. Then the ``torchrun`` CLI,
     four ranks of three steps, which must exit 0 with rank 0's log
     lines. Returns rank 0's launches on the path."""
-    import os
     import tempfile
 
     import torch
@@ -1531,6 +1839,8 @@ def phase_dist_trainer(dev):
           "stacked_step_ms": [w["ms"] for w in want],
           "per_rank_step_ms": [[s["ms"] for s in res["steps"]]
                                for res in ranks],
+          "dense_warmup_ms_per_rank": [res["steps"][0]["ms"]
+                                       for res in ranks],
           "stacked_launches": want_launches,
           "per_rank_launches": [res["launches"] for res in ranks],
           "note": "four processes share one card and gloo stages through "
@@ -1550,20 +1860,128 @@ def phase_dist_trainer(dev):
             not in lines[0]:
         raise AssertionError(f"torchrun CLI: exit {rc}, log lines {lines}"
                              f"\n{out[-4000:]}")
+    # its third step is dist_trainer's third: cuDNN deterministic in the
+    # Trainer (H15) makes the loss and the volume equal, not near
+    done = re.search(r"loss (\S+), vol/step (\d+)", lines[1])
+    cli = {"loss": float(done.group(1)), "comm_volume": int(done.group(2))}
+    ref = {"loss": want[2]["loss"], "comm_volume": int(want[2]["comm_volume"])}
+    if cli != ref:
+        raise AssertionError(f"torchrun CLI: last step {cli}, dist_trainer "
+                             f"{ref}")
     emit({"phase": "dist_trainer_cli", "cmd": " ".join(cmd[1:]),
-          "exit": rc, "rank0_log": lines, "seconds": cli_s})
+          "exit": rc, "rank0_log": lines, "seconds": cli_s,
+          "last_step": cli, "equal_to_dist_trainer": True})
     return ranks[0]["launches"]
 
 
-def kernel_line(timings, errs, by_path, edge_err, bert_timings, bert_errs):
+BERT_DIST_ARGV = ["--model", "bert_tiny", "--num-minibatches", "3",
+                  "--seed", str(SEED), "--density", "0.02"]
+
+
+def run_bert_steps(trainer, data, steps: int = 3):
+    """``steps`` BERT steps, counters set to 0 just before and read just
+    after: per-step metrics, the launches, and sha1 digests of the final
+    state_dict."""
+    import hashlib
+
+    import torch
+    from oktopk_tpu_torch.ops import compaction, fused_select
+    batches = [next(data) for _ in range(steps)]
+    torch.cuda.synchronize()
+    compaction.LAUNCHES = 0
+    fused_select.LAUNCHES = 0
+    recs = []
+    for b in batches:
+        t0 = time.perf_counter()
+        m = trainer.train_step(b)
+        torch.cuda.synchronize()
+        recs.append({**{k: float(v) for k, v in m.items()},
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    digests = {k: hashlib.sha1(v.detach().cpu().numpy().tobytes())
+               .hexdigest() for k, v in trainer.model.state_dict().items()}
+    return recs, {"fused_select": fused_select.LAUNCHES,
+                  "compaction": compaction.LAUNCHES}, digests
+
+
+def _bert_rank(rank: int, tmp: str, world: int, dev: str):
+    from oktopk_tpu_torch.train import main_bert
+    dist_join(rank, world, tmp, "gloo", dev)
+    trainer, data = main_bert.build_trainer(main_bert.parse_args(
+        BERT_DIST_ARGV + ["--device", dev, "--backend", "gloo"]))
+    if not trainer.distributed:
+        raise AssertionError("main_bert did not take the multi-process "
+                             "path")
+    recs, launches, digests = run_bert_steps(trainer, data)
+    return {"steps": recs, "launches": launches, "digests": digests}
+
+
+def bert_rank(rank, tmp, world, dev):
+    """Spawn target: ``bert_tiny`` (dropout 0.1) as one gloo rank of
+    ``world``, built by ``main_bert.build_trainer``."""
+    dist_guard(_bert_rank, rank, tmp, world, dev)
+
+
+def phase_dist_bert(dev):
+    """BERT across processes: ``bert_tiny`` with dropout 0.1 through
+    ``main_bert.build_trainer`` as four gloo ranks on the card, each
+    drawing its own worker's dropout masks, against the stacked Trainer
+    (4 workers) on the card from the same seed; oktopk at d = 0.02 with
+    the BERT cadences, three steps: losses, volumes and counts equal and
+    every ``state_dict`` entry bit-equal (sha1) on every rank. Returns
+    rank 0's launches."""
+    import torch
+    from oktopk_tpu_torch.train import main_bert
+
+    trainer, data = main_bert.build_trainer(main_bert.parse_args(
+        BERT_DIST_ARGV + ["--device", str(dev), "--num-workers",
+                          str(DIST_P)]))
+    if trainer.distributed:
+        raise AssertionError("the stacked bert_tiny trainer was not built")
+    want, want_launches, want_digests = run_bert_steps(trainer, data)
+    del trainer
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(bert_rank, DIST_P, (DIST_P, str(dev)), "dist_bert")
+    keys = ("loss", "mlm_loss", "nsp_loss", "comm_volume", "wire_bytes",
+            "local_k", "global_k")
+    for r, res in enumerate(ranks):
+        for s, (g, w) in enumerate(zip(res["steps"], want)):
+            for k in keys:
+                if g[k] != w[k]:
+                    raise AssertionError(f"dist_bert rank {r} step {s}: {k} "
+                                         f"{g[k]} vs stacked {w[k]}")
+        bad = sorted(k for k in want_digests
+                     if res["digests"][k] != want_digests[k])
+        if bad:
+            raise AssertionError(f"dist_bert rank {r}: {bad} differ from "
+                                 "the stacked trainer")
+        for nm, c in res["launches"].items():
+            if c <= 0:
+                raise AssertionError(f"dist_bert rank {r}: the {nm} kernel "
+                                     "never launched on the path")
+    emit({"phase": "dist_bert", "model": "bert_tiny", "dropout": 0.1,
+          "ranks": DIST_P, "placement": f"4 gloo ranks on {dev}",
+          "steps": 3, "bit_equal_to_stacked": True,
+          "losses": [w["loss"] for w in want],
+          "comm_volume": [w["comm_volume"] for w in want],
+          "stacked_step_ms": [w["ms"] for w in want],
+          "per_rank_step_ms": [[s["ms"] for s in res["steps"]]
+                               for res in ranks],
+          "stacked_launches": want_launches,
+          "per_rank_launches": [res["launches"] for res in ranks]})
+    return ranks[0]["launches"]
+
+
+def kernel_line(timings, errs, by_path, edge_err, big):
     """The ``{"kernels": [...]}`` entries at the main path's shapes (the
-    compaction's phase-(a) form; ``forms`` has every form), then the BERT
-    slice's forms at n = 110,106,428 (``bert_sweep``, ``bert_pack_a``,
-    ``bert_select_b``). ``ms``, ``plain_ms`` and ``library_ms`` are call
+    compaction's phase-(a) form; ``forms`` has every form), then each
+    larger model's forms at its n (``big``: {path: (n, timings, errs)}):
+    BERT-base's at n = 110,106,428 (``bert_sweep``, ``bert_pack_a``,
+    ``bert_select_b``) and DeepSpeech's at n = 54,791,168
+    (``lstman4_sweep``, ...). ``ms``, ``plain_ms`` and ``library_ms`` are call
     times, CUDA events around one call; the ``*device_ms`` keys are the
     device times of the same calls under the profiler. ``launches`` counts
-    the main path's run (oktopk on VGG-16; the BERT forms: BERT-base's
-    run); ``launches_by_path`` every trainer run's (``by_path``: {path:
+    the main path's run (oktopk on VGG-16; a larger model's forms: that
+    model's run); ``launches_by_path`` every trainer run's (``by_path``: {path:
     {kernel: launches}})."""
     def times(f):
         lib = f.get("library")
@@ -1606,20 +2024,26 @@ def kernel_line(timings, errs, by_path, edge_err, bert_timings, bert_errs):
     ] + [
         {"name": form, "route": "cuda",
          "source": f"oktopk_tpu_torch/csrc/{kernel}.cu", "replaces": tpu,
-         "launches": by_path["bert"][kernel],
-         "max_abs_err": bert_errs[form],
-         "bit_equal": bert_errs[form] == 0.0, "bound_by": "bytes", "n": N_BERT,
-         **{k: bert_timings[form][k] for k in ("R", "cap")
-            if k in bert_timings[form]},
-         **times(bert_timings[form])}
+         "launches": by_path[path][kernel],
+         "max_abs_err": errs_n[form],
+         "bit_equal": errs_n[form] == 0.0, "bound_by": "bytes", "n": n,
+         **{k: timings_n[form][k] for k in ("R", "cap")
+            if k in timings_n[form]},
+         **times(timings_n[form])}
+        for path, (n, timings_n, errs_n) in big.items()
         for form, kernel, tpu in (
-            ("bert_sweep", "fused_select", "oktopk_tpu/ops/fused_select.py:64"),
-            ("bert_pack_a", "compaction", "oktopk_tpu/ops/compaction.py:160"),
-            ("bert_select_b", "compaction",
+            (f"{path}_sweep", "fused_select",
+             "oktopk_tpu/ops/fused_select.py:64"),
+            (f"{path}_pack_a", "compaction",
+             "oktopk_tpu/ops/compaction.py:160"),
+            (f"{path}_select_b", "compaction",
              "oktopk_tpu/ops/compaction.py:160"))]
 
 
 def main() -> int:
+    # cuBLAS repeats its sums only with this set before the CUDA context
+    # exists (the reproducibility checks)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1638,7 +2062,10 @@ def main() -> int:
     phase_build()
     timings, errs = phase_kernels(dev)
     edge_err = phase_edges(dev)
-    bert_timings, bert_errs = phase_bert_kernels(dev)
+    big = {"bert": (N_BERT,) + phase_big_kernels(
+        dev, "bert_kernels", "bert", N_BERT, 0.01, 2.576, SEED + 4)}
+    big["lstman4"] = (N_LSTMAN4,) + phase_big_kernels(
+        dev, "lstm_kernels", "lstman4", N_LSTMAN4, 0.02, 2.326, SEED + 5)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
     phase_bert_parity(dev)
@@ -1646,11 +2073,15 @@ def main() -> int:
                "oktopk step options": phase_step_options(dev)}
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
+    phase_lstman4_parity(dev)
+    by_path["lstman4"] = phase_lstman4_trainer(dev)
+    by_path["lstm (PTB)"] = phase_lstm_trainer(dev)
     phase_dist_allreduce(dev)
     by_path["oktopk, one worker per process (rank 0 of 4)"] = \
         phase_dist_trainer(dev)
-    kernels = kernel_line(timings, errs, by_path, edge_err, bert_timings,
-                          bert_errs)
+    by_path["bert, one worker per process (rank 0 of 4)"] = \
+        phase_dist_bert(dev)
+    kernels = kernel_line(timings, errs, by_path, edge_err, big)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -10,12 +10,14 @@ Every result is bit-equal to ``StackedComm``'s row for this rank:
 
 - ``psum`` of floats adds in rank order (0 + 1 + ... + P-1), as the JAX
   CPU mesh does (H6). NCCL's and gloo's ``all_reduce`` add in ring or
-  tree order, which is not bit-equal to that, so a float ``psum`` is an
-  all_gather followed by a local sum in rank order. Its cost: each rank
-  receives (P-1)·n floats where a ring allreduce would move 2(P-1)/P·n.
-  The path's float psums are small (P cut positions, two totals) except
-  the dense warmup's and topkSA's fallback. An integer ``psum`` is one
-  ``all_reduce``: integer sums are exact in any order.
+  tree order, which is not bit-equal to that, so a float ``psum`` is a
+  reduce-scatter in rank order: the n elements, padded to a multiple of
+  P, go out as P chunks in one ``all_to_all_single``; rank r adds the P
+  copies of its chunk r in rank order; one ``all_gather`` of the summed
+  chunks gives every rank the whole sum. Every element is the same sum
+  in the same order as ``StackedComm.psum``'s, and each rank sends and
+  receives 2(P-1)/P·n floats, a ring allreduce's volume. An integer
+  ``psum`` is one ``all_reduce``: integer sums are exact in any order.
 - ``all_to_all`` is one ``all_to_all_single`` on the ``[P, ...]`` buffer;
   row q of the result is what rank q addressed here, in source-rank
   order (``ops/select.py::scatter_rows`` adds them in that order, H2).
@@ -79,11 +81,17 @@ class ProcessGroupComm:
             return out
         if x.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"psum adds float32 or float64, not {x.dtype}")
-        g = self.all_gather(x)[0]
+        P, n = self.size, x[0].numel()
+        c = -(-n // P)                       # chunk length
+        flat = torch.nn.functional.pad(x.reshape(-1), (0, c * P - n))
+        got = torch.empty_like(flat)
+        dist.all_to_all_single(got, flat)    # row q: rank q's chunk r
+        g = got.view(P, c)
         s = g[0].clone()
-        for p in range(1, self.size):
+        for p in range(1, P):
             s = s + g[p]
-        return s.unsqueeze(0)
+        return self.all_gather(s.unsqueeze(0))[0].reshape(-1)[:n].view(
+            x.shape)
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """psum then divide by P (``lax.pmean``)."""

@@ -12,7 +12,14 @@ pretraining tree has the top-level keys ``bert``, ``mlm_*`` and ``nsp``.
 - BERT (``models.bert.BertForPreTraining``): each flax path maps to one
   ``state_dict`` key and layout (``models.bert.torch_key``): Dense
   kernels transposed, ``DenseGeneral`` kernels, embedding tables and the
-  rest as they are.
+  rest as they are;
+- DeepSpeech and the PTB LSTM (``models.deepspeech``, ``models.lstm``),
+  whose submodules carry the flax names: each flax path of ``params``
+  and of ``batch_stats`` (DeepSpeech's top-level ``BatchNorm_0..2`` and
+  ``BatchRNN_1..4/BatchNorm_0``) is one ``state_dict`` key
+  (``models.layout.flax_named_key``): conv kernels HWIO -> OIHW, Dense
+  and LSTM kernels transposed, the rest as they are. Their trees have a
+  top-level ``BatchRNN_0`` or ``Embed_0``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import numpy as np
 import torch
 
 from oktopk_tpu_torch.models.bert import flax_path, torch_key
+from oktopk_tpu_torch.models.layout import (flax_named_key,
+                                            flax_named_path,
+                                            from_jax_layout, to_jax_layout)
 
 _CONV = re.compile(r"^Conv_(\d+)$")
 _BN = re.compile(r"^BatchNorm_(\d+)$")
@@ -41,6 +51,61 @@ def _is_bert_state(tensors) -> bool:
     return any(k.split(".")[0] in _BERT_ROOTS for k in tensors)
 
 
+_FLAX_NAMED_ROOTS = ("BatchRNN_0", "Embed_0")
+
+
+def _is_flax_named_tree(params_np) -> bool:
+    return any(r in params_np for r in _FLAX_NAMED_ROOTS)
+
+
+def _is_flax_named_state(tensors) -> bool:
+    return any(k.split(".")[0] in _FLAX_NAMED_ROOTS
+               or k.startswith("OptimizedLSTMCell_") for k in tensors)
+
+
+def _walk(tree, prefix=""):
+    """(flax path, leaf) of a nested dict, depth first."""
+    for name, sub in tree.items():
+        path = f"{prefix}/{name}" if prefix else name
+        if isinstance(sub, Mapping):
+            yield from _walk(sub, path)
+        else:
+            yield path, sub
+
+
+def _set(tree: dict, path: str, value) -> None:
+    parts = path.split("/")
+    for part in parts[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[parts[-1]] = value
+
+
+def flax_named_from_jax(params_np, batch_stats_np=None
+                        ) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of a flax-named model (DeepSpeech, the PTB LSTM)
+    from the flax params and batch_stats."""
+    sd = {}
+    for tree in (params_np, batch_stats_np or {}):
+        for path, a in _walk(tree):
+            key, layout = flax_named_key(path)
+            t = torch.from_numpy(np.array(a, np.float32, copy=True))
+            sd[key] = from_jax_layout(t, layout).contiguous()
+    return sd
+
+
+def flax_named_to_jax(tensors: Dict[str, torch.Tensor]
+                      ) -> Tuple[dict, dict]:
+    """Inverse of ``flax_named_from_jax``: (params, batch_stats)."""
+    params, stats = {}, {}
+    for key, t in tensors.items():
+        path, layout = flax_named_path(key)
+        a = np.ascontiguousarray(
+            to_jax_layout(t.detach().cpu(), layout).numpy())
+        _set(stats if path.rsplit("/", 1)[-1] in ("mean", "var")
+             else params, path, a)
+    return params, stats
+
+
 def _tensor(a, layout: str) -> torch.Tensor:
     a = np.asarray(a)
     if layout == "linear":
@@ -51,17 +116,9 @@ def _tensor(a, layout: str) -> torch.Tensor:
 def bert_from_jax_params(params_np) -> Dict[str, torch.Tensor]:
     """``state_dict`` of ``BertForPreTraining`` from the flax params."""
     sd = {}
-
-    def walk(tree, prefix):
-        for name, sub in tree.items():
-            path = f"{prefix}/{name}" if prefix else name
-            if isinstance(sub, Mapping):
-                walk(sub, path)
-            else:
-                key, layout = torch_key(path)
-                sd[key] = _tensor(sub, layout)
-
-    walk(params_np, "")
+    for path, a in _walk(params_np):
+        key, layout = torch_key(path)
+        sd[key] = _tensor(a, layout)
     return sd
 
 
@@ -71,18 +128,16 @@ def bert_to_jax_params(tensors: Dict[str, torch.Tensor]) -> dict:
     for key, t in tensors.items():
         path, layout = flax_path(key)
         a = t.detach().cpu().numpy()
-        node = params
-        parts = path.split("/")
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = np.ascontiguousarray(a.T if layout == "linear"
-                                               else a)
+        _set(params, path, np.ascontiguousarray(a.T if layout == "linear"
+                                                else a))
     return params
 
 
 def from_jax_params(params_np, batch_stats_np=None) -> Dict[str, torch.Tensor]:
     if _is_bert_tree(params_np):
         return bert_from_jax_params(params_np)
+    if _is_flax_named_tree(params_np):
+        return flax_named_from_jax(params_np, batch_stats_np)
     sd = {}
     for mod, leaves in params_np.items():
         m = _CONV.match(mod)
@@ -116,10 +171,12 @@ def from_jax_params(params_np, batch_stats_np=None) -> Dict[str, torch.Tensor]:
 def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
     """Inverse of ``from_jax_params``: (params, batch_stats) as nested
     dicts of numpy arrays in the flax layout (``batch_stats`` empty for
-    BERT). Keys absent from ``tensors`` are skipped, so a dict of
+    BERT and the PTB LSTM). Keys absent from ``tensors`` are skipped, so a dict of
     gradients maps too."""
     if _is_bert_state(tensors):
         return bert_to_jax_params(tensors), {}
+    if _is_flax_named_state(tensors):
+        return flax_named_to_jax(tensors)
     params, stats = {}, {}
     for key, t in tensors.items():
         a = t.detach().cpu().numpy()

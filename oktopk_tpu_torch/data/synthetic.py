@@ -1,12 +1,18 @@
 """Deterministic synthetic batches.
 
-Counterpart of the CIFAR and BERT branches of
-``oktopk_tpu/data/synthetic.py::synthetic_batch`` (:37-49, :87-88): made
-with numpy from a ``RandomState``, with the same draws in the same order,
-so both packages see the same batch from the same seed. The BERT branch
-is the synthetic MLM/NSP data the JAX package falls back to without
+Counterpart of the CIFAR, PTB, BERT and AN4 branches of
+``oktopk_tpu/data/synthetic.py::synthetic_batch`` (:16-88): made with
+numpy from a ``RandomState``, with the same draws in the same order, so
+both packages see the same batch from the same seed. The BERT branch is
+the synthetic MLM/NSP data the JAX package falls back to without
 Wikipedia shards (``oktopk_tpu/data/loaders.py:221-243``): token ids,
-then the 15% MLM mask, then the NSP labels.
+then the 15% MLM mask, then the NSP labels. The PTB branch is a bigram
+chain over a fixed successor table (drawn from its own
+``RandomState(vocab + 17)``, not from ``rng``) with 10% uniform noise;
+the AN4 branch tone-codes each character as 8 frames of energy in its
+own 5-bin band over a noise floor. The JAX package falls back to both
+without the PTB corpus or the AN4 manifests
+(``oktopk_tpu/data/loaders.py:283-284``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,20 @@ import numpy as np
 
 def synthetic_batch(dnn: str, batch_size: int, rng: np.random.RandomState,
                     seq_len: Optional[int] = None) -> Dict[str, np.ndarray]:
+    if dnn in ("lstm", "lstm_tiny"):
+        t = seq_len or 35
+        vocab = 1024 if dnn == "lstm_tiny" else 10000
+        trans = np.random.RandomState(vocab + 17).randint(
+            0, vocab, size=(vocab,))
+        toks = np.empty((batch_size, t + 1), np.int64)
+        toks[:, 0] = rng.randint(0, vocab, size=(batch_size,))
+        for i in range(t):
+            noise = rng.rand(batch_size) < 0.1
+            toks[:, i + 1] = np.where(
+                noise, rng.randint(0, vocab, size=(batch_size,)),
+                trans[toks[:, i]])
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "targets": toks[:, 1:].astype(np.int32)}
     if dnn.startswith("bert"):
         t = seq_len or (32 if dnn == "bert_tiny" else 128)
         vocab = 1024 if dnn == "bert_tiny" else 30522
@@ -31,6 +51,25 @@ def synthetic_batch(dnn: str, batch_size: int, rng: np.random.RandomState,
                 "mlm_labels": mlm,
                 "nsp_labels": rng.randint(0, 2, size=(batch_size,))
                 .astype(np.int32)}
+    if dnn.startswith("lstman4"):
+        f, t = 161, seq_len or 201
+        fpc = 8                           # frames per character
+        max_len = max(1, min(20, (t - 1) // fpc))
+        min_len = min(5, max_len)
+        spect = (0.3 * rng.randn(batch_size, f, t, 1)).astype(np.float32)
+        label_lengths = rng.randint(min_len, max_len + 1,
+                                    size=(batch_size,)).astype(np.int32)
+        labels = np.zeros((batch_size, 40), np.int32)
+        for b in range(batch_size):
+            ln = int(label_lengths[b])
+            seq = rng.randint(1, 29, size=(ln,))
+            labels[b, :ln] = seq
+            for i, c in enumerate(seq):
+                spect[b, c * 5:c * 5 + 5, i * fpc:(i + 1) * fpc, 0] += 1.0
+        return {"spect": spect,
+                "spect_lengths": (label_lengths * fpc).astype(np.int32),
+                "labels": labels,
+                "label_lengths": label_lengths}
     if not dnn.startswith("vgg"):
         raise NotImplementedError(
             f"synthetic data for {dnn!r} is not ported yet (ROADMAP.md)")

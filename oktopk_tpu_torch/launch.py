@@ -206,3 +206,27 @@ def maybe_initialize(backend: str, device=None, env: Optional[dict] = None,
         world_size=penv.num_processes,
         timeout=datetime.timedelta(seconds=timeout_s))
     return penv, dev
+
+
+def data_parallel(num_workers: Optional[int] = None, device=None,
+                  backend: Optional[str] = None):
+    """``(ProcessEnv, device, comm, workers)`` of a training CLI. One
+    process: comm None (the trainer stacks ``num_workers`` workers, 1 by
+    default, on its device). A multi-process launch: joins the group
+    (``maybe_initialize``; backend nccl on a card, gloo on the CPU,
+    unless named) and returns a ``ProcessGroupComm``, the world size
+    being the number of workers (``num_workers`` must be None or
+    equal to it)."""
+    from oktopk_tpu_torch.comm import ProcessGroupComm
+
+    penv = discover()
+    dev = local_device(penv, device)
+    if penv.num_processes <= 1:
+        return penv, dev, None, num_workers or 1
+    if num_workers not in (None, penv.num_processes):
+        raise ValueError(
+            f"--num-workers {num_workers} on a launch of "
+            f"{penv.num_processes} processes: one worker per process")
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    penv, dev = maybe_initialize(backend, dev)
+    return penv, dev, ProcessGroupComm(), penv.num_processes

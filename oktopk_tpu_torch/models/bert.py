@@ -20,8 +20,9 @@ Numerics follow flax, not ``torch.nn``'s defaults:
   E[x^2] - E[x]^2 clipped at 0, eps 1e-12, written out by hand;
 - the MLM decoder is tied to the word-embedding table (plus
   ``mlm_bias``), so that table gets gradient from both uses;
-- dropout draws its masks from an explicit ``torch.Generator`` passed to
-  ``forward``; it is off for ``train=False`` or ``dropout=0.0``.
+- dropout (``models/layers.py``) draws its masks from an explicit
+  ``torch.Generator`` passed to ``forward``; it is off for
+  ``train=False`` or ``dropout=0.0``.
 
 ``init_weights`` draws flax's default distributions: lecun-normal
 (truncated normal, std sqrt(1/fan_in)/0.8796) kernels, zero biases,
@@ -33,11 +34,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from oktopk_tpu_torch.models.layers import dropout
 
 # stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -77,23 +80,6 @@ class BertConfig:
         return BertConfig(vocab_size=1024, hidden_size=64, num_layers=2,
                           num_heads=2, intermediate_size=128,
                           max_position=128, **kw)
-
-
-def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator],
-            shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
-    """flax ``Dropout``: keep with probability 1 - rate (a uniform draw
-    below it), kept values divided by 1 - rate. ``shape`` broadcasts one
-    mask (flax's attention dropout)."""
-    if not train or rate == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout needs an explicit torch.Generator")
-    keep_prob = 1.0 - rate
-    keep = torch.rand(shape or x.shape, generator=generator,
-                      device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
 
 
 class LayerNorm(nn.Module):

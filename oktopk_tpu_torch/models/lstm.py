@@ -1,0 +1,65 @@
+"""PTB language-model LSTM: a 1500-d embedding, two 1500-wide LSTM
+layers, dropout (rate 1 - ``dropout_keep``) after the embedding and
+after each layer, and a Dense head with a bias to the vocabulary.
+
+Counterpart of ``oktopk_tpu/models/lstm.py``: submodules carry the flax
+names (``Embed_0``, ``OptimizedLSTMCell_0``, ``_1``, ``Dense_0``;
+``models/layout.py``). Each step starts from a zero carry and the model
+returns the logits only, as the JAX Trainer uses its model
+(``oktopk_tpu/train/trainer.py:599-603`` ignores the returned carry);
+the reference's carry across iterations is not what the JAX package
+does. Dropout masks come from the ``generator`` the caller passes (one
+per worker, ``train/trainer.py``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from oktopk_tpu_torch.models.layers import dropout
+from oktopk_tpu_torch.models.layout import flax_named_leaves
+from oktopk_tpu_torch.models.rnn import LSTMCell, lstm
+
+
+class PTBLSTM(nn.Module):
+    """tokens [B, T] -> logits [B, T, vocab_size]."""
+
+    def __init__(self, vocab_size: int = 10000, hidden_size: int = 1500,
+                 num_layers: int = 2, dropout_keep: float = 0.35):
+        super().__init__()
+        self.rate = 1.0 - dropout_keep
+        self.num_layers = num_layers
+        self.Embed_0 = nn.Embedding(vocab_size, hidden_size)
+        for i in range(num_layers):
+            self.add_module(f"OptimizedLSTMCell_{i}",
+                            LSTMCell(hidden_size, hidden_size))
+        self.Dense_0 = nn.Linear(hidden_size, vocab_size)
+
+    def forward(self, tokens, train: bool = True, generator=None):
+        x = dropout(self.Embed_0(tokens.long()), self.rate, train, generator)
+        for i in range(self.num_layers):
+            x = lstm(x, (self.get_submodule(f"OptimizedLSTMCell_{i}"),))
+            x = dropout(x, self.rate, train, generator)
+        return self.Dense_0(x).to(torch.float32)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """flax's default initialisers (normal(1/sqrt(vocab)) embedding,
+        lecun-normal head kernel, zero bias, the cells' own), drawn from
+        ``generator``, not JAX's draws."""
+        e = self.Embed_0.weight
+        e.copy_(torch.randn(e.shape, generator=generator)
+                / math.sqrt(e.shape[0]))
+        w = self.Dense_0.weight
+        w.copy_(torch.randn(w.shape, generator=generator)
+                / math.sqrt(w.shape[1]))
+        self.Dense_0.bias.zero_()
+        for i in range(self.num_layers):
+            self.get_submodule(f"OptimizedLSTMCell_{i}").init_weights(
+                generator)
+
+    def jax_leaves(self):
+        return flax_named_leaves(self)

@@ -6,12 +6,8 @@ flax modules (``convs[i]`` = ``Conv_i``, ``bns[i]`` = ``BatchNorm_i``,
 ``dense`` = ``Dense_0``) so that ``convert.py`` maps one onto the other,
 and ``jax_leaves`` lists the parameters in the JAX package's flat order.
 
-BatchNorm is written out by hand to match flax exactly:
-- batch variance E[x^2] - E[x]^2 (biased, clipped at 0), not the unbiased
-  variance ``nn.BatchNorm2d`` puts into its running statistics;
-- running statistics ``m * running + (1 - m) * batch`` with flax's
-  momentum m = 0.9 (torch's momentum 0.1);
-- y = (x - mean) * (rsqrt(var + eps) * scale) + bias, eps = 1e-5.
+BatchNorm is flax's, written out by hand (``models/layers.py``), over
+the NCHW axes (0, 2, 3).
 The head flattens in NHWC order, as the flax model does, so a narrow
 config whose last feature map is wider than 1x1 still agrees.
 """
@@ -24,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from oktopk_tpu_torch.models.layers import BatchNorm
+
 CFG = {
     "vgg11": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
     "vgg13": [64, 64, "M", 128, 128, "M", 256, 256, "M", 512, 512, "M",
@@ -33,36 +31,6 @@ CFG = {
     "vgg19": [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
               512, 512, 512, 512, "M", 512, 512, 512, 512, "M"],
 }
-
-
-class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW."""
-
-    def __init__(self, channels: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
-        super().__init__()
-        self.momentum = momentum
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("mean", torch.zeros(channels))
-        self.register_buffer("var", torch.ones(channels))
-
-    def forward(self, x, train: bool = True, update_stats: bool = True):
-        if train:
-            mean = x.mean((0, 2, 3))
-            mean2 = (x * x).mean((0, 2, 3))
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            if update_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                    self.var.copy_(m * self.var + (1.0 - m) * var)
-        else:
-            mean, var = self.mean, self.var
-        y = x - mean[None, :, None, None]
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return y * mul[None, :, None, None] + self.bias[None, :, None, None]
 
 
 class VGG(nn.Module):

@@ -5,13 +5,18 @@ Counterpart of ``oktopk_tpu/train/main_bert.py:22-182`` and
 ``_bert_algo_cfg`` (:290-299): the same flags and defaults (bs 8 per
 worker, seq 128 (32 for ``bert_tiny``), BertAdam lr 2e-4 with a 1%
 warmup-linear schedule over ``--num-minibatches``, oktopk at density
-0.01 on the bf16 wire, no dense warmup), plus ``--num-workers`` (the P
-workers stacked on one device) and ``--device``. The data is the
-synthetic MLM/NSP stream the JAX package falls back to without Wikipedia
-shards. The pipeline, sequence- and expert-parallel paths, checkpoints,
-resume and preemption are not ported yet: their flags raise
-``NotImplementedError`` unless left at their defaults (ROADMAP.md), and
-so does a multi-process launch.
+0.01 on the bf16 wire, no dense warmup), plus ``--num-workers``,
+``--device`` and ``--backend``. The data is the synthetic MLM/NSP stream
+the JAX package falls back to without Wikipedia shards. The pipeline,
+sequence- and expert-parallel paths, checkpoints, resume and preemption
+are not ported yet: their flags raise ``NotImplementedError`` unless
+left at their defaults (ROADMAP.md).
+
+One process holds its P workers stacked on its device
+(``--num-workers``, default 1); a multi-process launch runs one worker
+per process over a ``torch.distributed`` group, as ``main_trainer``
+does (``launch.data_parallel``), each with its own dropout stream
+(``train/trainer.py``). Only rank 0 logs.
 
 Example:
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
@@ -54,10 +59,16 @@ def parse_args(argv=None):
     p.add_argument("--density", type=float, default=0.01)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log-every", type=int, default=10)
-    p.add_argument("--num-workers", type=int, default=1,
-                   help="data-parallel workers stacked on the device")
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="data-parallel workers: stacked on the device in "
+                        "one process (default 1); the world size across "
+                        "processes")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda)")
+                   help="torch device (default: cuda, cuda:{local_rank} "
+                        "across processes)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend across processes (default: "
+                        "nccl on a card, gloo on the CPU)")
     # the JAX package's other paths, not ported yet
     p.add_argument("--pipeline-stages", type=int, default=1)
     p.add_argument("--seq-shards", type=int, default=1)
@@ -84,32 +95,30 @@ def _bert_algo_cfg(args, **kw):
 
 
 def build_trainer(args, model_kwargs=None):
-    """(Trainer, synthetic batch iterator) of the data-parallel path."""
+    """(Trainer, synthetic batch iterator) of the data-parallel path;
+    joins the process group on a multi-process launch."""
     from oktopk_tpu_torch.config import TrainConfig
     from oktopk_tpu_torch.data import synthetic_iterator
-    from oktopk_tpu_torch.launch import discover
+    from oktopk_tpu_torch.launch import data_parallel
     from oktopk_tpu_torch.train.trainer import Trainer
 
-    if discover().num_processes > 1:
-        raise NotImplementedError(
-            "BERT across processes is not ported yet: its dropout masks "
-            "come from one generator drawn worker after worker (ROADMAP.md, "
-            "Queue 1)")
     for flag, default in UNPORTED.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to "
                 "oktopk_tpu_torch yet (ROADMAP.md)")
+    _, dev, comm, workers = data_parallel(args.num_workers, args.device,
+                                          args.backend)
     cfg = TrainConfig(
         dnn=args.model, dataset="wikipedia", batch_size=args.batch_size,
         lr=args.lr, compressor=args.compressor, density=args.density,
         nsteps_update=args.gradient_accumulation_steps, seed=args.seed,
         warmup_proportion=args.warmup_proportion,
         compute_dtype=args.compute_dtype,
-        total_steps=args.num_minibatches, num_workers=args.num_workers)
-    trainer = Trainer(cfg, algo_cfg=_bert_algo_cfg(args), device=args.device,
-                      model_kwargs=model_kwargs)
-    global_bs = (args.batch_size * args.num_workers
+        total_steps=args.num_minibatches, num_workers=workers)
+    trainer = Trainer(cfg, algo_cfg=_bert_algo_cfg(args), device=dev,
+                      model_kwargs=model_kwargs, comm=comm)
+    global_bs = (args.batch_size * workers
                  * args.gradient_accumulation_steps)
     data = synthetic_iterator(args.model, global_bs, seed=args.seed,
                               seq_len=args.max_seq_length)
@@ -119,18 +128,23 @@ def build_trainer(args, model_kwargs=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    logger = logging.getLogger("oktopk_tpu_torch.bert")
     trainer, data = build_trainer(args)
-    logger.info("BERT pretrain: %s, %d workers on %s, compressor=%s "
-                "density=%g", args.model, args.num_workers, trainer.device,
-                args.compressor, args.density)
-    logger.warning("synthetic MLM/NSP data (the Wikipedia loaders are not "
-                   "ported yet)")
+    logger = (logging.getLogger("oktopk_tpu_torch.bert")
+              if trainer.comm.first_worker == 0 else None)
+    if logger:
+        logger.info("BERT pretrain: %s, %d workers on %s%s, compressor=%s "
+                    "density=%g", args.model, trainer.cfg.num_workers,
+                    trainer.device,
+                    f" ({trainer.comm.size} processes, "
+                    f"{trainer.comm.backend})" if trainer.distributed
+                    else "", args.compressor, args.density)
+        logger.warning("synthetic MLM/NSP data (the Wikipedia loaders are "
+                       "not ported yet)")
     m = trainer.train(data, args.num_minibatches, log_every=args.log_every,
                       logger=logger)
-    if m:
-        logger.info("done: loss %.4f comm volume/step %.0f elems",
-                    m["loss"], m["comm_volume"])
+    if m and logger:
+        logger.info("done: loss %r comm volume/step %d elems",
+                    m["loss"], int(m["comm_volume"]))
     return 0
 
 

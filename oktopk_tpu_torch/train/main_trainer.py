@@ -1,11 +1,16 @@
-"""CLI driver for VGG data-parallel training with a sparse allreduce.
+"""CLI driver for data-parallel training with a sparse allreduce: VGG on
+CIFAR-10, DeepSpeech on AN4 (CTC) and the PTB LSTM.
 
 Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 :25-50, :130-135 that the port serves, under the same names
 (``--compressor`` takes every ported registry name), plus
-``--num-workers``, ``--device`` and ``--backend``. The data is the
-synthetic CIFAR iterator (the real loaders are not ported yet,
-ROADMAP.md).
+``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
+``cifar10`` (``--dnn vgg*``), ``an4`` (``lstman4``, ``lstman4_tiny``) or
+``ptb`` (``lstm``, ``lstm_tiny``); the data is the synthetic iterator of
+the model's family at its default sequence lengths (201 spectrogram
+frames, 35 tokens), 50,000 examples an epoch, as the JAX package's
+``make_dataset`` falls back to without files (the real loaders are not
+ported yet, ROADMAP.md). Any other dataset raises.
 
 One process holds its P workers stacked on its device
 (``--num-workers``, default 1). A multi-process launch (``torchrun``,
@@ -20,6 +25,9 @@ Examples:
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
         --batch-size 16 --num-workers 4 --density 0.02 --max-iters 20 \\
         --compressor topkA --nsteps-update 2 --grad-clip 5.0
+    python -m oktopk_tpu_torch.train.main_trainer --dnn lstman4 \\
+        --dataset an4 --batch-size 2 --num-workers 4 --grad-clip 400 \\
+        --lr 3e-4 --max-iters 20
     torchrun --standalone --nproc-per-node 4 \\
         -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 --max-iters 20
 """
@@ -28,11 +36,16 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 from oktopk_tpu_torch.collectives.registry import list_algorithms
 
-CIFAR10_TRAIN_EXAMPLES = 50000
+# examples an epoch: CIFAR-10's training set, and the JAX package's
+# synthetic fallback for every dataset
+SYNTHETIC_EXAMPLES = 50000
+# the models each dataset trains
+DATASETS = {"cifar10": "image", "an4": "ctc", "ptb": "lm"}
 
 
 def parse_args(argv=None):
@@ -81,27 +94,18 @@ def build_trainer(args):
     the trainer on ``ProcessGroupComm`` there, else on its stacked
     workers."""
     from oktopk_tpu_torch import launch
-    from oktopk_tpu_torch.comm import ProcessGroupComm
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
     from oktopk_tpu_torch.data import synthetic_iterator
-    from oktopk_tpu_torch.train.trainer import Trainer
+    from oktopk_tpu_torch.train.trainer import Trainer, workload
 
-    if args.dataset != "cifar10":
+    if args.dataset not in DATASETS:
         raise NotImplementedError(
             f"dataset {args.dataset!r} is not ported yet (ROADMAP.md)")
-    penv = launch.discover()
-    dev = launch.local_device(penv, args.device)
-    backend = args.backend or ("nccl" if dev.type == "cuda" else "gloo")
-    comm = None
-    workers = args.num_workers or 1
-    if penv.num_processes > 1:
-        if args.num_workers not in (None, penv.num_processes):
-            raise ValueError(
-                f"--num-workers {args.num_workers} on a launch of "
-                f"{penv.num_processes} processes: one worker per process")
-        workers = penv.num_processes
-        penv, dev = launch.maybe_initialize(backend, dev)
-        comm = ProcessGroupComm()
+    if DATASETS[args.dataset] != workload(args.dnn):
+        raise ValueError(f"--dnn {args.dnn} does not train on "
+                         f"--dataset {args.dataset}")
+    penv, dev, comm, workers = launch.data_parallel(
+        args.num_workers, args.device, args.backend)
     cfg = TrainConfig(
         dnn=args.dnn, dataset=args.dataset, batch_size=args.batch_size,
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
@@ -118,8 +122,19 @@ def build_trainer(args):
     return trainer, data, penv
 
 
+def iterations(args, workers: int) -> int:
+    """``--max-iters``, else ``--max-epochs`` epochs of
+    ``SYNTHETIC_EXAMPLES`` examples at the global batch."""
+    global_bs = args.batch_size * workers * args.nsteps_update
+    return args.max_iters or args.max_epochs * max(
+        1, SYNTHETIC_EXAMPLES // global_bs)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # cuBLAS repeats its sums only with this set before the CUDA context
+    # exists (the Trainer makes cuDNN deterministic)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     trainer, data, penv = build_trainer(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = (logging.getLogger("oktopk_tpu_torch") if penv.is_coordinator
@@ -131,13 +146,11 @@ def main(argv=None) -> int:
                     f"{penv.num_processes} processes ({penv.source}, "
                     f"{trainer.comm.backend})" if trainer.distributed
                     else "one process", trainer.device)
-    global_bs = cfg.batch_size * cfg.num_workers * cfg.nsteps_update
-    iters_per_epoch = max(1, CIFAR10_TRAIN_EXAMPLES // global_bs)
-    total = args.max_iters or args.max_epochs * iters_per_epoch
+    total = iterations(args, cfg.num_workers)
     m = trainer.train(data, total, log_every=args.log_every, logger=logger)
     if logger:
-        logger.info("done: %d iterations, loss %.4f, vol/step %.0f", total,
-                    m["loss"], m["comm_volume"])
+        logger.info("done: %d iterations, loss %r, vol/step %d", total,
+                    m["loss"], int(m["comm_volume"]))
     return 0
 
 

@@ -5,7 +5,8 @@ Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``optim/distributed.py::build_sparse_grad_step`` that the port runs
 (init, ``train_step``, ``train``, the step options ``nsteps_update``,
 ``grad_clip``, momentum correction and ``profile_norm``, and the
-workload dispatch of :98-107, :558-612 for VGG and BERT pretraining);
+workload dispatch of :44-53, :98-107, :558-624 for VGG, BERT
+pretraining, the PTB LSTM and DeepSpeech on AN4);
 the obs, resilience and autotune planes are not ported yet (ROADMAP.md).
 
 The comm decides where the workers live: ``StackedComm`` (the default)
@@ -31,30 +32,47 @@ One step:
    ``min(1, grad_clip / (||row|| + 1e-12))``;
 3. the sparse collective (``optim/distributed.py``) reduces it;
 4. the optimizer updates the (single, replicated) parameters from the
-   result: SGD (VGG) leaf by leaf, momentum-free under momentum
+   result: SGD (VGG, the LSTMs) leaf by leaf, momentum-free under momentum
    correction (the momentum is then folded into the compressed gradient
    stream); BertAdam (BERT) over the flat buffers.
 
-The workload decides the loss and the optimizer, as in the JAX Trainer:
-- VGG: softmax cross entropy; BatchNorm running statistics come from
-  worker 0's microbatches, in order, as the JAX step returns them
-  (``out_specs=P()`` takes shard 0);
-- BERT (``dnn`` ``bert*``): the batch keys ``input_ids``,
-  ``token_type_ids``, ``attention_mask``, ``mlm_labels`` and
-  ``nsp_labels``; ``bert_pretrain_loss`` (``mlm_loss`` and ``nsp_loss``
-  join the metrics); no batch statistics; BertAdam with
-  ``t_total = cfg.total_steps or -1``; momentum correction ignored with
-  the JAX warning; dropout masks from one generator on the device,
-  seeded from ``cfg.seed``, drawn worker after worker (so BERT runs on
-  the stacked comm only: rank r could not draw its masks without the
-  draws of ranks 0..r-1, ROADMAP.md).
-The reported losses are the means of the P worker losses, added in rank
-order.
+The workload (``workload(cfg.dnn)``) decides the batch keys, the loss
+and the optimizer, as in the JAX Trainer:
+- ``image`` (VGG): ``image``, ``label``; softmax cross entropy; SGD;
+- ``bert`` (``bert*``): ``input_ids``, ``token_type_ids``,
+  ``attention_mask``, ``mlm_labels``, ``nsp_labels``;
+  ``bert_pretrain_loss`` (``mlm_loss`` and ``nsp_loss`` join the
+  metrics); BertAdam with ``t_total = cfg.total_steps or -1``; momentum
+  correction ignored with the JAX warning;
+- ``lm`` (``lstm``, ``lstm_tiny``): ``tokens``, ``targets``;
+  ``lm_cross_entropy``; SGD; every step from a zero carry (the JAX
+  Trainer ignores the carry its model returns);
+- ``ctc`` (``lstman4*``): ``spect``, ``spect_lengths``, ``labels``,
+  ``label_lengths``; ``ctc_loss`` over ``ctc_frame_len(spect_lengths)``
+  capped at the logits' frames; SGD.
+BatchNorm running statistics (VGG, DeepSpeech) come from worker 0's
+microbatches, in order, as the JAX step returns them (``out_specs=P()``
+takes shard 0). The reported losses are the means of the P worker
+losses, added in rank order.
+
+Dropout (BERT, the PTB LSTM) draws its masks from one generator per
+worker on the device, ``dropout_gens[w]`` for local worker w, seeded by
+``worker_seed(cfg.seed, worker id)``: numpy's
+``SeedSequence([seed, worker]).generate_state(1)[0]``. Worker p's masks
+so depend on the seed and p alone, not on P or on the draws of workers
+0..p-1, and a rank draws its own without the others: the JAX step's
+structure, one stream per worker folded from its index
+(``oktopk_tpu/optim/distributed.py:261``), drawn microbatch after
+microbatch. The masks are not threefry's (ROADMAP.md, H16).
 
 On the card TF32 is switched off for cuDNN convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32`` set False, process-wide), so
-the float32 model computes in float32 as the reference does.
+``torch.backends.cuda.matmul.allow_tf32`` set False), so the float32
+model computes in float32 as the reference does, and cuDNN is made
+deterministic (``torch.backends.cudnn.deterministic`` True,
+``benchmark`` False), so a run repeats as XLA's does; all four switches
+are process-wide. cuBLAS repeats only with ``CUBLAS_WORKSPACE_CONFIG``
+set before the CUDA context exists (``main_trainer.main`` sets it).
 """
 
 from __future__ import annotations
@@ -65,6 +83,7 @@ import time
 import warnings
 from typing import Any, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from oktopk_tpu_torch import resolve_device
@@ -72,13 +91,43 @@ from oktopk_tpu_torch.comm import StackedComm
 from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
 from oktopk_tpu_torch.convert import from_jax_params
 from oktopk_tpu_torch.models import create_model
+from oktopk_tpu_torch.models.deepspeech import CONV_TIME_STRIDE
 from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
 from oktopk_tpu_torch.optim import SGD, BertAdam
 from oktopk_tpu_torch.optim.distributed import SparseGradStep, flat_size
 from oktopk_tpu_torch.train import losses
 
-BERT_KEYS = ("input_ids", "token_type_ids", "attention_mask", "mlm_labels",
-             "nsp_labels")
+BATCH_KEYS = {
+    "image": ("image", "label"),
+    "bert": ("input_ids", "token_type_ids", "attention_mask", "mlm_labels",
+             "nsp_labels"),
+    "lm": ("tokens", "targets"),
+    "ctc": ("spect", "spect_lengths", "labels", "label_lengths"),
+}
+
+
+def workload(dnn: str) -> str:
+    """The workload family of a model name (a key of ``BATCH_KEYS``)."""
+    if dnn.startswith("bert"):
+        return "bert"
+    if dnn in ("lstm", "lstm_tiny"):
+        return "lm"
+    if dnn.startswith("lstman4"):
+        return "ctc"
+    return "image"
+
+
+def ctc_frame_len(spect_lengths: torch.Tensor) -> torch.Tensor:
+    """Input-spectrogram frames -> logit frames: the conv frontend
+    downsamples time by ``CONV_TIME_STRIDE`` (rounding up), as
+    ``oktopk_tpu/train/trainer.py::_ctc_frame_len`` (:44-53)."""
+    s = CONV_TIME_STRIDE
+    return (spect_lengths + s - 1) // s
+
+
+def worker_seed(seed: int, worker: int) -> int:
+    """The seed of worker ``worker``'s dropout generator."""
+    return int(np.random.SeedSequence([seed, worker]).generate_state(1)[0])
 
 
 def _lecun_normal_(p: torch.Tensor, fan_in: int, gen: torch.Generator):
@@ -101,8 +150,10 @@ class Trainer:
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.cfg = cfg
-        self.bert = cfg.dnn.startswith("bert")
+        self.workload = workload(cfg.dnn)
         P = cfg.num_workers
         self.comm = StackedComm(P) if comm is None else comm
         if self.comm.size != P:
@@ -110,13 +161,9 @@ class Trainer:
                              f"cfg.num_workers={P}")
         W = self.comm.local_workers
         self.distributed = W < P
-        if self.bert and self.distributed:
-            raise NotImplementedError(
-                "BERT across processes needs per-worker dropout generators "
-                "(ROADMAP.md, Queue 1)")
         model = create_model(cfg.dnn, **(model_kwargs or {}))
         gen = torch.Generator().manual_seed(cfg.seed)
-        if self.bert:
+        if hasattr(model, "init_weights"):
             model.init_weights(gen)
         else:
             for m in model.modules():
@@ -135,7 +182,7 @@ class Trainer:
         n = flat_size(self.params)
         self.algo_cfg = (algo_cfg or OkTopkConfig()).replace(
             n=n, num_workers=P, density=cfg.density)
-        if self.bert:
+        if self.workload == "bert":
             if cfg.momentum_correction:
                 warnings.warn(
                     "momentum_correction is an SGD-path feature (reference "
@@ -145,8 +192,6 @@ class Trainer:
             self.optimizer = BertAdam(lr=cfg.lr, warmup=cfg.warmup_proportion,
                                       t_total=cfg.total_steps or -1)
             self.optimizer.init(n, self.device)
-            self.dropout_gen = torch.Generator(
-                device=self.device).manual_seed(cfg.seed)
         else:
             mc = cfg.momentum if cfg.momentum_correction else 0.0
             self.optimizer = SGD(cfg.lr, momentum=0.0 if mc else cfg.momentum,
@@ -159,6 +204,10 @@ class Trainer:
             momentum_correction=mc, profile_norm=profile_norm)
         self.flat = torch.empty((W, n), dtype=torch.float32,
                                 device=self.device)
+        self.dropout_gens = [
+            torch.Generator(device=self.device).manual_seed(
+                worker_seed(cfg.seed, self.comm.first_worker + w))
+            for w in range(W)]
         self.stats = list(self.model.buffers())
         if self.distributed:
             changed = self.comm.replicate_(self.params).reshape(1, 1)
@@ -169,8 +218,8 @@ class Trainer:
     def load_jax_variables(self, params_np, batch_stats_np=None) -> None:
         """Take the flax model's weights (``convert.from_jax_params``)."""
         sd = from_jax_params(params_np, batch_stats_np)
-        self.model.load_state_dict(sd, strict=self.bert
-                                   or batch_stats_np is not None)
+        self.model.load_state_dict(sd, strict=batch_stats_np is not None
+                                   or not self.stats)
 
     def _jax_views(self, flat: torch.Tensor):
         """Each parameter's segment of the flat [n] ``flat``, viewed in the
@@ -186,18 +235,29 @@ class Trainer:
 
     def _loss(self, mb, w: int):
         """(loss, {aux metrics}) of worker ``w`` on microbatch ``mb``."""
-        if self.bert:
+        gen = self.dropout_gens[w - self.comm.first_worker]
+        if self.workload == "bert":
             mlm, nsp = self.model(mb["input_ids"], mb["token_type_ids"],
                                   mb["attention_mask"], train=True,
-                                  generator=self.dropout_gen)
+                                  generator=gen)
             return losses.bert_pretrain_loss(mlm, nsp, mb["mlm_labels"],
                                              mb["nsp_labels"])
+        if self.workload == "lm":
+            logits = self.model(mb["tokens"], train=True, generator=gen)
+            return losses.lm_cross_entropy(logits, mb["targets"]), {}
+        if self.workload == "ctc":
+            logits = self.model(mb["spect"], train=True,
+                                update_stats=(w == 0))
+            frames = torch.clamp(ctc_frame_len(mb["spect_lengths"]),
+                                 max=logits.shape[1])
+            return losses.ctc_loss(logits, frames, mb["labels"],
+                                   mb["label_lengths"]), {}
         logits = self.model(mb["image"], train=True, update_stats=(w == 0))
         return losses.softmax_cross_entropy(logits, mb["label"]), {}
 
     @torch.no_grad()
     def _apply_update(self, reduced: torch.Tensor) -> None:
-        if not self.bert:
+        if self.workload != "bert":
             self.optimizer.update(self.params, self._jax_views(reduced))
             return
         flat_p = torch.empty_like(reduced)
@@ -214,7 +274,7 @@ class Trainer:
         P, W = self.comm.size, self.comm.local_workers
         first = self.comm.first_worker
         ns = self.cfg.nsteps_update
-        keys = BERT_KEYS if self.bert else ("image", "label")
+        keys = BATCH_KEYS[self.workload]
         rows_total = len(batch[keys[0]])
         b = rows_total // (P * ns)
         if b * P * ns != rows_total:

@@ -3,10 +3,13 @@
 
 Runs ``oktopk_tpu_torch``'s Trainer at full width with P workers stacked
 on the card: VGG-16 (the ``chip_smoke.py`` trainer configuration, by
-default) or, with ``--model bert_base``, BERT-base pretraining as
+default); with ``--model bert_base``, BERT-base pretraining as
 ``main_bert.build_trainer`` builds it (the ``chip_smoke.py`` bert_trainer
 configuration: bs 8 per worker, seq 128, d = 0.01, the BERT cadences, no
-dense warmup). It profiles the first sparse step on its own (``kernels``
+dense warmup); with ``--model lstman4``, DeepSpeech on AN4 as
+``main_trainer.build_trainer`` builds it (the ``chip_smoke.py``
+lstman4_trainer configuration: 5 x 800, bs 2 per worker, 201 frames,
+d = 0.02, ``--grad-clip 400``, one dense warmup step). It profiles the first sparse step on its own (``kernels``
 line with ``"window": "first"``: for BERT the exact recompute and the
 repartition), then over ``--steps`` steady-state steps reports, as JSON
 lines:
@@ -23,10 +26,15 @@ lines:
 
 ``--compressors`` names the sparse compressors to profile (comma
 separated, default oktopk); each gets its ``phases`` and ``kernels``
-lines. Needs a CUDA device. Example:
+lines. ``--cudnn-ab`` instead times the model's oktopk step with cuDNN
+deterministic (the Trainer's setting) and not, in turns (on, off, off,
+on; ``--steps`` steps each, after the warmup and first sparse step):
+the ``cudnn_ab`` line. Needs a CUDA device. Example:
 
     python3 scripts/port_profile.py --steps 4 --compressors oktopk,topkA
     python3 scripts/port_profile.py --model bert_base --steps 3
+    python3 scripts/port_profile.py --model lstman4 --steps 4
+    python3 scripts/port_profile.py --cudnn-ab --steps 6
 """
 
 from __future__ import annotations
@@ -66,6 +74,16 @@ def build_trainer(args, compressor):
             "--density", str(args.density), "--seed", "0"])
         trainer, data = main_bert.build_trainer(bargs)
         return trainer, [next(data) for _ in range(steps)], 0
+    if args.model == "lstman4":
+        from oktopk_tpu_torch.train import main_trainer
+        targs = main_trainer.parse_args([
+            "--dnn", "lstman4", "--dataset", "an4", "--num-workers",
+            str(args.workers), "--batch-size", str(args.batch // args.workers),
+            "--lr", "0.001", "--grad-clip", "400", "--warmup-steps", "1",
+            "--compressor", compressor, "--density", str(args.density),
+            "--seed", "0", "--max-iters", str(steps)])
+        trainer, data, _ = main_trainer.build_trainer(targs)
+        return trainer, [next(data) for _ in range(steps)], 1
     cfg = TrainConfig(dnn="vgg16", batch_size=args.batch // args.workers,
                       lr=0.1, density=args.density, num_workers=args.workers,
                       compressor=compressor, seed=0)
@@ -165,10 +183,34 @@ def profile_window(trainer, batches, args, comp, window):
         "device_busy_share": busy / wall if wall else None})
 
 
+def cudnn_ab(args):
+    """The oktopk step with cuDNN deterministic and not, in turns."""
+    import torch
+    steps = args.steps
+    args.steps = 4 * steps + 1
+    trainer, batches, warm = build_trainer(args, "oktopk")
+    clock = PhaseClock(trainer)
+    for b in batches[:warm + 1]:         # warmup and first sparse steps
+        clock.run(trainer, b)
+    rows = {True: [], False: []}
+    rest = batches[warm + 1:]
+    for i, det in enumerate((True, False, False, True)):
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = False
+        rows[det] += [clock.run(trainer, b)
+                      for b in rest[i * steps:(i + 1) * steps]]
+    torch.backends.cudnn.deterministic = True
+    emit({"cudnn_ab": {
+        "deterministic" if det else "nondeterministic": {
+            "per_step": r, "median": {k: statistics.median(x[k] for x in r)
+                                      for k in r[0]}}
+        for det, r in rows.items()}})
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="vgg16",
-                   choices=["vgg16", "bert_base", "bert_tiny"])
+                   choices=["vgg16", "bert_base", "bert_tiny", "lstman4"])
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--batch", type=int, default=None,
@@ -181,14 +223,21 @@ def main():
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--compressors", default="oktopk",
                    help="comma-separated sparse compressors to profile")
+    p.add_argument("--cudnn-ab", action="store_true",
+                   help="time the oktopk step with cuDNN deterministic "
+                        "and not, in turns")
     args = p.parse_args()
     bert = args.model.startswith("bert")
     if args.batch is None:
-        args.batch = 8 * args.workers if bert else 64
+        args.batch = {"lstman4": 2 * args.workers}.get(
+            args.model, 8 * args.workers if bert else 64)
     if args.density is None:
         args.density = 0.01 if bert else 0.02
     names = [c for c in args.compressors.split(",") if c]
 
+    # cuBLAS repeats its sums only with this set before the CUDA context
+    # exists (as the Trainer's deterministic cuDNN, for the A/B)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -198,6 +247,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     emit({"card": smi, "torch": torch.__version__, **vars(args)})
+    if args.cudnn_ab:
+        cudnn_ab(args)
+        return 0
 
     results = {}
     for comp in names + ["dense"]:

@@ -20,9 +20,11 @@ module, and each test reads what its part wrote:
   ``test_torch_oktopk.py``);
 - three narrow-VGG Trainer steps: bit-equal to the stacked Trainer on
   every rank, and within ``test_torch_vgg.py``'s tolerances of the JAX
-  Trainer on the 4-device mesh.
+  Trainer on the 4-device mesh;
+- two ``bert_tiny`` Trainer steps with dropout 0.1, each rank drawing its
+  own worker's masks: bit-equal to the stacked Trainer on every rank.
 
-A second spawn runs ``main_trainer`` as two ranks.
+Two more spawns run ``main_trainer`` and ``main_bert`` as two ranks.
 """
 
 import os
@@ -129,6 +131,7 @@ def dist(tmp_path_factory, mesh4):
                     jax_runs[nm][1][:-1] if nm in jax_runs else None)
                     for nm, c in cases.items()}
                 stacked_trainer = child.run_trainer(None, weights)
+                stacked_bert = child.run_bert_trainer(None)
             finally:
                 torch.set_num_threads(threads)
             jax_metrics = [jt.train_step(child.train_batch(s))
@@ -144,6 +147,7 @@ def dist(tmp_path_factory, mesh4):
              for r in range(P)]
     return {"ranks": ranks, "stacked": stacked, "jax": jax_runs,
             "stacked_trainer": stacked_trainer,
+            "stacked_bert": stacked_bert,
             "jax_trainer": (jax_metrics, jax_final)}
 
 
@@ -195,6 +199,14 @@ def test_float_psum_adds_in_rank_order(dist):
     assert (x[0] + x[2]) + (x[1] + x[3]) == 2.0
     for res in dist["ranks"]:
         assert float(res["verbs"]["psum order-sensitive"]) == 1.0
+
+
+def test_float_psum_is_one_all_to_all_and_one_all_gather(dist):
+    """The rank-order reduce-scatter (H14): one ``all_to_all_single`` out,
+    one ``all_gather`` back, nothing else on the wire."""
+    for res in dist["ranks"]:
+        assert res["psum_calls"] == {"all_to_all_single": 1,
+                                     "all_gather": 1}
 
 
 @pytest.mark.parametrize("name", list(child.compressor_cases()))
@@ -253,6 +265,22 @@ def test_trainer_matches_stacked(dist):
             bits(got_sd[k], want_sd[k], f"rank {r}: {k}")
 
 
+def test_bert_with_dropout_matches_stacked(dist):
+    """bert_tiny, dropout 0.1: rank r draws worker r's masks from its own
+    generator, as the stacked Trainer's worker r does, so losses, metrics
+    and parameters are bit-equal on every rank."""
+    want_m, want_sd = dist["stacked_bert"]
+    for r, res in enumerate(dist["ranks"]):
+        got_m, got_sd = res["bert_trainer"]
+        for s, (gm, wm) in enumerate(zip(got_m, want_m)):
+            assert gm.keys() == wm.keys()
+            for k in gm:
+                bits(gm[k], wm[k], f"rank {r} step {s}: {k}")
+        for k in want_sd:
+            bits(got_sd[k], want_sd[k], f"rank {r}: {k}")
+    assert float(want_m[0]["loss"]) != float(want_m[1]["loss"])
+
+
 def test_trainer_matches_jax(dist):
     """The tolerances of ``test_torch_vgg.py::
     test_trainer_three_steps_match_jax``, and why, are stated there."""
@@ -299,3 +327,20 @@ def test_main_trainer_two_ranks(tmp_path):
     assert "iter 3 loss" in log0 and "done: 3 iterations" in log0, log0
     assert (tmp_path / "rank1.log").read_text() == ""
     assert not os.environ.get("WORLD_SIZE")
+
+
+def test_main_bert_two_ranks(tmp_path):
+    """``main_bert`` on a 2-rank CPU launch, no longer refused: both ranks
+    exit 0, only rank 0 logs, and its log names the two processes."""
+    argv = ["--model", "bert_tiny", "--device", "cpu", "--batch-size", "2",
+            "--num-minibatches", "2", "--log-every", "1"]
+    codes = child.join(child.start(child.cli_worker, 2,
+                                   (str(tmp_path), 2, argv, "main_bert")),
+                       SPAWN_TIMEOUT_S)
+    errors = [(tmp_path / f"rank{r}.err").read_text() for r in range(2)
+              if (tmp_path / f"rank{r}.err").exists()]
+    assert codes == [0, 0], errors
+    log0 = (tmp_path / "rank0.log").read_text()
+    assert "2 workers on cpu (2 processes, gloo)" in log0, log0
+    assert "iter 2 loss" in log0 and "done: loss" in log0, log0
+    assert (tmp_path / "rank1.log").read_text() == ""

@@ -1,7 +1,8 @@
 """The port stands alone: neither ``oktopk_tpu_torch/`` (its launch
 layer and process-group comm included) nor ``chip_smoke.py`` (nor the
-port's profiling and A/B scripts, nor the worker module that the
-process-group tests spawn) imports ``jax``, ``flax`` or ``oktopk_tpu``,
+port's profiling and A/B scripts, ``psum_ab.py`` among them, nor the
+worker module that the process-group tests spawn) imports ``jax``,
+``flax`` or ``oktopk_tpu``,
 and importing every module of the package leaves ``jax`` out of
 ``sys.modules``."""
 
@@ -22,6 +23,7 @@ def _sources():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "port_profile.py",
         ROOT / "scripts" / "compaction_ab.py",
+        ROOT / "scripts" / "psum_ab.py",
         ROOT / "tests" / "torch_dist_child.py"]
     assert len(files) > 20
     for mod in ("launch.py", "comm/process_group.py"):

@@ -122,9 +122,11 @@ def test_nccl_needs_a_card():
 
 
 def test_entry_points_refuse_what_they_cannot_run(monkeypatch):
-    """On a 4-process launch: ``main_trainer`` refuses a ``--num-workers``
-    other than the world size, ``main_bert`` the launch itself; the
-    Trainer refuses a comm of another size (all before any rendezvous)."""
+    """On a 4-process launch: ``main_trainer`` and ``main_bert`` refuse a
+    ``--num-workers`` other than the world size (``main_bert`` no longer
+    refuses the launch itself: each rank draws its own worker's dropout
+    masks); the Trainer refuses a comm of another size (all before any
+    rendezvous)."""
     from oktopk_tpu_torch.comm import StackedComm
     from oktopk_tpu_torch.config import TrainConfig
     from oktopk_tpu_torch.train import main_bert, main_trainer
@@ -136,9 +138,10 @@ def test_entry_points_refuse_what_they_cannot_run(monkeypatch):
     with pytest.raises(ValueError, match="one worker per process"):
         main_trainer.build_trainer(main_trainer.parse_args(
             ["--device", "cpu", "--num-workers", "2"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="one worker per process"):
         main_bert.build_trainer(main_bert.parse_args(
-            ["--model", "bert_tiny", "--device", "cpu"]))
+            ["--model", "bert_tiny", "--device", "cpu", "--num-workers",
+             "2"]))
     with pytest.raises(ValueError, match="comm of 2 workers"):
         Trainer(TrainConfig(dnn="vgg16", num_workers=4), device="cpu",
                 comm=StackedComm(2))

@@ -47,7 +47,37 @@ def verb_inputs():
         "ppermute_pair d=1": rng.randn(P, 4).astype(f32),
         "ppermute_pair d=2 i64": rng.randint(0, 99, (P, 4)).astype(np.int64),
         "rank": np.zeros((P, 1), f32),
+        # the reduce-scatter pads n to a multiple of P: n = 7, n = 3 < P,
+        # and an n-scale float64 row
+        "psum f32 n=7": rng.randn(P, 7).astype(f32),
+        "psum f32 n=3": rng.randn(P, 3).astype(f32),
+        "psum f64 n=1001": rng.randn(P, 1001),
     }
+
+
+def count_calls(fn):
+    """``fn()``'s calls of the ``torch.distributed`` collectives, by
+    name."""
+    import torch.distributed as dist
+    names = ("all_to_all_single", "all_gather", "all_reduce", "broadcast",
+             "reduce_scatter", "all_gather_into_tensor")
+    orig = {nm: getattr(dist, nm) for nm in names}
+    counts = {}
+
+    def wrap(nm):
+        def call(*a, **kw):
+            counts[nm] = counts.get(nm, 0) + 1
+            return orig[nm](*a, **kw)
+        return call
+
+    for nm in names:
+        setattr(dist, nm, wrap(nm))
+    try:
+        fn()
+    finally:
+        for nm, f in orig.items():
+            setattr(dist, nm, f)
+    return counts
 
 
 def apply_verb(name: str, comm, x: torch.Tensor) -> torch.Tensor:
@@ -157,6 +187,28 @@ TRAIN_ALGO = dict(warmup_steps=1, local_recompute_every=1,
                   global_recompute_every=2)
 
 
+BERT_TRAIN = dict(dnn="bert_tiny", batch_size=4, lr=4e-4, density=0.02,
+                  num_workers=P, total_steps=10, warmup_proportion=0.1)
+BERT_ALGO = dict(warmup_steps=0, local_recompute_every=2,
+                 global_recompute_every=2, repartition_every=2)
+
+
+def run_bert_trainer(comm, steps: int = 2):
+    """``bert_tiny`` with dropout 0.1 from the seed's weights, ``steps``
+    steps: per-step metrics, then the state_dict."""
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    tt = Trainer(TrainConfig(**BERT_TRAIN),
+                 algo_cfg=OkTopkConfig(**BERT_ALGO), device="cpu",
+                 comm=comm)
+    metrics = [{k: v.clone() for k, v in tt.train_step(synthetic_batch(
+        "bert_tiny", 16, np.random.RandomState(20 + s))).items()}
+        for s in range(steps)]
+    return metrics, {k: v.clone() for k, v in tt.model.state_dict().items()}
+
+
 def register_narrow():
     import oktopk_tpu_torch.models.registry as registry
     import oktopk_tpu_torch.models.vgg as vgg
@@ -237,6 +289,8 @@ def _checks(rank: int, out_dir: str):
     for name, x in verb_inputs().items():
         res["verbs"][name] = apply_verb(name, comm,
                                         torch.from_numpy(x[row])).clone()
+    x = torch.from_numpy(verb_inputs()["psum f32"][row])
+    res["psum_calls"] = count_calls(lambda: comm.psum(x))
     cases = compressor_cases()
     for name, case in cases.items():
         if not case[4]:
@@ -248,18 +302,20 @@ def _checks(rank: int, out_dir: str):
     res["timed"] = time_steps(comm, row)
     weights = wait_load(os.path.join(out_dir, "weights.pt"))
     res["trainer"] = run_trainer(comm, weights)
+    res["bert_trainer"] = run_bert_trainer(comm)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def checks_worker(rank, out_dir):
-    """Spawn target: every comm verb, every compressor case and three
-    trainer steps over a 4-rank gloo group. The cases held to JAX start
+    """Spawn target: every comm verb, every compressor case, three
+    trainer steps and two BERT steps with dropout over a 4-rank gloo
+    group. The cases held to JAX start
     from the JAX states the parent writes to ``jax.pt``, the trainer from
     the weights it writes to ``weights.pt``, while these run."""
     _guard(_checks, rank, out_dir)
 
 
-def _cli(rank: int, out_dir: str, world: int, argv):
+def _cli(rank: int, out_dir: str, world: int, argv, module: str):
     # the launch as ``torchrun`` would describe it; the store is a file
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
@@ -270,16 +326,17 @@ def _cli(rank: int, out_dir: str, world: int, argv):
     log.setLevel(logging.INFO)
     log.addHandler(logging.FileHandler(
         os.path.join(out_dir, f"rank{rank}.log")))
-    from oktopk_tpu_torch.train import main_trainer
-    rc = main_trainer.main(argv)
+    import importlib
+    rc = importlib.import_module(f"oktopk_tpu_torch.train.{module}").main(
+        argv)
     with open(os.path.join(out_dir, f"rank{rank}.rc"), "w") as f:
         f.write(str(rc))
 
 
-def cli_worker(rank, out_dir, world, argv):
-    """Spawn target: ``main_trainer.main(argv)`` as one rank of
-    ``world``."""
-    _guard(_cli, rank, out_dir, world, argv)
+def cli_worker(rank, out_dir, world, argv, module="main_trainer"):
+    """Spawn target: ``oktopk_tpu_torch.train.<module>.main(argv)`` as one
+    rank of ``world``."""
+    _guard(_cli, rank, out_dir, world, argv, module)
 
 
 def start(target, world: int, args):
