@@ -118,7 +118,33 @@ and prints one JSON line per phase:
               bit-equal on every rank. Spawned ranks are joined by a
               deadline and killed past it, and the CLI runs in its own
               session, killed whole on timeout: a rank that dies or hangs
-              fails the run.
+              fails the run;
+19. hier_kernels — (after ``lstm_kernels``) the compaction's two forms on
+              the two-level path, where the outer oktopk runs at P =
+              num_pods = 2, at VGG-16's n: ``hier_pack_a`` (R = 2, cap
+              294,573, on K1's acc at ~2%) and ``hier_select_b`` (R = 1,
+              cap 589,138, on a reduced row nonzero in one half), on row 1
+              of [2, n] buffers, bit-equal and timed as above;
+20. hier_allreduce — (after ``baselines_allreduce``) the two-level step
+              over 2 pods x 2 stacked at n = 2^20, bf16 wire, with the
+              dense, oktopk and topkA outers, three steps each, card
+              against the CPU: results, residuals, counts and the four
+              per-level wire fields bit-equal, thresholds within 64 ulps;
+              one quality-tap step with the dense outer, comp_err <= 1e-10;
+21. hierarchical — (after ``lstm_trainer``) the slice at full width:
+              VGG-16's n through ``build_allreduce_step("hierarchical")``
+              on 2 pods x 2 stacked, oktopk outer, one dense warmup step
+              and five oktopk steps on seeded gradients, each bit-equal to
+              flat oktopk over ``StackedComm(2)`` fed the pod means, every
+              pod's member rows equal; step times (CUDA events), per-level
+              conformance on the steady steps (<= 1), kernel calls per
+              step (counters set to 0 just before each two-level step and
+              read just after), peak memory, one quality-tap step;
+22. dist_hierarchical — (after ``dist_allreduce``) the two-level step as
+              four gloo processes on the card, 2 pods x 2 over
+              ``dist.new_group`` groups, dense, oktopk and topkA outers,
+              three steps each at n = 2^20: every rank bit-equal to the
+              stacked two-level comm's row; per-rank step times.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -387,13 +413,14 @@ def phase_build():
           "sources": sorted(_build.SOURCES.values()), "ptxas": ptxas})
 
 
-def phase_b_input(n: int, cap: int, dev):
-    """A reduced row as phase (b) selects from it: nonzero in one quarter
-    only, thresholded at its cap-th largest magnitude."""
+def phase_b_input(n: int, cap: int, dev, parts: int = 4):
+    """A reduced row as phase (b) selects from it with ``parts`` owners:
+    nonzero in one part only (the second), thresholded at its cap-th
+    largest magnitude."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.zeros(n, dtype=torch.float32, device=dev)
-    q = n // 4
+    q = n // parts
     x[q:2 * q] = torch.randn(q, generator=gen, device=dev)
     t = torch.topk(x[q:2 * q].abs(), cap).values[-1].reshape(())
     return x, t
@@ -611,36 +638,42 @@ def phase_edges(dev):
     return err
 
 
+# the state fields a card-vs-CPU comparison holds bit-equal
+EXACT_FIELDS = ("residual", "boundaries", "last_volume", "wire_bytes",
+                "last_wire_bytes", "wire_bytes_intra",
+                "last_wire_bytes_intra", "wire_bytes_inter",
+                "last_wire_bytes_inter", "last_local_count",
+                "last_global_count", "step")
+
+
 def card_vs_cpu(name: str, cfg, steps: int, dev, ulps_limit: int):
-    """``steps`` steps of ``name`` at ``cfg``: the card from the state the
-    CPU (plain versions) reached, compared step by step. Results,
-    residuals, boundaries and counters bit-equal; thresholds within
-    ``ulps_limit``. Returns the largest threshold distance in ulps and
-    the last state."""
+    """``steps`` steps of ``name`` at ``cfg`` (a ``HierarchicalConfig``
+    for ``hierarchical``, over the two-level stacked comm): the card from
+    the state the CPU (plain versions) reached, compared step by step.
+    Results, residuals, boundaries, counters and the per-level wire
+    fields bit-equal; thresholds within ``ulps_limit``. Returns the
+    largest threshold distance in ulps and the last state."""
     import numpy as np
     import torch
-    from oktopk_tpu_torch.collectives.registry import get_algorithm
-    from oktopk_tpu_torch.collectives.state import SparseState, init_state
-    from oktopk_tpu_torch.comm import StackedComm
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+    from oktopk_tpu_torch.collectives.state import SparseState
 
     P, n = cfg.num_workers, cfg.n
-    algo = get_algorithm(name, warmup=False)
-    comm = StackedComm(P)
+    step = build_allreduce_step(name, cfg, warmup=False)
     rng = np.random.RandomState(SEED)
     base = rng.randn(P, n).astype(np.float32)
-    state = init_state(cfg, P, "cpu")
+    state = batched_init_state(cfg, "cpu")
     worst = 0
     for i in range(steps):
         g = base + 0.3 * rng.randn(P, n).astype(np.float32)
         gs = SparseState.from_numpy(state.to_numpy(), dev)
-        out_c, state2 = algo(torch.from_numpy(g), state, cfg, comm)
-        out_g, gs2 = algo(torch.from_numpy(g).to(dev), gs, cfg, comm)
+        out_c, state2 = step(torch.from_numpy(g), state)
+        out_g, gs2 = step(torch.from_numpy(g).to(dev), gs)
         what = f"{name} step {i}"
         bits_equal(out_g.cpu(), out_c, f"{what}: result")
         a, b = gs2.to_numpy(), state2.to_numpy()
-        for f in ("residual", "boundaries", "last_volume", "wire_bytes",
-                  "last_wire_bytes", "last_local_count",
-                  "last_global_count", "step"):
+        for f in EXACT_FIELDS:
             bits_equal(torch.from_numpy(a[f]), torch.from_numpy(b[f]),
                        f"{what}: {f}")
         for f in ("local_threshold", "global_threshold", "drift",
@@ -692,6 +725,203 @@ def phase_baselines_allreduce(dev):
     ulps["topkSA dense fallback"] = u
     emit({"phase": "baselines_allreduce", "n": n, "P": P, "steps": 3,
           "result_bit_equal": True, "threshold_max_ulps": ulps})
+
+
+HIER_PODS, HIER_POD_SIZE = 2, 2
+HIER_OUTERS = ("dense", "oktopk", "topkA")
+
+
+def hier_config(outer: str, n: int, **kw):
+    """The two-level config of 2 pods x 2 workers over ``outer``, bf16
+    wire, d = 0.02; ``kw`` overrides the flat config's cadences."""
+    from oktopk_tpu_torch.collectives.hierarchical import \
+        make_hierarchical_config
+    from oktopk_tpu_torch.config import OkTopkConfig
+    flat = OkTopkConfig(**{**dict(
+        n=n, num_workers=HIER_PODS * HIER_POD_SIZE, density=0.02,
+        warmup_steps=0, local_recompute_every=2, global_recompute_every=2,
+        repartition_every=3, threshold_method="hist",
+        wire_dtype="bfloat16"), **kw})
+    return make_hierarchical_config(flat, num_pods=HIER_PODS, outer=outer)
+
+
+def quality_row(qbuf) -> dict:
+    """The ring's newest row (worker rows averaged), by column."""
+    from oktopk_tpu_torch.obs.metrics_buffer import COLUMNS, rows_since
+    q = qbuf.to_numpy()
+    cur = int(q["cursor"][0])
+    return dict(zip(COLUMNS, (float(v) for v in
+                              rows_since(q["ring"], cur, cur - 1)[-1])))
+
+
+def tapped_step(hcfg, grads, state, dev) -> dict:
+    """One ``build_quality_allreduce_step`` step of ``hcfg`` on the card
+    from ``state`` and a fresh ring: the row it pushed."""
+    from oktopk_tpu_torch.collectives.api import build_quality_allreduce_step
+    from oktopk_tpu_torch.obs.metrics_buffer import init_buffer
+    from oktopk_tpu_torch.obs.quality import QualityConfig
+    q = QualityConfig(every=4, sig_bins=512)
+    step = build_quality_allreduce_step("hierarchical", hcfg, quality=q,
+                                        warmup=False)
+    _, _, qbuf = step(grads, state, init_buffer(q.every, q.sig_bins,
+                                                hcfg.num_workers, dev))
+    row = quality_row(qbuf)
+    if not all(math.isfinite(v) for v in row.values()):
+        raise AssertionError(f"quality tap: non-finite column {row}")
+    return row
+
+
+def phase_hier_allreduce(dev):
+    """The two-level step over 2 pods x 2 stacked at n = 2^20, bf16 wire,
+    with the dense, oktopk and topkA outers, three steps each (oktopk's
+    first exact): the card from the state the CPU reached, results,
+    residuals, counts and the four per-level wire fields bit-equal,
+    thresholds within 64 ulps; then one quality-tap step with the dense
+    outer, whose comp_err must be at most 1e-10."""
+    import torch
+    from oktopk_tpu_torch.collectives.api import batched_init_state
+
+    n = 1 << 20
+    ulps = {o: card_vs_cpu("hierarchical", hier_config(o, n), 3, dev, 64)[0]
+            for o in HIER_OUTERS}
+    h = hier_config("dense", n)
+    g = torch.randn((h.num_workers, n), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 7), device=dev)
+    row = tapped_step(h, g, batched_init_state(h, dev), dev)
+    if not row["comp_err"] <= 1e-10:
+        raise AssertionError(f"dense outer: comp_err {row['comp_err']}")
+    emit({"phase": "hier_allreduce", "n": n, "pods": HIER_PODS,
+          "pod_size": HIER_POD_SIZE, "steps": 3, "result_bit_equal": True,
+          "threshold_max_ulps": ulps, "dense_outer_quality": row})
+
+
+def phase_hierarchical(dev, oktopk_steps: int = 5):
+    """The slice at full width: VGG-16's n through
+    ``build_allreduce_step("hierarchical", ...)`` on 2 pods x 2 stacked,
+    oktopk outer (cadences 1/4, bf16 wire, d = 0.02), one dense warmup
+    step then ``oktopk_steps`` steps on seeded gradients. Each step is
+    held bit-equal on the card to flat oktopk over ``StackedComm(2)`` fed
+    the pod means (the composition identity), and every pod's member rows
+    of results and state equal; per-level conformance on the steady steps
+    (the exact recomputes left out) must be at most 1. Launch counters are
+    set to 0 just before each two-level step and read just after (the flat
+    comparison's launches are not counted). Then one quality-tap step.
+    Returns the path's launches."""
+    import torch
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+    from oktopk_tpu_torch.collectives.state import TENSOR_FIELDS
+    from oktopk_tpu_torch.comm import StackedComm, hierarchical_comm
+    from oktopk_tpu_torch.obs.volume import (hierarchical_budget_bytes,
+                                             hierarchical_volume_report)
+    from oktopk_tpu_torch.ops import compaction, fused_select
+
+    h = hier_config("oktopk", N_VGG16, warmup_steps=1,
+                    local_recompute_every=1, global_recompute_every=4,
+                    repartition_every=64, threshold_method="bisect")
+    W, n, pod = h.num_workers, h.n, h.pod_size
+    hstep = build_allreduce_step("hierarchical", h,
+                                 hierarchical_comm(h.num_pods, pod))
+    fstep = build_allreduce_step("oktopk", h.outer_cfg,
+                                 StackedComm(h.num_pods))
+    hs = batched_init_state(h, dev)
+    fs = batched_init_state(h.outer_cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    base = torch.randn((W, n), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = {"fused_select": 0, "compaction": 0}
+    recs, intra, inter = [], [], []
+    for s in range(1 + oktopk_steps):
+        g = base + 0.3 * torch.randn((W, n), generator=gen, device=dev)
+        ocfg = h.outer_cfg
+        dense = s < ocfg.warmup_steps
+        exact = not dense and (s == ocfg.warmup_steps
+                               or s % ocfg.global_recompute_every == 0)
+        torch.cuda.synchronize()
+        compaction.LAUNCHES = 0
+        fused_select.LAUNCHES = 0
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out, hs = hstep(g, hs)
+        b.record()
+        b.synchronize()
+        calls = {"fused_select": fused_select.LAUNCHES,
+                 "compaction": compaction.LAUNCHES}
+        for k, v in calls.items():
+            launches[k] += v
+        # the flat outer fed the pod means, members added in order
+        pm = g.view(h.num_pods, pod, n)
+        acc = pm[:, 0].clone()
+        for m in range(1, pod):
+            acc = acc + pm[:, m]
+        fout, fs = fstep(acc / pod, fs)
+        for p in range(h.num_pods):
+            rows = slice(p * pod, (p + 1) * pod)
+            for m in range(pod):
+                bits_equal(out[p * pod + m], fout[p],
+                           f"hierarchical step {s} pod {p}: result")
+            for f in TENSOR_FIELDS:
+                hv = getattr(hs, f)[rows]
+                for m in range(1, pod):
+                    bits_equal(hv[m], hv[0], f"step {s} pod {p}: {f}")
+            for f in ("residual", "boundaries", "local_threshold",
+                      "global_threshold", "last_local_count",
+                      "last_global_count", "step"):
+                bits_equal(getattr(hs, f)[p * pod], getattr(fs, f)[p],
+                           f"hierarchical step {s} pod {p}: {f}")
+            bits_equal(hs.last_wire_bytes_inter[p * pod],
+                       fs.last_wire_bytes[p],
+                       f"hierarchical step {s} pod {p}: inter wire")
+        rec = {"step": s + 1, "collective": "dense" if dense else "oktopk",
+               "exact": exact, "ms": a.elapsed_time(b),
+               "last_wire_bytes_intra": float(hs.last_wire_bytes_intra[0]),
+               "last_wire_bytes_inter": float(hs.last_wire_bytes_inter[0]),
+               "last_volume": float(hs.last_volume[0]),
+               "local_count": int(hs.last_local_count[0]),
+               "global_count": int(hs.last_global_count[0]),
+               "fused_select_calls": calls["fused_select"],
+               "compaction_calls": calls["compaction"]}
+        recs.append(rec)
+        emit({"phase": "hierarchical", **rec})
+        if not (dense or exact):
+            intra.append(rec["last_wire_bytes_intra"])
+            inter.append(rec["last_wire_bytes_inter"])
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("hierarchical: non-finite result")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"hierarchical: {k} never launched")
+    reports = hierarchical_volume_report(
+        h, sum(intra) / len(intra), sum(inter) / len(inter),
+        steps=len(intra))
+    for r in reports:
+        if not r["conformance_ratio"] <= 1.0:
+            raise AssertionError(f"hierarchical: {r['level']} conformance "
+                                 f"{r['conformance_ratio']}")
+    g = base + 0.3 * torch.randn((W, n), generator=gen, device=dev)
+    row = tapped_step(h, g, hs, dev)
+    sparse = [r["ms"] for r in recs[1:]]
+    emit({"phase": "hierarchical_summary", "n": n, "pods": h.num_pods,
+          "pod_size": pod, "outer": h.outer, "k": h.outer_cfg.k,
+          "steps": len(recs), "bit_equal_to_flat_on_pod_means": True,
+          "dense_step_ms": recs[0]["ms"],
+          "median_oktopk_step_ms": statistics.median(sparse),
+          "oktopk_step_ms_range": [min(sparse), max(sparse)],
+          "budgets": hierarchical_budget_bytes(h),
+          "conformance": {r["level"]: r["conformance_ratio"]
+                          for r in reports},
+          "launches": launches,
+          "launches_per_oktopk_step": [
+              {"fused_select": r["fused_select_calls"],
+               "compaction": r["compaction_calls"]} for r in recs[1:]],
+          "max_memory_allocated_gb": peak_gb,
+          "quality_tap": {"eff_density": row["eff_density"],
+                          "comp_err": row["comp_err"], "row": row}})
+    del hs, fs, base, out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def train_run(dev, phase: str, compressor: str, sparse_steps: int, algo,
@@ -829,41 +1059,45 @@ N_LSTMAN4 = 54791168          # DeepSpeech (lstman4, 5 x 800)'s
 
 
 def phase_big_kernels(dev, phase: str, prefix: str, n: int, density: float,
-                      t: float, seed: int):
-    """K1 and the compaction's two oktopk forms at a model's flat size n,
-    on rows of [4, n] buffers (row 3: its first byte lies 12·n bytes into
-    the buffer), held bit-equal to their plain versions and timed like
-    the VGG-16 forms: the sweep; phase (a)'s pack, R = 4, cap_pair, on
-    its acc at about ``density`` (|x| >= ``t`` of a normal draw); phase
-    (b)'s select, R = 1, cap_exact, on a reduced row nonzero in one
-    quarter. Forms ``{prefix}_sweep``, ``{prefix}_pack_a``,
+                      t: float, seed: int, P: int = 4, sweep: bool = True):
+    """K1 and the compaction's two oktopk forms at a model's flat size n
+    and P workers, on rows of [P, n] buffers (row P-1: its first byte
+    lies 4·(P-1)·n bytes into the buffer), held bit-equal to their plain
+    versions and timed like the VGG-16 forms: the sweep (unless ``sweep``
+    is False: K1's shape does not depend on P); phase (a)'s pack, R = P,
+    cap_pair, on its acc at about ``density`` (|x| >= ``t`` of a normal
+    draw); phase (b)'s select, R = 1, cap_exact, on a reduced row nonzero
+    in one of P parts. Forms ``{prefix}_sweep``, ``{prefix}_pack_a``,
     ``{prefix}_select_b``."""
     import torch
     from oktopk_tpu_torch.config import OkTopkConfig
     from oktopk_tpu_torch.ops import compaction, fused_select
 
-    cfg = OkTopkConfig(n=n, num_workers=4, density=density)
-    P = cfg.num_workers
+    if P not in (2, 4):
+        raise ValueError(f"no region bounds for P = {P}")
+    cfg = OkTopkConfig(n=n, num_workers=P, density=density)
     gen = torch.Generator(device=dev).manual_seed(seed)
     gbuf = torch.randn((P, n), generator=gen, device=dev)
     rbuf = 0.05 * torch.randn((P, n), generator=gen, device=dev)
     g, r = gbuf[P - 1], rbuf[P - 1]
     tt = torch.full((), t, dtype=torch.float32, device=dev)
     tp = tt * 1.25
-    bnd = region_bounds(n, dev)
+    # off the 1024-element block grid, as region_bounds' four
+    bnd = (region_bounds(n, dev) if P == 4 else torch.tensor(
+        [0, n // 2 + 517, n], dtype=torch.int32, device=dev))
     st = fused_select.fused_select_stage(g, r, tt, tp)
     ref = fused_select.fused_select_plain(g, r, tt, tp)
-    sweep, pack, select = (f"{prefix}_{f}" for f in ("sweep", "pack_a",
-                                                     "select_b"))
-    err = {sweep: max(bits_equal(getattr(st, f), getattr(ref, f),
-                                 f"{sweep}: {f}")
-                      for f in ("acc", "local_count", "probe_count",
-                                "hist"))}
+    sweep_form, pack, select = (f"{prefix}_{f}" for f in (
+        "sweep", "pack_a", "select_b"))
+    err = {sweep_form: max(bits_equal(getattr(st, f), getattr(ref, f),
+                                      f"{sweep_form}: {f}")
+                           for f in ("acc", "local_count", "probe_count",
+                                     "hist"))}
     del ref
     acc = st.acc
-    xb, tb = phase_b_input(n, cfg.cap_exact, dev)
+    xb, tb = phase_b_input(n, cfg.cap_exact, dev, P)
     forms = {
-        sweep: {
+        sweep_form: {
             "kernel": lambda: fused_select.fused_select_stage(g, r, tt, tp),
             "plain": lambda: fused_select.fused_select_plain(g, r, tt, tp),
             "expect": K1_LAUNCHES,
@@ -890,6 +1124,8 @@ def phase_big_kernels(dev, phase: str, prefix: str, n: int, density: float,
     for nm in (pack, select):
         err[nm] = triples_equal(forms[nm]["kernel"](), forms[nm]["plain"](),
                                 nm)
+    if not sweep:
+        del forms[sweep_form]
     torch.cuda.synchronize()
     emit({"phase": phase, "n": n, "P": P, "density": density, "k": cfg.k,
           "local_count": int(st.local_count),
@@ -1703,6 +1939,98 @@ def phase_dist_allreduce(dev):
           "nccl_world_1": nccl, "wall_s": time.perf_counter() - t0})
 
 
+def run_hier_case(outer: str, comm, dev):
+    """Three two-level steps (``hier_config(outer, DIST_N)``) over the
+    two-level ``comm`` from the fresh state, on this process's gradient
+    rows: per step, the host arrays of the result and of every state
+    field and the step's host ms."""
+    import torch
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+
+    h = hier_config(outer, DIST_N)
+    step = build_allreduce_step("hierarchical", h, comm, warmup=False)
+    rows = slice(comm.first_worker, comm.first_worker + comm.local_workers)
+    state = batched_init_state(h, dev, comm=comm)
+    out = []
+    for g in dist_grads(3, h.num_workers, DIST_N):
+        g = torch.from_numpy(g[rows]).to(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res, state = step(g, state)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append(({"result": res.cpu().numpy(), **state.to_numpy()}, ms))
+    return out
+
+
+def _hier_rank(rank: int, tmp: str, world: int, dev: str):
+    from oktopk_tpu_torch.comm import hierarchical_process_comm
+    from oktopk_tpu_torch.ops import compaction, fused_select
+    dist_join(rank, world, tmp, "gloo", dev)
+    comm = hierarchical_process_comm(HIER_PODS, HIER_POD_SIZE)
+    out = {"backend": comm.backend,
+           "intra_rank": comm.intra.first_worker,
+           "inter_rank": comm.inter.first_worker, "cases": {}}
+    for outer in HIER_OUTERS:
+        compaction.LAUNCHES = 0
+        fused_select.LAUNCHES = 0
+        steps = run_hier_case(outer, comm, dev)
+        out["cases"][outer] = {
+            "digests": [row_digests(a, 0) for a, _ in steps],
+            "ms": [ms for _, ms in steps],
+            "launches": {"fused_select": fused_select.LAUNCHES,
+                         "compaction": compaction.LAUNCHES}}
+    return out
+
+
+def hier_rank(rank, tmp, world, dev):
+    """Spawn target: the two-level cases as one gloo rank of 2 pods x
+    2."""
+    dist_guard(_hier_rank, rank, tmp, world, dev)
+
+
+def phase_dist_hierarchical(dev):
+    """The two-level step as four gloo processes on the card, 2 pods x 2
+    over ``dist.new_group`` groups (each rank its pod's intra group and
+    its member index's inter group), with the dense, oktopk and topkA
+    outers, three steps each at n = 2^20: every rank's result and state
+    bit-equal (sha1 of their bytes) to the two-level stacked comm's row
+    on the card. Returns rank 0's launches on the oktopk outer."""
+    from oktopk_tpu_torch.comm import hierarchical_comm
+
+    t0 = time.perf_counter()
+    want = {o: [[row_digests(a, r) for r in range(DIST_P)]
+                for a, _ in run_hier_case(
+                    o, hierarchical_comm(HIER_PODS, HIER_POD_SIZE), dev)]
+            for o in HIER_OUTERS}
+    ranks = spawn_ranks(hier_rank, DIST_P, (DIST_P, str(dev)),
+                        "dist_hierarchical gloo")
+    for r, res in enumerate(ranks):
+        if (res["intra_rank"], res["inter_rank"]) != (
+                r % HIER_POD_SIZE, r // HIER_POD_SIZE):
+            raise AssertionError(f"dist_hierarchical rank {r}: group ranks "
+                                 f"{res['intra_rank']}, {res['inter_rank']}")
+        for outer, per_step in want.items():
+            for i, (g, w) in enumerate(zip(res["cases"][outer]["digests"],
+                                           per_step)):
+                bad = sorted(k for k in w[r] if g[k] != w[r][k])
+                if bad:
+                    raise AssertionError(f"dist_hierarchical {outer} step "
+                                         f"{i} rank {r}: {bad} differ")
+    emit({"phase": "dist_hierarchical", "n": DIST_N, "pods": HIER_PODS,
+          "pod_size": HIER_POD_SIZE, "backend": ranks[0]["backend"],
+          "placement": f"4 ranks on {dev}", "bit_equal_to_stacked": True,
+          "cases": {o: {"steps": len(want[o]),
+                        "per_rank_step_ms": [res["cases"][o]["ms"]
+                                             for res in ranks],
+                        "per_rank_launches": [res["cases"][o]["launches"]
+                                              for res in ranks]}
+                    for o in HIER_OUTERS},
+          "wall_s": time.perf_counter() - t0})
+    return ranks[0]["cases"]["oktopk"]["launches"]
+
+
 def vgg_args(extra):
     from oktopk_tpu_torch.train import main_trainer
     return main_trainer.parse_args(
@@ -1981,8 +2309,10 @@ def kernel_line(timings, errs, by_path, edge_err, big):
     times, CUDA events around one call; the ``*device_ms`` keys are the
     device times of the same calls under the profiler. ``launches`` counts
     the main path's run (oktopk on VGG-16; a larger model's forms: that
-    model's run); ``launches_by_path`` every trainer run's (``by_path``: {path:
-    {kernel: launches}})."""
+    model's run; the two-level forms ``hier_pack_a``, ``hier_select_b``:
+    the ``hierarchical`` phase's); ``launches_by_path`` every path's
+    (``by_path``: {path: {kernel: launches}}; ``big``: {form prefix:
+    (path, n, timings, errs)})."""
     def times(f):
         lib = f.get("library")
         return {"ms": f["kernel"]["call_ms"],
@@ -2030,14 +2360,15 @@ def kernel_line(timings, errs, by_path, edge_err, big):
          **{k: timings_n[form][k] for k in ("R", "cap")
             if k in timings_n[form]},
          **times(timings_n[form])}
-        for path, (n, timings_n, errs_n) in big.items()
+        for prefix, (path, n, timings_n, errs_n) in big.items()
         for form, kernel, tpu in (
-            (f"{path}_sweep", "fused_select",
+            (f"{prefix}_sweep", "fused_select",
              "oktopk_tpu/ops/fused_select.py:64"),
-            (f"{path}_pack_a", "compaction",
+            (f"{prefix}_pack_a", "compaction",
              "oktopk_tpu/ops/compaction.py:160"),
-            (f"{path}_select_b", "compaction",
-             "oktopk_tpu/ops/compaction.py:160"))]
+            (f"{prefix}_select_b", "compaction",
+             "oktopk_tpu/ops/compaction.py:160"))
+        if form in timings_n]
 
 
 def main() -> int:
@@ -2062,12 +2393,17 @@ def main() -> int:
     phase_build()
     timings, errs = phase_kernels(dev)
     edge_err = phase_edges(dev)
-    big = {"bert": (N_BERT,) + phase_big_kernels(
+    big = {"bert": ("bert", N_BERT) + phase_big_kernels(
         dev, "bert_kernels", "bert", N_BERT, 0.01, 2.576, SEED + 4)}
-    big["lstman4"] = (N_LSTMAN4,) + phase_big_kernels(
+    big["lstman4"] = ("lstman4", N_LSTMAN4) + phase_big_kernels(
         dev, "lstm_kernels", "lstman4", N_LSTMAN4, 0.02, 2.326, SEED + 5)
+    # the outer oktopk's forms at P = num_pods = 2 (K1 as at VGG-16's n)
+    big["hier"] = ("hierarchical", N_VGG16) + phase_big_kernels(
+        dev, "hier_kernels", "hier", N_VGG16, 0.02, 2.326, SEED + 6, P=2,
+        sweep=False)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
+    phase_hier_allreduce(dev)
     phase_bert_parity(dev)
     by_path = {"oktopk": phase_trainer(dev), **phase_baselines_trainer(dev),
                "oktopk step options": phase_step_options(dev)}
@@ -2076,7 +2412,10 @@ def main() -> int:
     phase_lstman4_parity(dev)
     by_path["lstman4"] = phase_lstman4_trainer(dev)
     by_path["lstm (PTB)"] = phase_lstm_trainer(dev)
+    by_path["hierarchical"] = phase_hierarchical(dev)
     phase_dist_allreduce(dev)
+    by_path["hierarchical, one worker per process (rank 0 of 4)"] = \
+        phase_dist_hierarchical(dev)
     by_path["oktopk, one worker per process (rank 0 of 4)"] = \
         phase_dist_trainer(dev)
     by_path["bert, one worker per process (rank 0 of 4)"] = \

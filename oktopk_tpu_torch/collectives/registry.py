@@ -1,9 +1,8 @@
 """Algorithm registry.
 
 Counterpart of ``oktopk_tpu/collectives/registry.py``: the same names and
-aliases, and the same dense warmup in front of every sparse algorithm.
-``hierarchical`` (a two-level composition over a pod mesh) is not ported
-yet (ROADMAP.md, Queue 1 item 12) and raises ``NotImplementedError``.
+aliases, and the same dense warmup in front of every sparse algorithm
+but ``hierarchical``, whose warmup goes on its outer level.
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ from __future__ import annotations
 from oktopk_tpu_torch.collectives.dense import dense_allreduce, with_warmup
 from oktopk_tpu_torch.collectives.gaussiank import gaussian_k
 from oktopk_tpu_torch.collectives.gtopk import gtopk
+from oktopk_tpu_torch.collectives.hierarchical import hierarchical
 from oktopk_tpu_torch.collectives.oktopk import oktopk
 from oktopk_tpu_torch.collectives.topk_allgather import (
     topk_a,
@@ -33,8 +33,18 @@ ALGORITHMS = {
     # script alias of the reference's job files
     "topkDSA": topk_sa,
     "oktopk": oktopk,
+    # two-level composition: dense inside a pod, any of the above across
+    # pods; takes a HierarchicalConfig and a two-level comm
+    "hierarchical": hierarchical,
 }
-NOT_PORTED = ("hierarchical",)
+
+
+#: why a flat step (the Trainer's, the CLIs') refuses ``hierarchical``
+TWO_LEVEL_ONLY = (
+    "compressor 'hierarchical' needs a HierarchicalConfig and a two-level "
+    "comm, and the Trainer's step is flat (one OkTopkConfig, one comm); the "
+    "JAX Trainer cannot run it either. Build it with "
+    "oktopk_tpu_torch.collectives.api.build_allreduce_step")
 
 
 def list_algorithms():
@@ -44,16 +54,13 @@ def list_algorithms():
 
 def get_algorithm(name: str, warmup: bool = True):
     """Look up an algorithm; ``warmup=True`` puts the dense warmup in
-    front of a sparse one."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported to oktopk_tpu_torch yet; "
-            "see ROADMAP.md, Queue 1")
+    front of a sparse one (``hierarchical`` composes it on its outer
+    level, ``HierarchicalConfig.outer_warmup``)."""
     try:
         fn = ALGORITHMS[name]
     except KeyError:
         raise ValueError(f"unknown compressor {name!r}; available: "
                          f"{list_algorithms()}") from None
-    if warmup and name != "dense":
+    if warmup and name not in ("dense", "hierarchical"):
         fn = with_warmup(fn)
     return fn

@@ -29,6 +29,12 @@ Every result is bit-equal to ``StackedComm``'s row for this rank:
 
 The gloo backend takes CUDA tensors for these verbs and stages them
 through the host itself; NCCL moves them card to card.
+
+A comm may span a subgroup (``dist.new_group``): then its size, its
+ranks and the rank order of its sums are those of the group.
+``hierarchical_process_comm`` builds the two levels of
+``collectives/hierarchical.py`` that way, one group per pod and one per
+member index across the pods.
 """
 
 from __future__ import annotations
@@ -40,21 +46,23 @@ import torch.distributed as dist
 
 
 class ProcessGroupComm:
-    """This process's one worker in the default ``torch.distributed``
-    group."""
+    """This process's one worker in a ``torch.distributed`` group (the
+    default group unless ``group`` is given); ``first_worker`` is its rank
+    in that group."""
 
     local_workers = 1
     # a branch on a value every rank holds equal is taken on the host
     # (collectives/topk_sa.py); see that module for why
     branch_on_host = True
 
-    def __init__(self):
+    def __init__(self, group=None):
         if not dist.is_initialized():
             raise RuntimeError("ProcessGroupComm needs an initialised "
                                "process group (launch.maybe_initialize)")
-        self.size = dist.get_world_size()
-        self.first_worker = dist.get_rank()
-        self.backend = dist.get_backend()
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.first_worker = dist.get_rank(group)
+        self.backend = dist.get_backend(group)
 
     def axis_size(self) -> int:
         """World size P (``compat.axis_size``)."""
@@ -77,7 +85,7 @@ class ProcessGroupComm:
         self._check(x)
         if not x.is_floating_point():
             out = x.clone()
-            dist.all_reduce(out)
+            dist.all_reduce(out, group=self.group)
             return out
         if x.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"psum adds float32 or float64, not {x.dtype}")
@@ -85,7 +93,8 @@ class ProcessGroupComm:
         c = -(-n // P)                       # chunk length
         flat = torch.nn.functional.pad(x.reshape(-1), (0, c * P - n))
         got = torch.empty_like(flat)
-        dist.all_to_all_single(got, flat)    # row q: rank q's chunk r
+        dist.all_to_all_single(got, flat,    # row q: rank q's chunk r
+                               group=self.group)
         g = got.view(P, c)
         s = g[0].clone()
         for p in range(1, P):
@@ -102,7 +111,8 @@ class ProcessGroupComm:
         self._check(x)
         out = torch.empty((1, self.size) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        dist.all_gather(list(out[0].unbind(0)), x[0].contiguous())
+        dist.all_gather(list(out[0].unbind(0)), x[0].contiguous(),
+                        group=self.group)
         return out
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -113,7 +123,7 @@ class ProcessGroupComm:
             raise ValueError(
                 f"all_to_all wants [1, P, ...], got {tuple(x.shape)}")
         out = torch.empty_like(x)
-        dist.all_to_all_single(out[0], x[0].contiguous())
+        dist.all_to_all_single(out[0], x[0].contiguous(), group=self.group)
         return out
 
     def ppermute_pair(self, x: torch.Tensor, distance: int) -> torch.Tensor:
@@ -129,17 +139,21 @@ class ProcessGroupComm:
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x.contiguous(),
                                output_split_sizes=splits,
-                               input_split_sizes=splits)
+                               input_split_sizes=splits,
+                               group=self.group)
         return out
 
     def replicate_(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Overwrite ``tensors`` with rank 0's, in place, by one broadcast
-        of their concatenation (the trainer's initial weights and
-        BatchNorm statistics); returns how many of this rank's elements
-        it changed (a 0-d int64 on their device)."""
+        """Overwrite ``tensors`` with the group's rank 0's, in place, by one
+        broadcast of their concatenation (the trainer's initial weights
+        and BatchNorm statistics); returns how many of this rank's
+        elements it changed (a 0-d int64 on their device)."""
         flat = torch.cat([t.detach().reshape(-1) for t in tensors])
         mine = flat.clone()
-        dist.broadcast(flat, src=0)
+        # ``src`` is a rank of the default group
+        src = 0 if self.group is None else dist.get_global_rank(self.group,
+                                                                0)
+        dist.broadcast(flat, src=src, group=self.group)
         changed = (flat != mine).sum()
         off = 0
         with torch.no_grad():
@@ -147,3 +161,65 @@ class ProcessGroupComm:
                 t.copy_(flat[off:off + t.numel()].view_as(t))
                 off += t.numel()
         return changed
+
+
+class HierarchicalProcessComm:
+    """Two levels of one worker per process: ``num_pods`` pods of
+    ``pod_size`` consecutive ranks of the default group, rank r member
+    ``r % pod_size`` of pod ``r // pod_size`` (the layout of
+    ``comm/stacked.py::HierarchicalStackedComm``).
+
+    ``intra`` spans this rank's pod; ``inter`` the ranks of this member
+    index in every pod, in pod order. Every rank runs the level across
+    pods over its own ``inter`` group, so ``pod_size`` such exchanges run
+    side by side on identical data, as in the JAX emulation, and each
+    rank's row equals the stacked comm's row for it.
+    """
+
+    local_workers = 1
+    branch_on_host = True
+
+    def __init__(self, num_pods: int, pod_size: int):
+        if not dist.is_initialized():
+            raise RuntimeError("HierarchicalProcessComm needs an "
+                               "initialised process group")
+        world = dist.get_world_size()
+        if num_pods < 1 or pod_size < 1 or num_pods * pod_size != world:
+            raise ValueError(f"{num_pods} pods x {pod_size} need "
+                             f"{num_pods * pod_size} processes, have {world}")
+        self.num_pods, self.pod_size = int(num_pods), int(pod_size)
+        self.size = world
+        self.first_worker = dist.get_rank()
+        pod, member = divmod(self.first_worker, self.pod_size)
+        # every rank creates every group, in the same order, including the
+        # groups it is not in: ``new_group`` is collective over the world
+        intra = [dist.new_group([p * pod_size + m for m in range(pod_size)])
+                 for p in range(num_pods)]
+        inter = [dist.new_group([p * pod_size + m for p in range(num_pods)])
+                 for m in range(pod_size)]
+        self.intra = ProcessGroupComm(intra[pod])
+        self.inter = ProcessGroupComm(inter[member])
+        self.backend = self.intra.backend
+
+    def pod_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...]: the pod's mean, added in member order, then divided by
+        ``pod_size`` (``lax.pmean`` over the pod axis)."""
+        return self.intra.pmean(x)
+
+    @staticmethod
+    def leaders(x: torch.Tensor) -> torch.Tensor:
+        """This rank's row: every rank takes part in the level across
+        pods."""
+        return x
+
+    @staticmethod
+    def spread(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def hierarchical_process_comm(num_pods: int,
+                              pod_size: int) -> HierarchicalProcessComm:
+    """The two-level comm over the default group's processes, one worker
+    each; every rank must call it, in the same order as its other
+    ``new_group`` calls."""
+    return HierarchicalProcessComm(num_pods, pod_size)

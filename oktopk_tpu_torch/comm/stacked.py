@@ -12,6 +12,11 @@ number of workers this process holds (``local_workers``): all P of them
 here, the first being worker 0 (``first_worker``).
 ``comm/process_group.py::ProcessGroupComm`` keeps the same interface with
 W = 1 worker per process.
+
+``hierarchical_comm`` is the two-level counterpart of
+``oktopk_tpu/comm/mesh.py:52-83`` (``hierarchical_mesh``): ``num_pods``
+pods of ``pod_size`` consecutive workers, for
+``collectives/hierarchical.py``.
 """
 
 from __future__ import annotations
@@ -83,3 +88,59 @@ class StackedComm:
             raise ValueError(f"XOR distance {distance} does not pair the "
                              f"{self.size} workers")
         return x[src]
+
+
+class HierarchicalStackedComm:
+    """``num_pods`` pods of ``pod_size`` workers, all stacked on one device:
+    worker w is member ``w % pod_size`` of pod ``w // pod_size``, as in
+    the JAX package's ``hierarchical_mesh``, whose consecutive devices
+    share a pod.
+
+    ``intra`` is the pod level (``pod_size`` members), ``inter`` the level
+    across pods (``num_pods`` workers). After ``pod_mean`` every member of
+    a pod holds identical rows, so the level across pods runs once per
+    pod, on the pod leaders' rows (``leaders``), and its results go back
+    to every member's row (``spread``): bit-equal to the JAX emulation,
+    where every member runs the identical exchange, with ``num_pods``
+    kernel calls a step instead of ``num_pods * pod_size``.
+    """
+
+    first_worker = 0
+    branch_on_host = False
+
+    def __init__(self, num_pods: int, pod_size: int):
+        if num_pods < 1 or pod_size < 1:
+            raise ValueError("need num_pods >= 1 and pod_size >= 1, got "
+                             f"{num_pods}x{pod_size}")
+        self.num_pods, self.pod_size = int(num_pods), int(pod_size)
+        self.size = self.num_pods * self.pod_size
+        self.local_workers = self.size
+        self.intra = StackedComm(self.pod_size)
+        self.inter = StackedComm(self.num_pods)
+
+    def pod_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """[W, ...] -> [W, ...]: each row its pod's mean, the members added
+        in index order and the sum divided by ``pod_size``
+        (``lax.pmean`` over the pod axis)."""
+        if x.shape[0] != self.size:
+            raise ValueError(
+                f"leading worker dimension {x.shape[0]} != {self.size}")
+        v = x.reshape((self.num_pods, self.pod_size) + tuple(x.shape[1:]))
+        return self.spread(self.intra.psum(v.transpose(0, 1))[0]
+                           / self.pod_size)
+
+    def leaders(self, x: torch.Tensor) -> torch.Tensor:
+        """[W, ...] -> [num_pods, ...]: the first member's row of each
+        pod."""
+        return x[::self.pod_size]
+
+    def spread(self, x: torch.Tensor) -> torch.Tensor:
+        """[num_pods, ...] -> [W, ...]: each pod's row to every member, as
+        its own copy."""
+        return x.repeat_interleave(self.pod_size, 0)
+
+
+def hierarchical_comm(num_pods: int, pod_size: int) -> HierarchicalStackedComm:
+    """Two-level comm of ``num_pods * pod_size`` workers stacked on one
+    device (``hierarchical_mesh``)."""
+    return HierarchicalStackedComm(num_pods, pod_size)

@@ -9,8 +9,9 @@ densities, momentum correction (a per-bucket [W, n_b] local momentum
 folded into the gradient before compression) and ``profile_norm`` (the
 ``eps_vs_dense`` metric). Microbatch accumulation and gradient clipping
 act on the local gradient before it gets here (``train/trainer.py``).
-Not ported yet (ROADMAP.md): the anomaly guard, fault plans and quality
-taps.
+Not ported yet (ROADMAP.md): the anomaly guard, fault plans and the
+step's quality taps (the tap is ``obs/quality.py``). A plan naming
+``hierarchical`` is refused: that step is two-level and this one flat.
 
 The flat gradient [W, n] is laid out in the JAX package's leaf order and
 layout (the trainer builds it), so that buckets, region boundaries and
@@ -25,7 +26,10 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from oktopk_tpu_torch import resolve_device
-from oktopk_tpu_torch.collectives.registry import get_algorithm
+from oktopk_tpu_torch.collectives.registry import (
+    TWO_LEVEL_ONLY,
+    get_algorithm,
+)
 from oktopk_tpu_torch.collectives.state import SparseState, init_state
 from oktopk_tpu_torch.config import OkTopkConfig
 
@@ -99,6 +103,8 @@ class SparseGradStep:
         if len(names) != nb:
             raise ValueError(f"compressor plan has {len(names)} entries "
                              f"for {nb} buckets")
+        if "hierarchical" in names:
+            raise ValueError(TWO_LEVEL_ONLY)
         if bucket_densities is not None and len(bucket_densities) != nb:
             raise ValueError(f"bucket_densities has {len(bucket_densities)}"
                              f" entries for {nb} buckets")

@@ -30,7 +30,10 @@ import argparse
 import logging
 import sys
 
-from oktopk_tpu_torch.collectives.registry import list_algorithms
+from oktopk_tpu_torch.collectives.registry import (
+    TWO_LEVEL_ONLY,
+    list_algorithms,
+)
 
 # flag: its default; any other value needs a path the port lacks
 UNPORTED = {"pipeline_stages": 1, "seq_shards": 1, "expert_shards": 1,
@@ -77,6 +80,8 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None)
     p.add_argument("--handle-preemption", action="store_true")
     args = p.parse_args(argv)
+    if args.compressor == "hierarchical":
+        p.error(TWO_LEVEL_ONLY)
     if args.max_seq_length is None:
         args.max_seq_length = 32 if args.model == "bert_tiny" else 128
     return args

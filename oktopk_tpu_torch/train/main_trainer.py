@@ -3,7 +3,7 @@ CIFAR-10, DeepSpeech on AN4 (CTC) and the PTB LSTM.
 
 Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 :25-50, :130-135 that the port serves, under the same names
-(``--compressor`` takes every ported registry name), plus
+(``--compressor`` takes every registry name but ``hierarchical``), plus
 ``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
 ``cifar10`` (``--dnn vgg*``), ``an4`` (``lstman4``, ``lstman4_tiny``) or
 ``ptb`` (``lstm``, ``lstm_tiny``); the data is the synthetic iterator of
@@ -39,7 +39,10 @@ import logging
 import os
 import sys
 
-from oktopk_tpu_torch.collectives.registry import list_algorithms
+from oktopk_tpu_torch.collectives.registry import (
+    TWO_LEVEL_ONLY,
+    list_algorithms,
+)
 
 # examples an epoch: CIFAR-10's training set, and the JAX package's
 # synthetic fallback for every dataset
@@ -85,7 +88,10 @@ def parse_args(argv=None):
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="process-group backend across processes (default: "
                         "nccl on a card, gloo on the CPU)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.compressor == "hierarchical":
+        p.error(TWO_LEVEL_ONLY)
+    return args
 
 
 def build_trainer(args):

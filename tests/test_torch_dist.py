@@ -22,7 +22,11 @@ module, and each test reads what its part wrote:
   every rank, and within ``test_torch_vgg.py``'s tolerances of the JAX
   Trainer on the 4-device mesh;
 - two ``bert_tiny`` Trainer steps with dropout 0.1, each rank drawing its
-  own worker's masks: bit-equal to the stacked Trainer on every rank.
+  own worker's masks: bit-equal to the stacked Trainer on every rank;
+- the two-level ``hierarchical`` step as 2 pods x 2 over
+  ``dist.new_group`` groups, with the ``dense``, ``oktopk`` and ``topkA``
+  outers: results and every state field bit-equal on every rank to the
+  two-level stacked comm's row.
 
 Two more spawns run ``main_trainer`` and ``main_bert`` as two ranks.
 """
@@ -107,7 +111,7 @@ def dist(tmp_path_factory, mesh4):
     """Spawn the four ranks, compute the JAX and stacked sides while they
     run (the JAX states and the weights go to the ranks as files), and
     return all of it."""
-    from oktopk_tpu_torch.comm import StackedComm
+    from oktopk_tpu_torch.comm import StackedComm, hierarchical_comm
 
     d = tmp_path_factory.mktemp("dist")
     cases = child.compressor_cases()
@@ -130,6 +134,9 @@ def dist(tmp_path_factory, mesh4):
                     c, StackedComm(P), slice(0, P),
                     jax_runs[nm][1][:-1] if nm in jax_runs else None)
                     for nm, c in cases.items()}
+                stacked_hier = {o: child.run_hierarchical(
+                    o, hierarchical_comm(child.PODS, P // child.PODS),
+                    slice(0, P)) for o in child.HIER_OUTERS}
                 stacked_trainer = child.run_trainer(None, weights)
                 stacked_bert = child.run_bert_trainer(None)
             finally:
@@ -146,6 +153,7 @@ def dist(tmp_path_factory, mesh4):
     ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
              for r in range(P)]
     return {"ranks": ranks, "stacked": stacked, "jax": jax_runs,
+            "stacked_hier": stacked_hier,
             "stacked_trainer": stacked_trainer,
             "stacked_bert": stacked_bert,
             "jax_trainer": (jax_metrics, jax_final)}
@@ -249,6 +257,29 @@ def test_topksa_fallback_on_the_host(dist):
         (_, s0), (_, s1) = res["compressors"]["topkSA fallback then sparse"]
         assert float(s0["last_volume"][0]) >= 2.0 * n
         assert float(s1["last_volume"][0]) < 2.0 * n
+
+
+@pytest.mark.parametrize("outer", child.HIER_OUTERS)
+def test_hierarchical_matches_stacked(dist, outer):
+    """Rank r is member r % 2 of pod r // 2: its intra group is its pod,
+    its inter group the ranks of its member index; every step's result
+    and state field bit-equal to the two-level stacked comm's row r."""
+    want = dist["stacked_hier"][outer]
+    for r, res in enumerate(dist["ranks"]):
+        assert res["levels"] == [(P, r), (2, r % 2), (2, r // 2)]
+        for i, ((out, st), (w_out, w_st)) in enumerate(
+                zip(res["hierarchical"][outer], want)):
+            bits(out, w_out[r:r + 1], f"{outer} step {i} rank {r}: result")
+            for f, v in st.items():
+                bits(v, w_st[f][r:r + 1], f"{outer} step {i} rank {r}: {f}")
+
+
+def test_replicate_over_a_subgroup(dist):
+    """``replicate_`` on the inter group broadcasts from the group's rank
+    0, global rank ``r % 2``."""
+    for r, res in enumerate(dist["ranks"]):
+        assert res["inter_replicate"] == (3 if r >= 2 else 0,
+                                          float(r % 2))
 
 
 def test_trainer_matches_stacked(dist):

@@ -26,7 +26,9 @@ def _sources():
         ROOT / "scripts" / "psum_ab.py",
         ROOT / "tests" / "torch_dist_child.py"]
     assert len(files) > 20
-    for mod in ("launch.py", "comm/process_group.py"):
+    for mod in ("launch.py", "comm/process_group.py", "comm/fabric.py",
+                "collectives/hierarchical.py", "obs/metrics_buffer.py",
+                "obs/quality.py", "obs/volume.py"):
         assert PKG / mod in files
     return files
 

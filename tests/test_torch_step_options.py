@@ -135,22 +135,34 @@ def test_loose_clip_is_bit_equal(narrow):  # noqa: F811
     assert [float(m["loss"]) for m in ma] == [float(m["loss"]) for m in mb]
 
 
-@pytest.mark.parametrize("compressor", list_algorithms())
+# ``hierarchical`` needs a HierarchicalConfig and a two-level comm, which
+# the Trainer's flat step has not (nor has the JAX Trainer's): it runs
+# through ``collectives.api`` (tests/test_torch_hierarchical.py)
+FLAT_NAMES = [n for n in list_algorithms() if n != "hierarchical"]
+
+
+@pytest.mark.parametrize("compressor", FLAT_NAMES)
 def test_trainer_runs_every_compressor(narrow, compressor):  # noqa: F811
-    """Every ported name through the port's Trainer: a dense warmup step,
-    then sparse steps with finite losses and parameters."""
+    """Every flat registry name through the port's Trainer: a dense warmup
+    step, then sparse steps with finite losses and parameters."""
     tt, ms = run_port({"compressor": compressor}, steps=3)
     assert all(np.isfinite(float(m["loss"])) for m in ms)
     assert all(bool(torch.isfinite(p).all()) for p in tt.params)
     assert float(ms[-1]["comm_volume"]) > 0
 
 
-def test_main_trainer_flags(narrow):  # noqa: F811
-    for name in list_algorithms():
+def test_main_trainer_flags(narrow, capsys):  # noqa: F811
+    """Every flat name is a ``--compressor``; ``hierarchical`` is refused
+    with the reason (see ``FLAT_NAMES``), by the CLI and by the Trainer's
+    step."""
+    for name in FLAT_NAMES:
         assert main_trainer.parse_args(["--compressor", name]).compressor \
             == name
     with pytest.raises(SystemExit):
         main_trainer.parse_args(["--compressor", "hierarchical"])
+    assert "two-level comm" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="HierarchicalConfig"):
+        run_port({"compressor": "hierarchical"}, steps=1)
     a = main_trainer.parse_args(["--nsteps-update", "2", "--grad-clip",
                                  "0.5"])
     assert (a.nsteps_update, a.grad_clip) == (2, 0.5)

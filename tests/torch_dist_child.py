@@ -166,6 +166,32 @@ def run_compressor(case, comm, rows: slice, start_states=None):
     return out
 
 
+# the two-level cases: 2 pods x 2, each outer three steps (cadences 2/2/3)
+PODS = 2
+HIER = dict(OKTOPK, wire_dtype="bfloat16")
+HIER_OUTERS = ("dense", "oktopk", "topkA")
+
+
+def run_hierarchical(outer: str, comm, rows: slice):
+    """Three ``hierarchical`` steps with ``outer`` over the two-level
+    ``comm`` on the gradient rows ``rows``: [(results, state arrays)]."""
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+    from oktopk_tpu_torch.collectives.hierarchical import \
+        make_hierarchical_config
+    from oktopk_tpu_torch.config import OkTopkConfig
+
+    h = make_hierarchical_config(OkTopkConfig(**HIER), num_pods=PODS,
+                                 outer=outer)
+    step = build_allreduce_step("hierarchical", h, comm, warmup=False)
+    state = batched_init_state(h, "cpu", comm=comm)
+    out = []
+    for g in make_grads(3, seed=3):
+        res, state = step(torch.from_numpy(g[rows]), state)
+        out.append((res.clone(), state.to_numpy()))
+    return out
+
+
 def time_steps(comm, rows: slice):
     """``time_allreduce_step`` over ``comm``: (number of timed steps, the
     state's step counter after them)."""
@@ -280,7 +306,8 @@ def wait_load(path: str, timeout_s: float = 240.0):
 
 
 def _checks(rank: int, out_dir: str):
-    from oktopk_tpu_torch.comm import ProcessGroupComm
+    from oktopk_tpu_torch.comm import (ProcessGroupComm,
+                                       hierarchical_process_comm)
     penv, _ = _join(rank, P, os.path.join(out_dir, "store"))
     comm = ProcessGroupComm()
     row = slice(rank, rank + 1)
@@ -300,6 +327,15 @@ def _checks(rank: int, out_dir: str):
         res["compressors"][name] = run_compressor(cases[name], comm, row,
                                                   states)
     res["timed"] = time_steps(comm, row)
+    # two levels over ``new_group``s: every rank creates every group
+    hcomm = hierarchical_process_comm(PODS, P // PODS)
+    res["levels"] = [(c.size, c.first_worker)
+                     for c in (hcomm, hcomm.intra, hcomm.inter)]
+    res["hierarchical"] = {o: run_hierarchical(o, hcomm, row)
+                           for o in HIER_OUTERS}
+    # the inter group's rank 0 is the global rank of this member index
+    t = torch.full((3,), float(rank))
+    res["inter_replicate"] = (int(hcomm.inter.replicate_([t])), float(t[0]))
     weights = wait_load(os.path.join(out_dir, "weights.pt"))
     res["trainer"] = run_trainer(comm, weights)
     res["bert_trainer"] = run_bert_trainer(comm)
@@ -307,11 +343,12 @@ def _checks(rank: int, out_dir: str):
 
 
 def checks_worker(rank, out_dir):
-    """Spawn target: every comm verb, every compressor case, three
-    trainer steps and two BERT steps with dropout over a 4-rank gloo
-    group. The cases held to JAX start
-    from the JAX states the parent writes to ``jax.pt``, the trainer from
-    the weights it writes to ``weights.pt``, while these run."""
+    """Spawn target: every comm verb, every compressor case, the
+    two-level cases over 2 pods x 2 ``new_group``s, three trainer steps
+    and two BERT steps with dropout over a 4-rank gloo group. The cases
+    held to JAX start from the JAX states the parent writes to
+    ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
+    while these run."""
     _guard(_checks, rank, out_dir)
 
 
