@@ -7,8 +7,9 @@ one NVIDIA GPU. Run from the repository root, with no arguments:
 It drives ``oktopk_tpu_torch`` only (no JAX, nothing of ``oktopk_tpu``)
 and prints one JSON line per phase:
 
-1. build    — both CUDA kernels compiled by nvcc for sm_90a from
-              ``oktopk_tpu_torch/csrc/``, one nvcc per source, in parallel;
+1. build    — the three CUDA kernels compiled by nvcc for sm_90a from
+              ``oktopk_tpu_torch/csrc/`` (the fused select, the
+              compaction, threefry), one nvcc per source, in parallel;
 2. kernels  — the fused select kernel and the compaction kernel at the
               VGG-16 flat size n = 14,728,266, on seeded inputs in the
               fast, repair and wide regimes of the TPU kernels they
@@ -59,12 +60,13 @@ and prints one JSON line per phase:
               110,106,428 and its k at d = 0.01, on rows of [4, n] buffers:
               bit-equal to their plain versions, then timed as above
               (``bert_sweep``, ``bert_pack_a``, ``bert_select_b``);
-10. bert_parity — (after ``baselines_allreduce``) ``bert_tiny`` without
-              dropout from the same weights and batch (padded attention
-              mask) on the card and on the CPU: logits, loss and the flat
-              gradient in JAX leaf order within stated tolerances, then
-              three oktopk steps (cadence 2) with finite, agreeing losses
-              and equal volumes wherever the selections agree;
+10. bert_parity — (after ``baselines_allreduce``) ``bert_tiny`` with
+              dropout 0.1 from the same weights, batch (padded attention
+              mask) and dropout key on the card and on the CPU: every
+              site's mask bit-equal, logits, loss and the flat gradient in
+              JAX leaf order within stated tolerances, then three oktopk
+              steps (cadence 2) with finite, agreeing losses and equal
+              volumes wherever the selections agree;
 11. bert_trainer — (after step_options) the BERT slice at full width through
               ``main_bert.build_trainer``: BERT-base, P = 4 workers, bs 8
               each, seq 128, dropout 0.1, oktopk at d = 0.01 with the BERT
@@ -92,7 +94,8 @@ and prints one JSON line per phase:
               volumes and parameters repeat bit for bit;
 15. lstm_trainer — the PTB LSTM at full width (2 x 1500, vocabulary
               10,000, 35 tokens), P = 4 stacked, bs 20 each, dropout 0.65
-              from the per-worker generators, three oktopk steps;
+              (JAX's masks, the threefry kernel; its three sites' masks
+              card against CPU bit-equal), three oktopk steps;
 16. dist_allreduce — one worker per process: every case of
               ``dist_cases`` (oktopk fused and unfused, each baseline,
               topkSA with a dense-fallback step; bf16 wire, n = 2^20) run
@@ -113,7 +116,7 @@ and prints one JSON line per phase:
               dist_trainer's third step;
 18. dist_bert — ``bert_tiny`` with dropout 0.1 through
               ``main_bert.build_trainer`` as four gloo ranks on the card,
-              each drawing its own worker's masks, against the stacked
+              each deriving its own worker's keys, against the stacked
               Trainer: losses, volumes and every state_dict entry
               bit-equal on every rank. Spawned ranks are joined by a
               deadline and killed past it, and the CLI runs in its own
@@ -146,6 +149,36 @@ and prints one JSON line per phase:
               three steps each at n = 2^20: every rank bit-equal to the
               stacked two-level comm's row; per-rank step times.
 
+23. threefry — (after ``edges``) ``csrc/threefry.cu``, the Bernoulli
+              keep mask of JAX's dropout: Random123's known answers (the
+              output words on the host; on the card the mask at each
+              answer's counter pins the 23 bits it reads), the kernel
+              bit-equal to its plain version at odd lengths and at
+              counters past 2^32, one launch a mask; timed at BERT-base's
+              attention-probability and hidden-state mask shapes
+              (``threefry_attention``, ``threefry_hidden``);
+24. resnet50_kernels — (after ``hier_kernels``) K1 and the compaction's
+              two oktopk forms at ResNet-50's n = 25,557,032
+              (``resnet50_sweep``, ``resnet50_pack_a``,
+              ``resnet50_select_b``), bit-equal and timed as above;
+25. zoo_parity — (after ``lstman4_parity``) every CNN of the zoo at full
+              width (resnet20/56/110, resnet50, alexnet, densenet100,
+              preresnet110, resnext29, caffe_cifar, mnistnet), two images,
+              train mode: logits and the flat gradient on the card in
+              float32 held to the CPU's float64 result as closely as the
+              CPU's float32 is; ResNeXt-29's grouped fwd/bwd repeats bit
+              for bit under deterministic cuDNN;
+26. resnet50_trainer — (after ``lstm_trainer``) ``main_trainer --dnn
+              resnet50 --dataset imagenet --batch-size 32 --num-workers 4
+              --density 0.02`` (synthetic: no ImageNet file): one dense
+              warmup step and four oktopk steps, twice from one seed, bit
+              for bit; the split, kernel calls a step, peak memory, and
+              one profiled step (device launches and time);
+27. loader_cli — ``main_trainer`` on CIFAR-10 and MNIST files the script
+              writes (resnet20, mnistnet; three steps each on the card,
+              ``meta["synthetic"]`` False), then ``--dataset imagenet``
+              without a file, which warns and trains on synthetic data.
+
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
 no result and exits non-zero, as does a machine without CUDA.
@@ -170,6 +203,31 @@ ITERS = 25
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from oktopk_tpu_torch.ops import compaction, fused_select, prng
+    compaction.LAUNCHES = fused_select.LAUNCHES = prng.LAUNCHES = 0
+
+
+SPARSE_KERNELS = ("fused_select", "compaction")
+DROPOUT_KERNELS = SPARSE_KERNELS + ("threefry",)
+
+
+def assert_launched(launches: dict, kernels, where: str) -> None:
+    """Raise unless each of ``kernels`` launched on the path just run."""
+    for nm in kernels:
+        if launches[nm] <= 0:
+            raise AssertionError(f"{where}: the {nm} kernel never launched "
+                                 "on the path")
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from oktopk_tpu_torch.ops import compaction, fused_select, prng
+    return {"fused_select": fused_select.LAUNCHES,
+            "compaction": compaction.LAUNCHES, "threefry": prng.LAUNCHES}
 
 
 def cuda_time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
@@ -814,7 +872,6 @@ def phase_hierarchical(dev, oktopk_steps: int = 5):
     from oktopk_tpu_torch.comm import StackedComm, hierarchical_comm
     from oktopk_tpu_torch.obs.volume import (hierarchical_budget_bytes,
                                              hierarchical_volume_report)
-    from oktopk_tpu_torch.ops import compaction, fused_select
 
     h = hier_config("oktopk", N_VGG16, warmup_steps=1,
                     local_recompute_every=1, global_recompute_every=4,
@@ -830,7 +887,7 @@ def phase_hierarchical(dev, oktopk_steps: int = 5):
     base = torch.randn((W, n), generator=gen, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    launches = {"fused_select": 0, "compaction": 0}
+    launches = dict.fromkeys(DROPOUT_KERNELS, 0)
     recs, intra, inter = [], [], []
     for s in range(1 + oktopk_steps):
         g = base + 0.3 * torch.randn((W, n), generator=gen, device=dev)
@@ -839,15 +896,13 @@ def phase_hierarchical(dev, oktopk_steps: int = 5):
         exact = not dense and (s == ocfg.warmup_steps
                                or s % ocfg.global_recompute_every == 0)
         torch.cuda.synchronize()
-        compaction.LAUNCHES = 0
-        fused_select.LAUNCHES = 0
+        zero_counts()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         out, hs = hstep(g, hs)
         b.record()
         b.synchronize()
-        calls = {"fused_select": fused_select.LAUNCHES,
-                 "compaction": compaction.LAUNCHES}
+        calls = read_counts()
         for k, v in calls.items():
             launches[k] += v
         # the flat outer fed the pod means, members added in order
@@ -890,9 +945,7 @@ def phase_hierarchical(dev, oktopk_steps: int = 5):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("hierarchical: non-finite result")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"hierarchical: {k} never launched")
+    assert_launched(launches, SPARSE_KERNELS, "hierarchical")
     reports = hierarchical_volume_report(
         h, sum(intra) / len(intra), sum(inter) / len(inter),
         steps=len(intra))
@@ -935,7 +988,6 @@ def train_run(dev, phase: str, compressor: str, sparse_steps: int, algo,
     import torch
     from oktopk_tpu_torch.config import TrainConfig
     from oktopk_tpu_torch.data import synthetic_batch
-    from oktopk_tpu_torch.ops import compaction, fused_select
     from oktopk_tpu_torch.train.trainer import Trainer
 
     P, gbs = 4, 64
@@ -951,8 +1003,7 @@ def train_run(dev, phase: str, compressor: str, sparse_steps: int, algo,
     batches = [synthetic_batch("vgg16", gbs, rng)
                for _ in range(algo.warmup_steps + sparse_steps)]
     torch.cuda.synchronize()
-    compaction.LAUNCHES = 0
-    fused_select.LAUNCHES = 0
+    zero_counts()
     steps, times = [], []
     for s, b in enumerate(batches):
         t0 = time.perf_counter()
@@ -965,8 +1016,7 @@ def train_run(dev, phase: str, compressor: str, sparse_steps: int, algo,
                                else compressor))
         steps.append(rec)
         emit({"phase": phase, **rec})
-    launches = {"fused_select": fused_select.LAUNCHES,
-                "compaction": compaction.LAUNCHES}
+    launches = read_counts()
     losses = [r["loss"] for r in steps]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{compressor}: non-finite loss: {losses}")
@@ -996,9 +1046,7 @@ def phase_trainer(dev):
     algo = OkTopkConfig(warmup_steps=1, local_recompute_every=1,
                         global_recompute_every=4)
     summary, _ = train_run(dev, "trainer", "oktopk", 5, algo)
-    for nm, c in summary["launches"].items():
-        if c <= 0:
-            raise AssertionError(f"{nm} kernel never launched on the path")
+    assert_launched(summary["launches"], SPARSE_KERNELS, "trainer")
     emit({"phase": "trainer_summary", **summary})
     return summary["launches"]
 
@@ -1042,9 +1090,7 @@ def phase_step_options(dev):
         raise AssertionError(f"grad_clip {clip} did not bind: {norms}")
     if trainer.optimizer.momentum != 0.0:
         raise AssertionError("momentum correction left SGD momentum on")
-    for nm, c in summary["launches"].items():
-        if c <= 0:
-            raise AssertionError(f"{nm} kernel never launched on the path")
+    assert_launched(summary["launches"], SPARSE_KERNELS, "step_options")
     if not all(math.isfinite(e) for e in summary["eps_vs_dense"]):
         raise AssertionError(f"eps_vs_dense: {summary['eps_vs_dense']}")
     emit({"phase": "step_options_summary", "nsteps_update": 2,
@@ -1155,24 +1201,28 @@ def bert_tiny_weights(seed: int):
 
 
 def phase_bert_parity(dev):
-    """``bert_tiny`` (dropout 0) from the same weights and the same
-    synthetic batch (padded attention mask) on the card and on the CPU:
-    logits (rtol 1e-4, atol 2e-5 of the largest), loss (rtol 1e-5) and the
-    flat gradient in JAX leaf order (atol 2e-5 of the largest) agree, TF32
-    off; then three oktopk steps, P = 4, cadence 2 (exact, predicted,
-    exact), from the same weights: losses finite and within rtol 1e-5, and
-    where both selected the same elements (the nonzeros of the reduced
-    gradient) the volumes equal."""
+    """``bert_tiny`` with dropout 0.1 from the same weights, the same
+    synthetic batch (padded attention mask) and the same dropout key on
+    the card and on the CPU: every site's mask bit-equal (the threefry
+    kernel against its plain version), then logits (rtol 1e-4, atol 2e-5
+    of the largest), loss (rtol 1e-5) and the flat gradient in JAX leaf
+    order (atol 2e-5 of the largest) agree, TF32 off; then three oktopk
+    steps, P = 4, cadence 2 (exact, predicted, exact), from the same
+    weights, each worker's masks from the Trainer's key chain: losses
+    finite and within rtol 1e-5, and where both selected the same
+    elements (the nonzeros of the reduced gradient) the volumes equal."""
     import numpy as np
     import torch
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
     from oktopk_tpu_torch.data import synthetic_batch
     from oktopk_tpu_torch.models import create_model
     from oktopk_tpu_torch.models.layout import to_jax_layout
+    from oktopk_tpu_torch.ops import prng
     from oktopk_tpu_torch.train.losses import bert_pretrain_loss
     from oktopk_tpu_torch.train.trainer import Trainer
 
     sd = bert_tiny_weights(SEED)
+    key = prng.fold_in(prng.prng_key(SEED), 11)
     rng = np.random.RandomState(SEED)
     batches = [synthetic_batch("bert_tiny", 16, rng) for _ in range(4)]
     for b in batches:
@@ -1180,12 +1230,12 @@ def phase_bert_parity(dev):
     b = batches[0]
     out = {}
     for where in ("cpu", dev):
-        m = create_model("bert_tiny", dropout=0.0)
+        m = create_model("bert_tiny")
         m.load_state_dict(sd)
         m = m.to(where)
         t = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
         mlm, nsp = m(t["input_ids"], t["token_type_ids"],
-                     t["attention_mask"], train=True)
+                     t["attention_mask"], train=True, rng=key)
         loss = bert_pretrain_loss(mlm, nsp, t["mlm_labels"],
                                   t["nsp_labels"])[0]
         loss.backward()
@@ -1194,6 +1244,11 @@ def phase_bert_parity(dev):
         out[str(where)] = [x.detach().cpu() for x in (mlm, nsp, loss, grad)]
     (c_mlm, c_nsp, c_loss, c_grad), (g_mlm, g_nsp, g_loss, g_grad) = (
         out["cpu"], out[str(dev)])
+    bs, seq = b["input_ids"].shape
+    hidden = (bs, seq, m.cfg.hidden_size)
+    sites = site_masks_equal(
+        m.site_hashes, key, [hidden] + [(1, 1, seq, seq), hidden, hidden]
+        * m.cfg.num_layers, 1.0 - m.cfg.dropout, dev)
     errs = {}
     for nm, a, w, rtol, atol in (
             ("mlm_logits", g_mlm, c_mlm, 1e-4, 2e-5),
@@ -1216,8 +1271,7 @@ def phase_bert_parity(dev):
                       total_steps=10, warmup_proportion=0.1)
     trainers, selected = {}, {}
     for where in ("cpu", dev):
-        tr = Trainer(cfg, algo_cfg=algo, device=where,
-                     model_kwargs={"dropout": 0.0})
+        tr = Trainer(cfg, algo_cfg=algo, device=where)
         tr.model.load_state_dict(sd)
         trainers[str(where)] = tr
 
@@ -1248,7 +1302,8 @@ def phase_bert_parity(dev):
     pdiff = max(float((a.detach().cpu() - b.detach()).abs().max())
                 for a, b in zip(trainers[str(dev)].params,
                                 trainers["cpu"].params))
-    emit({"phase": "bert_parity", "model": "bert_tiny",
+    emit({"phase": "bert_parity", "model": "bert_tiny", "dropout": 0.1,
+          "site_masks_bit_equal": sites,
           "n": trainers["cpu"].algo_cfg.n, "max_abs_err": errs,
           "steps": steps, "params_max_abs_diff_after_3_steps": pdiff})
     return errs
@@ -1317,7 +1372,6 @@ def phase_bert_trainer(dev, steps: int = 5):
     scan against the row-wise one."""
     import torch
     from oktopk_tpu_torch.collectives.oktopk import _repartition
-    from oktopk_tpu_torch.ops import compaction, fused_select
     from oktopk_tpu_torch.train import main_bert
 
     args = main_bert.parse_args(["--model", "bert_base", "--num-workers",
@@ -1333,8 +1387,7 @@ def phase_bert_trainer(dev, steps: int = 5):
     clock = StepClock(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    compaction.LAUNCHES = 0
-    fused_select.LAUNCHES = 0
+    zero_counts()
     recs = []
     for s, b in enumerate(batches):
         clock.mark("start")
@@ -1347,13 +1400,9 @@ def phase_bert_trainer(dev, steps: int = 5):
                    **clock.split())
         recs.append(rec)
         emit({"phase": "bert_trainer", **rec})
-    launches = {"fused_select": fused_select.LAUNCHES,
-                "compaction": compaction.LAUNCHES}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    for nm, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"bert_trainer: the {nm} kernel never "
-                                 "launched on the path")
+    assert_launched(launches, DROPOUT_KERNELS, "bert_trainer")
     for r in recs:
         for k in ("loss", "mlm_loss", "nsp_loss"):
             if not math.isfinite(r[k]):
@@ -1527,48 +1576,47 @@ def phase_lstman4_parity(dev):
     return errs, verdict
 
 
-def trainer_run(dev, argv, steps: int, phase: str):
+def trainer_run(dev, argv, steps: int, phase: str, profile: bool = False):
     """``steps`` steps of ``main_trainer.build_trainer(argv)`` on the card
     (P = 4 workers stacked), CUDA events around the collective, launch
     counters set to 0 just before the steps and read after each: per-step
-    records, the launches, the peak memory and the trainer's digests."""
+    records, the launches, the peak memory and the trainer's digests;
+    with ``profile``, one more step under the profiler: its device
+    launches, device time and the costliest kernels."""
     import hashlib
 
     import torch
-    from oktopk_tpu_torch.ops import compaction, fused_select
     from oktopk_tpu_torch.train import main_trainer
 
     args = main_trainer.parse_args(argv + ["--device", str(dev), "--seed",
                                            str(SEED), "--num-workers", "4",
                                            "--max-iters", str(steps)])
     t0 = time.perf_counter()
-    trainer, data, _ = main_trainer.build_trainer(args)
+    trainer, data, _, _ = main_trainer.build_trainer(args)
     build_s = time.perf_counter() - t0
     batches = [next(data) for _ in range(steps)]
     clock = StepClock(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    compaction.LAUNCHES = 0
-    fused_select.LAUNCHES = 0
-    recs, seen = [], (0, 0)
+    zero_counts()
+    recs, seen = [], read_counts()
     for s, b in enumerate(batches):
         clock.mark("start")
         t0 = time.perf_counter()
         m = trainer.train_step(b)
         clock.mark("end")
         torch.cuda.synchronize()
-        now = (fused_select.LAUNCHES, compaction.LAUNCHES)
+        now = read_counts()
         rec = {k: float(v) for k, v in m.items()}
         rec.update(step=s + 1, ms=(time.perf_counter() - t0) * 1e3,
                    collective=("dense" if s < trainer.algo_cfg.warmup_steps
                                else trainer.cfg.compressor),
-                   fused_select_calls=now[0] - seen[0],
-                   compaction_calls=now[1] - seen[1], **clock.split())
+                   **{f"{k}_calls": now[k] - seen[k] for k in now},
+                   **clock.split())
         seen = now
         recs.append(rec)
         emit({"phase": phase, **rec})
-    launches = {"fused_select": fused_select.LAUNCHES,
-                "compaction": compaction.LAUNCHES}
+    launches = read_counts()
     for r in recs:
         if not math.isfinite(r["loss"]):
             raise AssertionError(f"{phase} step {r['step']}: loss "
@@ -1578,7 +1626,16 @@ def trainer_run(dev, argv, steps: int, phase: str):
         if not bool(torch.isfinite(p).all()):
             raise AssertionError(f"{phase}: non-finite parameter")
         digest.update(p.detach().cpu().numpy().tobytes())
+    profiled = None
+    if profile:
+        nxt = next(data)
+        counts, by_op = profile_window(lambda: trainer.train_step(nxt), 1)
+        top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+        profiled = {"device_launches": sum(counts.values()),
+                    "device_ms": sum(by_op.values()),
+                    "top_ms": {k: v for k, v in top}}
     out = {"n": trainer.algo_cfg.n, "k": trainer.algo_cfg.k,
+           "profiled": profiled,
            "build_s": build_s, "recs": recs, "launches": launches,
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -1623,10 +1680,7 @@ def phase_lstman4_trainer(dev, steps: int = 5):
         if r["comm_volume"] <= 0:
             raise AssertionError(f"lstman4_trainer step {r['step']}: "
                                  "volume 0")
-    for nm, c in first["launches"].items():
-        if c <= 0:
-            raise AssertionError(f"lstman4_trainer: the {nm} kernel never "
-                                 "launched on the path")
+    assert_launched(first["launches"], SPARSE_KERNELS, "lstman4_trainer")
     keys = ("loss", "comm_volume", "wire_bytes", "local_k", "global_k")
     differ = [{"step": a["step"], **{k: [a[k], b[k]] for k in keys
                                      if a[k] != b[k]}}
@@ -1663,20 +1717,27 @@ def phase_lstm_trainer(dev, steps: int = 3):
     """The PTB LSTM at full width (2 x 1500, vocabulary 10,000, 35
     tokens, n = 66,022,000) through ``main_trainer.build_trainer``: P = 4
     workers stacked, bs 20 each (``VGG/exp_configs/lstm.conf``), lr 1.0,
-    dropout 0.65 from the per-worker generators, oktopk at d = 0.02 with
+    dropout 0.65 (JAX's masks from the threefry kernel; its three sites'
+    masks card against CPU, bit-equal), oktopk at d = 0.02 with
     no dense warmup (step 1 the exact recomputes): three steps, losses
     finite, volumes reported. Returns the launches."""
     run = trainer_run(dev, ["--dnn", "lstm", "--dataset", "ptb",
                             "--batch-size", "20", "--lr", "1.0",
                             "--density", "0.02", "--warmup-steps", "0"],
                       steps, "lstm_trainer")
-    for nm, c in run["launches"].items():
-        if c <= 0:
-            raise AssertionError(f"lstm_trainer: the {nm} kernel never "
-                                 "launched on the path")
+    assert_launched(run["launches"], DROPOUT_KERNELS, "lstm_trainer")
+    from oktopk_tpu_torch.models.layers import site_hashes
+    from oktopk_tpu_torch.models.lstm import dropout_sites
+    from oktopk_tpu_torch.ops import prng
+    sites = site_masks_equal(site_hashes(dropout_sites()),
+                             prng.fold_in(prng.prng_key(SEED), 12),
+                             [(20, 35, 1500)] * 3, 0.35, dev)
     emit({"phase": "lstm_trainer_summary", "model": "lstm", "n": run["n"],
           "k": run["k"], "workers": 4, "batch_per_worker": 20, "seq": 35,
-          "dropout": 0.65, "steps": steps, "build_s": run["build_s"],
+          "dropout": 0.65, "site_masks_bit_equal": sites,
+          "threefry_calls_per_step": [r["threefry_calls"]
+                                      for r in run["recs"]],
+          "steps": steps, "build_s": run["build_s"],
           "losses": [r["loss"] for r in run["recs"]],
           "volume": [r["comm_volume"] for r in run["recs"]],
           "local_k": [r["local_k"] for r in run["recs"]],
@@ -1806,18 +1867,15 @@ def dist_guard(job, rank: int, tmp: str, *args):
 
 
 def _allreduce_rank(rank: int, tmp: str, world: int, dev: str):
-    from oktopk_tpu_torch.ops import compaction, fused_select
     comm = dist_join(rank, world, tmp, "gloo", dev)
     out = {"backend": comm.backend, "cases": {}}
     for case in dist_cases():
-        compaction.LAUNCHES = 0
-        fused_select.LAUNCHES = 0
+        zero_counts()
         steps = run_dist_case(case, comm, dev)
         out["cases"][case[0]] = {
             "digests": [row_digests(a, 0) for a, _ in steps],
             "ms": [ms for _, ms in steps],
-            "launches": {"fused_select": fused_select.LAUNCHES,
-                         "compaction": compaction.LAUNCHES}}
+            "launches": read_counts()}
     return out
 
 
@@ -1966,21 +2024,18 @@ def run_hier_case(outer: str, comm, dev):
 
 def _hier_rank(rank: int, tmp: str, world: int, dev: str):
     from oktopk_tpu_torch.comm import hierarchical_process_comm
-    from oktopk_tpu_torch.ops import compaction, fused_select
     dist_join(rank, world, tmp, "gloo", dev)
     comm = hierarchical_process_comm(HIER_PODS, HIER_POD_SIZE)
     out = {"backend": comm.backend,
            "intra_rank": comm.intra.first_worker,
            "inter_rank": comm.inter.first_worker, "cases": {}}
     for outer in HIER_OUTERS:
-        compaction.LAUNCHES = 0
-        fused_select.LAUNCHES = 0
+        zero_counts()
         steps = run_hier_case(outer, comm, dev)
         out["cases"][outer] = {
             "digests": [row_digests(a, 0) for a, _ in steps],
             "ms": [ms for _, ms in steps],
-            "launches": {"fused_select": fused_select.LAUNCHES,
-                         "compaction": compaction.LAUNCHES}}
+            "launches": read_counts()}
     return out
 
 
@@ -2042,11 +2097,9 @@ def run_vgg_steps(trainer, data, steps: int):
     """``steps`` trainer steps, launch counters set to 0 just before and
     read just after: per-step metrics and host ms, and the launches."""
     import torch
-    from oktopk_tpu_torch.ops import compaction, fused_select
     batches = [next(data) for _ in range(steps)]
     torch.cuda.synchronize()
-    compaction.LAUNCHES = 0
-    fused_select.LAUNCHES = 0
+    zero_counts()
     recs = []
     for b in batches:
         t0 = time.perf_counter()
@@ -2054,8 +2107,7 @@ def run_vgg_steps(trainer, data, steps: int):
         torch.cuda.synchronize()
         recs.append({**{k: float(v) for k, v in m.items()},
                      "ms": (time.perf_counter() - t0) * 1e3})
-    return recs, {"fused_select": fused_select.LAUNCHES,
-                  "compaction": compaction.LAUNCHES}
+    return recs, read_counts()
 
 
 def _trainer_rank(rank: int, tmp: str, world: int, dev: str,
@@ -2065,7 +2117,7 @@ def _trainer_rank(rank: int, tmp: str, world: int, dev: str,
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     dist_join(rank, world, tmp, "gloo", dev)
-    trainer, data, penv = main_trainer.build_trainer(
+    trainer, data, penv, _ = main_trainer.build_trainer(
         vgg_args(["--device", dev, "--backend", "gloo"]))
     if not trainer.distributed or penv.num_processes != world:
         raise AssertionError("build_trainer did not take the "
@@ -2126,7 +2178,7 @@ def phase_dist_trainer(dev):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
-        trainer, data, _ = main_trainer.build_trainer(vgg_args(
+        trainer, data, _, _ = main_trainer.build_trainer(vgg_args(
             ["--device", str(dev), "--num-workers", str(DIST_P)]))
         if trainer.algo_cfg.n != N_VGG16 or trainer.distributed:
             raise AssertionError("the stacked VGG-16 trainer was not built")
@@ -2154,10 +2206,8 @@ def phase_dist_trainer(dev):
             raise AssertionError(
                 f"dist_trainer rank {r}: parameters or buffers differ from "
                 f"the stacked trainer: {res['state_max_abs_diff']}")
-        for nm, c in res["launches"].items():
-            if c <= 0:
-                raise AssertionError(f"dist_trainer rank {r}: the {nm} "
-                                     "kernel never launched on the path")
+        assert_launched(res["launches"], SPARSE_KERNELS,
+                        f"dist_trainer rank {r}")
     emit({"phase": "dist_trainer", "model": "vgg16", "n": N_VGG16,
           "ranks": DIST_P, "placement": f"4 gloo ranks on {dev}",
           "global_batch": 64, "steps": 4, "collective": ["dense"]
@@ -2213,11 +2263,9 @@ def run_bert_steps(trainer, data, steps: int = 3):
     import hashlib
 
     import torch
-    from oktopk_tpu_torch.ops import compaction, fused_select
     batches = [next(data) for _ in range(steps)]
     torch.cuda.synchronize()
-    compaction.LAUNCHES = 0
-    fused_select.LAUNCHES = 0
+    zero_counts()
     recs = []
     for b in batches:
         t0 = time.perf_counter()
@@ -2227,8 +2275,7 @@ def run_bert_steps(trainer, data, steps: int = 3):
                      "ms": (time.perf_counter() - t0) * 1e3})
     digests = {k: hashlib.sha1(v.detach().cpu().numpy().tobytes())
                .hexdigest() for k, v in trainer.model.state_dict().items()}
-    return recs, {"fused_select": fused_select.LAUNCHES,
-                  "compaction": compaction.LAUNCHES}, digests
+    return recs, read_counts(), digests
 
 
 def _bert_rank(rank: int, tmp: str, world: int, dev: str):
@@ -2282,10 +2329,8 @@ def phase_dist_bert(dev):
         if bad:
             raise AssertionError(f"dist_bert rank {r}: {bad} differ from "
                                  "the stacked trainer")
-        for nm, c in res["launches"].items():
-            if c <= 0:
-                raise AssertionError(f"dist_bert rank {r}: the {nm} kernel "
-                                     "never launched on the path")
+        assert_launched(res["launches"], DROPOUT_KERNELS,
+                        f"dist_bert rank {r}")
     emit({"phase": "dist_bert", "model": "bert_tiny", "dropout": 0.1,
           "ranks": DIST_P, "placement": f"4 gloo ranks on {dev}",
           "steps": 3, "bit_equal_to_stacked": True,
@@ -2299,7 +2344,362 @@ def phase_dist_bert(dev):
     return ranks[0]["launches"]
 
 
-def kernel_line(timings, errs, by_path, edge_err, big):
+# ---- slice 8: JAX's dropout masks, the CNN zoo, the image loaders -------
+
+N_RESNET50 = 25557032          # ResNet-50's flat parameter count
+# the card's 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (half the float32 lanes behind the data sheet's 67 TFLOP/s)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Random123's threefry2x32_20 known answers: key, counter, output words
+THREEFRY_KAT = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+                 (0x6b200159, 0x99ba4efe)),
+                ((0xffffffff, 0xffffffff), (0xffffffff, 0xffffffff),
+                 (0x1cb996fc, 0xbb002be7)),
+                ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+                 (0xc4923a9c, 0x483df7a0))]
+THREEFRY_LAUNCHES = {"keep_mask_kernel": 1}
+# the masks the BERT-base path draws: attention probabilities (one mask
+# broadcast over batch and heads) and a hidden state, bs 8, seq 128
+THREEFRY_FORMS = {"threefry_attention": (1, 1, 128, 128),
+                  "threefry_hidden": (8, 128, 768)}
+
+
+def threefry_bound_ms(n: int) -> float:
+    """The larger of the mask's bytes over the memory rate and its integer
+    operations over the INT32 rate (the latter binds)."""
+    from oktopk_tpu_torch.ops import prng
+    return max(n / HBM_BYTES_PER_S,
+               prng.INT_OPS_PER_ELEMENT * n / INT32_OPS_PER_S) * 1e3
+
+
+def phase_threefry(dev):
+    """``csrc/threefry.cu``: the known answers (the output words on the
+    host; on the card the mask at each answer's counter, under a keep
+    probability equal to the answer's float and to the next float above
+    it, which pins the 23 bits the mask reads), the kernel bit-equal to
+    its plain version at odd lengths and at counters past 2^32 (an
+    offset, not a 4 GB mask) and one launch a mask; then timed at the
+    BERT-base path's two mask shapes."""
+    import numpy as np
+    import torch
+    from oktopk_tpu_torch.ops import prng
+
+    for key, ctr, out in THREEFRY_KAT:
+        got = prng._threefry_np(*(np.uint64(w) for w in key + ctr))
+        if tuple(int(w) for w in got) != out:
+            raise AssertionError(f"threefry {key} {ctr}: {got} != {out}")
+        bits = np.uint32((out[0] ^ out[1]) >> 9 | 0x3F800000)
+        u = bits.view(np.float32) - np.float32(1.0)
+        above = np.nextafter(u, np.float32(2.0))
+        off = (ctr[0] << 32) | ctr[1]
+        k = np.array(key, np.uint32)
+        lo = bool(prng.keep_mask(k, (1,), float(u), dev, offset=off)[0])
+        hi = bool(prng.keep_mask(k, (1,), float(above), dev, offset=off)[0])
+        if lo or not hi:
+            raise AssertionError(f"threefry kernel at {key} {ctr}: masks "
+                                 f"{lo}, {hi} at u = {u}")
+    key = prng.fold_in(prng.prng_key(SEED + 8), 3)
+    cases = [((1,), 0.9, 0), ((1000003,), 0.9, 0), ((8, 128, 768), 0.9, 0),
+             ((20, 35, 1500), 0.35, 0), ((333,), 0.35, 2 ** 32 - 100),
+             ((4097,), 0.5, 3 * 2 ** 32 + 5)]
+    for shape, p, off in cases:
+        before = prng.LAUNCHES
+        got = prng.keep_mask(key, shape, p, dev, offset=off)
+        if prng.LAUNCHES != before + 1:
+            raise AssertionError("threefry: not one launch a mask")
+        bits_equal(got, prng.keep_mask_plain(key, shape, p, dev, off),
+                   f"threefry {shape} offset {off}")
+    torch.cuda.synchronize()
+    emit({"phase": "threefry", "known_answers": len(THREEFRY_KAT),
+          "cases": [list(c[0]) + [c[1], c[2]] for c in cases],
+          "bit_equal": True})
+    timings = {}
+    for form, shape in THREEFRY_FORMS.items():
+        n = int(np.prod(shape))
+        rec = {"shape": list(shape), "bound_ms": threefry_bound_ms(n),
+               "kernel": timing(lambda: prng.keep_mask(key, shape, 0.9, dev),
+                                THREEFRY_LAUNCHES),
+               "plain": timing(lambda: prng.keep_mask_plain(key, shape, 0.9,
+                                                            dev))}
+        timings[form] = rec
+        emit({"phase": "kernel_times", "form": form, "n": n, **rec})
+    return timings
+
+
+def site_masks_equal(hashes, rng, shapes, keep_prob: float, dev) -> int:
+    """Every dropout site's keep mask of one apply under ``rng`` (the
+    sites' ``hashes``, each mask's shape in ``shapes``) on the card and
+    on the CPU, bit-equal; returns the sites checked."""
+    from oktopk_tpu_torch.models.layers import SiteKeys
+    from oktopk_tpu_torch.ops import prng
+    keys = SiteKeys(rng, hashes).keys
+    if len(keys) != len(shapes):
+        raise AssertionError(f"{len(keys)} sites, {len(shapes)} shapes")
+    for i, (k, shape) in enumerate(zip(keys, shapes)):
+        bits_equal(prng.keep_mask(k, shape, keep_prob, dev).cpu(),
+                   prng.keep_mask(k, shape, keep_prob), f"site {i} mask")
+    return len(keys)
+
+
+ZOO = ["resnet20", "resnet56", "resnet110", "resnet50", "alexnet",
+       "densenet100", "preresnet110", "resnext29", "caffe_cifar",
+       "mnistnet"]
+# the card's float32 error against the float64 result may be this many
+# times the CPU's float32 error, plus this share of the largest element
+ZOO_ERR_FACTOR, ZOO_ERR_FLOOR = 4.0, 1e-6
+
+
+def flat_grad(model):
+    import torch
+    from oktopk_tpu_torch.models.layout import to_jax_layout
+    return torch.cat([to_jax_layout(p.grad, lay).reshape(-1)
+                      for _, p, lay in model.jax_leaves()])
+
+
+def phase_zoo_parity(dev):
+    """Every CNN of the zoo at full width, from the same weights (PyTorch's
+    default init under one seed, made on the CPU) and the same two images
+    (224 x 224 for resnet50, 28 x 28 for mnistnet, 32 x 32 otherwise), in
+    train mode: the logits and the flat gradient of a weighted sum of the
+    logits, in JAX leaf order, in float32 on the card (TF32 off) and on
+    the CPU, and in float64 on the CPU. A float32 gradient of these nets
+    at batch 2 is ill-conditioned: BatchNorm's variance as E[x^2] -
+    E[x]^2 over two images cancels, and deep stacks of it magnify the
+    rounding (H19; resnet110's CPU float32 gradient is ~0.7% of its
+    largest element off the float64 one). So the card is held to the
+    float64 result as closely as the CPU's float32 is: its error within
+    ``ZOO_ERR_FACTOR`` times the CPU's plus ``ZOO_ERR_FLOOR`` of the
+    largest element, for the logits and for the gradient. Then
+    ResNeXt-29's fwd/bwd (grouped convolutions under deterministic cuDNN)
+    repeats bit for bit on the card."""
+    import numpy as np
+    import torch
+    from oktopk_tpu_torch.models import create_model
+    from oktopk_tpu_torch.models.registry import IMAGE_SHAPES
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    for dnn in ZOO:
+        torch.manual_seed(SEED)
+        cpu = create_model(dnn)
+        models = {"cpu": cpu}
+        for where, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+            m = create_model(dnn)
+            m.load_state_dict(cpu.state_dict())
+            models[f"{where}_{dtype}"] = m.to(where, dtype)
+        rng = np.random.RandomState(SEED)
+        x = torch.from_numpy(rng.randn(2, *IMAGE_SHAPES[dnn])
+                             .astype(np.float32))
+        classes = 1000 if dnn == "resnet50" else 10
+        w = torch.from_numpy(rng.randn(2, classes).astype(np.float32))
+        res = {}
+        for where, m in models.items():
+            p = m.Dense_0.weight
+            y = m(x.to(p.device, p.dtype), train=True)
+            (y * w.to(p.device, p.dtype)).sum().backward()
+            res[where] = (y.detach().cpu().double(),
+                          flat_grad(m).cpu().double())
+        (yc, gc), (yg, gg), (y64, g64) = res.values()
+        err = {"n": int(g64.numel()),
+               "logits_largest": float(y64.abs().max()),
+               "grad_largest": float(g64.abs().max())}
+        for nm, (a, b) in {"card_vs_cpu": ((yg, gg), (yc, gc)),
+                           "card_vs_f64": ((yg, gg), (y64, g64)),
+                           "cpu_vs_f64": ((yc, gc), (y64, g64))}.items():
+            err[nm] = {"logits": float((a[0] - b[0]).abs().max()),
+                       "grad": float((a[1] - b[1]).abs().max())}
+        out[dnn] = err
+        emit({"phase": "zoo_parity", "model": dnn, **err})
+        if not (torch.isfinite(yg).all() and torch.isfinite(gg).all()):
+            raise AssertionError(f"zoo_parity {dnn}: non-finite output")
+        for f in ("logits", "grad"):
+            limit = (ZOO_ERR_FACTOR * err["cpu_vs_f64"][f]
+                     + ZOO_ERR_FLOOR * err[f"{f}_largest"])
+            if err["card_vs_f64"][f] > limit:
+                raise AssertionError(f"zoo_parity {dnn} {f}: the card is "
+                                     f"{err['card_vs_f64'][f]} off float64, "
+                                     f"over {limit}: {err}")
+        del models, cpu
+    torch.cuda.empty_cache()
+    m = create_model("resnext29").to(dev)
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+
+    def fwd_bwd():
+        for p in m.parameters():
+            p.grad = None
+        m(x.to(dev), train=True, update_stats=False).sum().backward()
+        return flat_grad(m).clone()
+
+    repeats = bool(torch.equal(fwd_bwd(), fwd_bwd()))
+    if not repeats:
+        raise AssertionError("zoo_parity: resnext29's fwd/bwd does not "
+                             "repeat under deterministic cuDNN")
+    emit({"phase": "zoo_parity_summary", "models": len(out),
+          "tolerance": {"factor_of_cpu_float32_error": ZOO_ERR_FACTOR,
+                        "floor_of_largest": ZOO_ERR_FLOOR},
+          "resnext29_grouped_fwd_bwd_repeats": repeats})
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+RESNET50_ARGV = ["--dnn", "resnet50", "--dataset", "imagenet",
+                 "--batch-size", "32", "--density", "0.02",
+                 "--warmup-steps", "1"]
+
+
+def phase_resnet50_trainer(dev, steps: int = 5):
+    """The slice at full width through ``main_trainer.build_trainer``
+    (``--dnn resnet50 --dataset imagenet --batch-size 32 --num-workers 4
+    --density 0.02``): P = 4 workers stacked on the card, global batch
+    128 of 224 x 224 images (synthetic: no ImageNet file), SGD, bf16
+    wire; one dense warmup step, four oktopk steps; run twice from one
+    seed, with the verdict whether losses, volumes and parameters repeat
+    bit for bit; then one more oktopk step under the profiler (launches
+    and device time a step). Returns the first run's launches."""
+    runs = [trainer_run(dev, RESNET50_ARGV, steps, "resnet50_trainer",
+                        profile=i == 0) for i in range(2)]
+    first = runs[0]
+    if first["n"] != N_RESNET50:
+        raise AssertionError(f"resnet50 has {first['n']} parameters")
+    sparse = first["recs"][1:]
+    for r in sparse:
+        if r["comm_volume"] <= 0:
+            raise AssertionError(f"resnet50_trainer step {r['step']}: "
+                                 "volume 0")
+    assert_launched(first["launches"], SPARSE_KERNELS, "resnet50_trainer")
+    keys = ("loss", "comm_volume", "wire_bytes", "local_k", "global_k")
+    differ = [{"step": a["step"], **{k: [a[k], b[k]] for k in keys
+                                     if a[k] != b[k]}}
+              for a, b in zip(first["recs"], runs[1]["recs"])
+              if any(a[k] != b[k] for k in keys)]
+    same = not differ and first["params_sha1"] == runs[1]["params_sha1"]
+    emit({"phase": "resnet50_trainer_summary", "model": "resnet50",
+          "n": first["n"], "k": first["k"], "workers": 4,
+          "batch_per_worker": 32, "image": 224, "density": 0.02,
+          "steps": steps, "build_s": first["build_s"],
+          "losses": [r["loss"] for r in first["recs"]],
+          "volume": [r["comm_volume"] for r in first["recs"]],
+          "local_k": [r["local_k"] for r in first["recs"]],
+          "global_k": [r["global_k"] for r in first["recs"]],
+          "wire_bytes": [r["wire_bytes"] for r in first["recs"]],
+          "step_ms": [r["ms"] for r in first["recs"]],
+          "oktopk_steps": split_summary(sparse),
+          "predicted_steps": split_summary(sparse[1:]),
+          "dense_step": {k: first["recs"][0][k] for k in (
+              "ms", "fwd_bwd_ms", "collective_ms", "optimizer_ms")},
+          "calls_per_oktopk_step": [
+              {"fused_select": r["fused_select_calls"],
+               "compaction": r["compaction_calls"]} for r in sparse],
+          "profiled_step": first["profiled"],
+          "launches": first["launches"],
+          "max_memory_allocated_gb": first["max_memory_allocated_gb"],
+          "second_run_step_ms": [r["ms"] for r in runs[1]["recs"]],
+          "repeats_bit_equal": {
+              "losses_and_volumes": not differ,
+              "params": first["params_sha1"] == runs[1]["params_sha1"]},
+          "differ": differ})
+    if not same:
+        raise AssertionError(f"resnet50_trainer: two runs from one seed "
+                             f"differ: {differ}")
+    return first["launches"]
+
+
+def write_cifar10(root: str, n: int = 64, seed: int = 0) -> None:
+    """A small ``cifar-10-batches-py`` (torchvision's pickle layout)."""
+    import pickle
+
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        d = {b"data": rng.randint(0, 256, (n, 3072), dtype=np.uint8),
+             b"labels": rng.randint(0, 10, n).tolist()}
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump(d, f)
+
+
+def write_mnist(root: str, n: int = 96, seed: int = 0) -> None:
+    """Small MNIST idx files."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    for prefix in ("train", "t10k"):
+        with open(os.path.join(root, f"{prefix}-images-idx3-ubyte"),
+                  "wb") as f:
+            f.write(b"\0" * 16 + rng.randint(0, 256, n * 784,
+                                            dtype=np.uint8).tobytes())
+        with open(os.path.join(root, f"{prefix}-labels-idx1-ubyte"),
+                  "wb") as f:
+            f.write(b"\0" * 8 + rng.randint(0, 10, n,
+                                           dtype=np.uint8).tobytes())
+
+
+def phase_loader_cli(dev, steps: int = 3):
+    """``main_trainer`` on files the script writes into a temporary
+    directory: ``--dnn resnet20 --dataset cifar10 --data-dir ...`` and
+    ``--dnn mnistnet --dataset mnist``, P = 4 stacked on the card, three
+    steps each (one dense warmup step), ``meta["synthetic"]`` False; then
+    ``--dataset imagenet`` where there is no file: it logs the synthetic
+    warning and trains one step."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    from oktopk_tpu_torch.train import main_trainer
+
+    root = tempfile.mkdtemp(prefix="oktopk_loader_cli_")
+    try:
+        write_cifar10(root)
+        write_mnist(root)
+        out = {}
+        for dnn, dataset in (("resnet20", "cifar10"), ("mnistnet", "mnist")):
+            args = main_trainer.parse_args([
+                "--dnn", dnn, "--dataset", dataset, "--data-dir", root,
+                "--device", str(dev), "--num-workers", "4", "--batch-size",
+                "4", "--max-iters", str(steps), "--warmup-steps", "1",
+                "--seed", str(SEED)])
+            trainer, data, _, meta = main_trainer.build_trainer(args)
+            if meta["synthetic"]:
+                raise AssertionError(f"loader_cli {dataset}: synthetic data "
+                                     f"with the files in {root}")
+            m = trainer.train(data, steps, log_every=steps)
+            if not math.isfinite(m["loss"]):
+                raise AssertionError(f"loader_cli {dnn}: loss {m['loss']}")
+            out[dataset] = {"dnn": dnn, "meta": meta, "loss": m["loss"],
+                            "comm_volume": m["comm_volume"]}
+            del trainer
+        empty = os.path.join(root, "no_imagenet")
+        os.makedirs(empty)
+        records = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = records.append
+        logger = logging.getLogger("oktopk_tpu_torch")
+        logger.addHandler(handler)
+        try:
+            rc = main_trainer.main([
+                "--dnn", "resnet50", "--dataset", "imagenet", "--data-dir",
+                empty, "--device", str(dev), "--num-workers", "1",
+                "--batch-size", "2", "--max-iters", "1", "--warmup-steps",
+                "1"])
+        finally:
+            logger.removeHandler(handler)
+        warned = [r.getMessage() for r in records
+                  if "using synthetic data" in r.getMessage()]
+        if rc != 0 or not warned:
+            raise AssertionError(f"loader_cli imagenet without a file: rc "
+                                 f"{rc}, warnings {warned}")
+        out["imagenet"] = {"synthetic_warning": warned[0]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "loader_cli", **out})
+    return out
+
+
+def kernel_line(timings, errs, by_path, edge_err, big, tf_timings):
     """The ``{"kernels": [...]}`` entries at the main path's shapes (the
     compaction's phase-(a) form; ``forms`` has every form), then each
     larger model's forms at its n (``big``: {path: (n, timings, errs)}):
@@ -2330,10 +2730,30 @@ def kernel_line(timings, errs, by_path, edge_err, big):
                   **times(timings[nm])}
              for nm in ("pack_a", "select_b", "select_local",
                         "select_nonzero", "pack_static")}
-    def launches(kernel):
-        return {"launches": by_path["oktopk"][kernel],
-                "launches_by_path": {p: d[kernel]
+    def launches(kernel, path="oktopk"):
+        return {"launches": by_path[path][kernel],
+                "launches_by_path": {p: d.get(kernel, 0)
                                      for p, d in by_path.items()}}
+
+    threefry = [
+        {"name": form, "route": "cuda",
+         "source": "oktopk_tpu_torch/csrc/threefry.cu",
+         "replaces": "oktopk_tpu/models/bert.py:69",
+         "replaces_note": "no Pallas kernel: XLA's threefry behind flax "
+                          "nn.Dropout (jax.random.bernoulli)",
+         **launches("threefry", "bert"), "max_abs_err": 0.0,
+         "bit_equal": True, "bound_by": "operations",
+         "shape": tf_timings[form]["shape"],
+         "ms": tf_timings[form]["kernel"]["call_ms"],
+         "device_ms": tf_timings[form]["kernel"]["device_ms"],
+         "launches_per_call":
+             tf_timings[form]["kernel"]["launches_per_call"],
+         "plain_ms": tf_timings[form]["plain"]["call_ms"],
+         "plain_device_ms": tf_timings[form]["plain"]["device_ms"],
+         "bound_ms": tf_timings[form]["bound_ms"],
+         "library_ms": None, "library_device_ms": None,
+         "device_ops": tf_timings[form]["kernel"]["device_ops"]}
+        for form in THREEFRY_FORMS]
 
     return [
         {"name": "fused_select", "route": "cuda",
@@ -2368,7 +2788,7 @@ def kernel_line(timings, errs, by_path, edge_err, big):
              "oktopk_tpu/ops/compaction.py:160"),
             (f"{prefix}_select_b", "compaction",
              "oktopk_tpu/ops/compaction.py:160"))
-        if form in timings_n]
+        if form in timings_n] + threefry
 
 
 def main() -> int:
@@ -2393,6 +2813,7 @@ def main() -> int:
     phase_build()
     timings, errs = phase_kernels(dev)
     edge_err = phase_edges(dev)
+    tf_timings = phase_threefry(dev)
     big = {"bert": ("bert", N_BERT) + phase_big_kernels(
         dev, "bert_kernels", "bert", N_BERT, 0.01, 2.576, SEED + 4)}
     big["lstman4"] = ("lstman4", N_LSTMAN4) + phase_big_kernels(
@@ -2401,6 +2822,9 @@ def main() -> int:
     big["hier"] = ("hierarchical", N_VGG16) + phase_big_kernels(
         dev, "hier_kernels", "hier", N_VGG16, 0.02, 2.326, SEED + 6, P=2,
         sweep=False)
+    big["resnet50"] = ("resnet50", N_RESNET50) + phase_big_kernels(
+        dev, "resnet50_kernels", "resnet50", N_RESNET50, 0.02, 2.326,
+        SEED + 7)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
     phase_hier_allreduce(dev)
@@ -2410,8 +2834,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
     phase_lstman4_parity(dev)
+    phase_zoo_parity(dev)
     by_path["lstman4"] = phase_lstman4_trainer(dev)
     by_path["lstm (PTB)"] = phase_lstm_trainer(dev)
+    by_path["resnet50"] = phase_resnet50_trainer(dev)
+    phase_loader_cli(dev)
     by_path["hierarchical"] = phase_hierarchical(dev)
     phase_dist_allreduce(dev)
     by_path["hierarchical, one worker per process (rank 0 of 4)"] = \
@@ -2420,7 +2847,8 @@ def main() -> int:
         phase_dist_trainer(dev)
     by_path["bert, one worker per process (rank 0 of 4)"] = \
         phase_dist_bert(dev)
-    kernels = kernel_line(timings, errs, by_path, edge_err, big)
+    kernels = kernel_line(timings, errs, by_path, edge_err, big,
+                          tf_timings)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

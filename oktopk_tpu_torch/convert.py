@@ -1,10 +1,16 @@
 """Map the flax model variables onto the port's ``state_dict`` and back.
 
-``from_jax_params`` takes the flax ``params`` (and, for VGG,
-``batch_stats``) trees as nested dicts of numpy arrays and returns a
-``state_dict``; ``to_jax_params`` is its inverse (it also maps gradients,
-for the flat-gradient comparison). Both dispatch on the family: a BERT
-pretraining tree has the top-level keys ``bert``, ``mlm_*`` and ``nsp``.
+``from_jax_params`` takes the flax ``params`` (and ``batch_stats``)
+trees as nested dicts of numpy arrays and returns a ``state_dict``;
+``to_jax_params`` is its inverse (it also maps gradients, for the
+flat-gradient comparison). Both dispatch on the ``model`` they are
+given (``Trainer.load_jax_variables`` gives its own): a
+``BertForPreTraining``, a ``FlaxNamedModule`` or a VGG. A flax tree alone
+cannot say which: AlexNet's roots (``Conv_*``, ``Dense_0``) are also
+VGG's. Without a model, a BERT tree is told by its ``bert`` root, a
+DeepSpeech or PTB tree by ``BatchRNN_0`` or ``Embed_0``, and the rest is
+taken for VGG; a state_dict by its keys (VGG's ``convs.``, ``bns.``,
+``dense.``; BERT's roots; a flax-named model's capitalised flax names).
 
 - VGG (``models.vgg.VGG``): conv kernels HWIO -> OIHW, the Dense kernel
   [in, out] -> the Linear weight [out, in], BatchNorm ``scale``/``bias``
@@ -13,13 +19,11 @@ pretraining tree has the top-level keys ``bert``, ``mlm_*`` and ``nsp``.
   ``state_dict`` key and layout (``models.bert.torch_key``): Dense
   kernels transposed, ``DenseGeneral`` kernels, embedding tables and the
   rest as they are;
-- DeepSpeech and the PTB LSTM (``models.deepspeech``, ``models.lstm``),
-  whose submodules carry the flax names: each flax path of ``params``
-  and of ``batch_stats`` (DeepSpeech's top-level ``BatchNorm_0..2`` and
-  ``BatchRNN_1..4/BatchNorm_0``) is one ``state_dict`` key
+- the flax-named models (DeepSpeech, the PTB LSTM and the CNN zoo,
+  ``models.layout.FlaxNamedModule``): each flax path of ``params`` and
+  of ``batch_stats`` is one ``state_dict`` key
   (``models.layout.flax_named_key``): conv kernels HWIO -> OIHW, Dense
-  and LSTM kernels transposed, the rest as they are. Their trees have a
-  top-level ``BatchRNN_0`` or ``Embed_0``.
+  and LSTM kernels transposed, the rest as they are.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from oktopk_tpu_torch.models.bert import flax_path, torch_key
-from oktopk_tpu_torch.models.layout import (flax_named_key,
+from oktopk_tpu_torch.models.bert import (BertForPreTraining, flax_path,
+                                          torch_key)
+from oktopk_tpu_torch.models.layout import (FlaxNamedModule, flax_named_key,
                                             flax_named_path,
                                             from_jax_layout, to_jax_layout)
 
@@ -58,9 +63,20 @@ def _is_flax_named_tree(params_np) -> bool:
     return any(r in params_np for r in _FLAX_NAMED_ROOTS)
 
 
+_FLAX_NAME = re.compile(r"^[A-Z][A-Za-z]*_\d+$")
+
+
 def _is_flax_named_state(tensors) -> bool:
-    return any(k.split(".")[0] in _FLAX_NAMED_ROOTS
-               or k.startswith("OptimizedLSTMCell_") for k in tensors)
+    return any(_FLAX_NAME.match(k.split(".")[0]) for k in tensors)
+
+
+def _family(model, tree_says: str) -> str:
+    """"bert", "flax_named" or "vgg": the model's, else the tree's."""
+    if model is None:
+        return tree_says
+    if isinstance(model, BertForPreTraining):
+        return "bert"
+    return "flax_named" if isinstance(model, FlaxNamedModule) else "vgg"
 
 
 def _walk(tree, prefix=""):
@@ -133,10 +149,14 @@ def bert_to_jax_params(tensors: Dict[str, torch.Tensor]) -> dict:
     return params
 
 
-def from_jax_params(params_np, batch_stats_np=None) -> Dict[str, torch.Tensor]:
-    if _is_bert_tree(params_np):
+def from_jax_params(params_np, batch_stats_np=None,
+                    model=None) -> Dict[str, torch.Tensor]:
+    family = _family(model, "bert" if _is_bert_tree(params_np) else
+                     "flax_named" if _is_flax_named_tree(params_np)
+                     else "vgg")
+    if family == "bert":
         return bert_from_jax_params(params_np)
-    if _is_flax_named_tree(params_np):
+    if family == "flax_named":
         return flax_named_from_jax(params_np, batch_stats_np)
     sd = {}
     for mod, leaves in params_np.items():
@@ -168,14 +188,18 @@ def from_jax_params(params_np, batch_stats_np=None) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def to_jax_params(tensors: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
+def to_jax_params(tensors: Dict[str, torch.Tensor],
+                  model=None) -> Tuple[dict, dict]:
     """Inverse of ``from_jax_params``: (params, batch_stats) as nested
     dicts of numpy arrays in the flax layout (``batch_stats`` empty for
     BERT and the PTB LSTM). Keys absent from ``tensors`` are skipped, so a dict of
     gradients maps too."""
-    if _is_bert_state(tensors):
+    family = _family(model, "bert" if _is_bert_state(tensors) else
+                     "flax_named" if _is_flax_named_state(tensors)
+                     else "vgg")
+    if family == "bert":
         return bert_to_jax_params(tensors), {}
-    if _is_flax_named_state(tensors):
+    if family == "flax_named":
         return flax_named_to_jax(tensors)
     params, stats = {}, {}
     for key, t in tensors.items():

@@ -1,7 +1,7 @@
 """Deterministic synthetic batches.
 
-Counterpart of the CIFAR, PTB, BERT and AN4 branches of
-``oktopk_tpu/data/synthetic.py::synthetic_batch`` (:16-88): made with
+Counterpart of ``oktopk_tpu/data/synthetic.py::synthetic_batch``
+(:13-89), every branch: made with
 numpy from a ``RandomState``, with the same draws in the same order, so
 both packages see the same batch from the same seed. The BERT branch is
 the synthetic MLM/NSP data the JAX package falls back to without
@@ -12,7 +12,10 @@ chain over a fixed successor table (drawn from its own
 the AN4 branch tone-codes each character as 8 frames of energy in its
 own 5-bin band over a noise floor. The JAX package falls back to both
 without the PTB corpus or the AN4 manifests
-(``oktopk_tpu/data/loaders.py:283-284``).
+(``oktopk_tpu/data/loaders.py:283-284``). Images are MNIST's [28, 28, 1]
+for ``mnistnet``, ImageNet's [224, 224, 3] and 1,000 classes for
+``resnet50``, and CIFAR's [32, 32, 3] for every other name, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -70,9 +73,15 @@ def synthetic_batch(dnn: str, batch_size: int, rng: np.random.RandomState,
                 "spect_lengths": (label_lengths * fpc).astype(np.int32),
                 "labels": labels,
                 "label_lengths": label_lengths}
-    if not dnn.startswith("vgg"):
-        raise NotImplementedError(
-            f"synthetic data for {dnn!r} is not ported yet (ROADMAP.md)")
+    if dnn == "mnistnet":
+        return {"image": rng.randn(batch_size, 28, 28, 1).astype(np.float32),
+                "label": rng.randint(0, 10, size=(batch_size,))
+                .astype(np.int32)}
+    if dnn == "resnet50":
+        return {"image": rng.randn(batch_size, 224, 224, 3)
+                .astype(np.float32),
+                "label": rng.randint(0, 1000, size=(batch_size,))
+                .astype(np.int32)}
     return {"image": rng.randn(batch_size, 32, 32, 3).astype(np.float32),
             "label": rng.randint(0, 10, size=(batch_size,)).astype(np.int32)}
 

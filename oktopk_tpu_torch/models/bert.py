@@ -11,18 +11,20 @@ Numerics follow flax, not ``torch.nn``'s defaults:
   biases [heads, head_dim], kept in the flax shapes; the query scaled by
   1/sqrt(head_dim) before the product; masked logits filled with
   ``finfo(float32).min`` (not -10000); softmax in float32; dropout on the
-  weights with one mask broadcast over batch and heads (flax multiplies
-  by keep/keep_prob there, ``dropout`` divides the kept values: the
-  draws differ from JAX's anyway); an out kernel
+  weights with one mask broadcast over batch and heads, multiplied by
+  mask / keep_prob as flax does (``attention_dropout``); an out kernel
   [heads, head_dim, hidden]. Written as ``torch.matmul`` and softmax
   (``scaled_dot_product_attention`` masks and scales differently);
 - ``gelu`` is exact (erf), LayerNorm uses flax's fast variance
   E[x^2] - E[x]^2 clipped at 0, eps 1e-12, written out by hand;
 - the MLM decoder is tied to the word-embedding table (plus
   ``mlm_bias``), so that table gets gradient from both uses;
-- dropout (``models/layers.py``) draws its masks from an explicit
-  ``torch.Generator`` passed to ``forward``; it is off for
-  ``train=False`` or ``dropout=0.0``.
+- dropout draws flax's own masks (``models/layers.py``): ``forward``
+  takes the apply's dropout key ``rng``, and each site, in the order of
+  ``dropout_sites(cfg)`` (the flax scope path and ``make_rng`` count:
+  the embeddings' ``Dropout_0``, then per layer the attention's draw and
+  the layer's ``Dropout_0`` twice), draws under its own key; it is off
+  for ``train=False`` or ``dropout=0.0``.
 
 ``init_weights`` draws flax's default distributions: lecun-normal
 (truncated normal, std sqrt(1/fan_in)/0.8796) kernels, zero biases,
@@ -40,7 +42,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import dropout
+from oktopk_tpu_torch.models.layers import (SiteKeys, attention_dropout,
+                                            dropout, site_hashes)
 
 # stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -134,7 +137,7 @@ class SelfAttention(nn.Module):
         self.value = DenseGeneral((h,), (nh, hd))
         self.out = DenseGeneral((nh, hd), (h,))
 
-    def forward(self, x, mask, train: bool, generator):
+    def forward(self, x, mask, train: bool, keys):
         # [B, T, heads, head_dim] -> [B, heads, T, head_dim]
         q = self.query(x).transpose(1, 2)
         k = self.key(x).transpose(1, 2)
@@ -146,9 +149,7 @@ class SelfAttention(nn.Module):
                              torch.full((), big_neg, dtype=logits.dtype,
                                         device=logits.device))
         w = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
-        # one mask over (Tq, Tk), broadcast over batch and heads
-        w = dropout(w, self.rate, train, generator,
-                    shape=(1, 1) + tuple(w.shape[-2:]))
+        w = attention_dropout(w, self.rate, train, keys)
         y = torch.matmul(w, v).transpose(1, 2)            # [B, T, h, hd]
         return self.out(y)
 
@@ -163,14 +164,14 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
         self.LayerNorm_0 = LayerNorm(h, cfg.layer_norm_eps)
 
-    def forward(self, input_ids, token_type_ids, train: bool, generator):
+    def forward(self, input_ids, token_type_ids, train: bool, keys):
         positions = torch.arange(input_ids.shape[1],
                                  device=input_ids.device)[None, :]
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(positions)
              + self.token_type_embeddings(token_type_ids))
         x = self.LayerNorm_0(x)
-        return dropout(x, self.rate, train, generator)
+        return dropout(x, self.rate, train, keys)
 
 
 class BertLayer(nn.Module):
@@ -184,12 +185,12 @@ class BertLayer(nn.Module):
         self.output = nn.Linear(cfg.intermediate_size, h)
         self.output_ln = LayerNorm(h, eps)
 
-    def forward(self, x, mask, train: bool, generator):
-        y = self.attention(x, mask, train, generator)
-        x = self.attention_ln(x + dropout(y, self.rate, train, generator))
+    def forward(self, x, mask, train: bool, keys):
+        y = self.attention(x, mask, train, keys)
+        x = self.attention_ln(x + dropout(y, self.rate, train, keys))
         h = F.gelu(self.intermediate(x), approximate="none")
         h = self.output(h)
-        return self.output_ln(x + dropout(h, self.rate, train, generator))
+        return self.output_ln(x + dropout(h, self.rate, train, keys))
 
 
 class BertEncoder(nn.Module):
@@ -198,9 +199,9 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList(BertLayer(cfg)
                                     for _ in range(cfg.num_layers))
 
-    def forward(self, x, mask, train: bool, generator):
+    def forward(self, x, mask, train: bool, keys):
         for layer in self.layers:
-            x = layer(x, mask, train, generator)
+            x = layer(x, mask, train, keys)
         return x
 
 
@@ -212,17 +213,28 @@ class BertModel(nn.Module):
         self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                train: bool = True, generator=None):
+                train: bool = True, keys=None):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         # boolean attend-mask over the keys, [B, 1, 1, Tk]
         mask = attention_mask[:, None, None, :].to(torch.bool)
-        x = self.embeddings(input_ids, token_type_ids, train, generator)
-        x = self.encoder(x, mask, train, generator)
+        x = self.embeddings(input_ids, token_type_ids, train, keys)
+        x = self.encoder(x, mask, train, keys)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled
+
+
+def dropout_sites(cfg: BertConfig):
+    """flax's ``make_rng("dropout")`` suffixes of one pretraining apply,
+    in call order."""
+    sites = [("bert", "embeddings", "Dropout_0", 1)]
+    for i in range(cfg.num_layers):
+        layer = ("bert", "encoder", f"layer_{i}")
+        sites += [layer + ("attention", 1), layer + ("Dropout_0", 1),
+                  layer + ("Dropout_0", 2)]
+    return sites
 
 
 class BertForPreTraining(nn.Module):
@@ -239,11 +251,16 @@ class BertForPreTraining(nn.Module):
         self.mlm_ln = LayerNorm(h, cfg.layer_norm_eps)
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
         self.nsp = nn.Linear(h, 2)
+        self.site_hashes = site_hashes(dropout_sites(cfg))
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                train: bool = True, generator=None):
+                train: bool = True, rng=None):
+        """``rng``: the apply's dropout key ([2] uint32), needed in train
+        mode with dropout."""
+        keys = (SiteKeys(rng, self.site_hashes)
+                if train and self.cfg.dropout > 0.0 else None)
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask,
-                                train, generator)
+                                train, keys)
         h = F.gelu(self.mlm_dense(seq), approximate="none")
         h = self.mlm_ln(h)
         table = self.bert.embeddings.word_embeddings.weight

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from oktopk_tpu_torch.models.layers import BatchNorm
-from oktopk_tpu_torch.models.layout import flax_named_leaves
+from oktopk_tpu_torch.models.layout import FlaxNamedModule
 from oktopk_tpu_torch.models.rnn import LSTMCell, lstm
 
 # Net time-axis downsampling of the conv frontend: T -> ceil(T / 2)
@@ -59,7 +59,7 @@ class BatchRNN(nn.Module):
         return lstm(x, (self.OptimizedLSTMCell_0, self.OptimizedLSTMCell_1))
 
 
-class DeepSpeech(nn.Module):
+class DeepSpeech(FlaxNamedModule):
     """spect [B, freq, time, 1] -> logits [B, T', num_classes]; 161
     frequency bins (AN4's spectrograms)."""
 
@@ -107,6 +107,3 @@ class DeepSpeech(nn.Module):
         for m in self.modules():
             if isinstance(m, LSTMCell):
                 m.init_weights(generator)
-
-    def jax_leaves(self):
-        return flax_named_leaves(self)

@@ -13,7 +13,9 @@ reference's. Layouts:
   [in, out];
 - ``"oihw"``: ``nn.Conv2d`` weight OIHW <-> flax Conv kernel HWIO.
 
-DeepSpeech and the PTB LSTM name their submodules after the flax modules;
+DeepSpeech, the PTB LSTM and the CNN zoo (the CIFAR ResNets, ResNet-50,
+PreResNet, ResNeXt, DenseNet, AlexNet, CaffeCifar, MnistNet) name their
+submodules after the flax modules and derive from ``FlaxNamedModule``;
 ``flax_named_key``, ``flax_named_path`` and ``flax_named_leaves`` map
 their state_dict keys, flax paths and leaves onto each other.
 """
@@ -21,6 +23,7 @@ their state_dict keys, flax paths and leaves onto each other.
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
 
 
 def to_jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
@@ -96,3 +99,12 @@ def flax_named_leaves(module):
         leaves.append((tuple(path.split("/")), path, p, layout))
     leaves.sort(key=lambda t: t[0])
     return [(path, p, layout) for _, path, p, layout in leaves]
+
+
+class FlaxNamedModule(nn.Module):
+    """A model whose submodules carry the flax names: its leaves come from
+    its state_dict keys (``flax_named_leaves``), and ``convert.py`` maps
+    its flax trees by name."""
+
+    def jax_leaves(self):
+        return flax_named_leaves(self)

@@ -8,8 +8,10 @@ names (``Embed_0``, ``OptimizedLSTMCell_0``, ``_1``, ``Dense_0``;
 returns the logits only, as the JAX Trainer uses its model
 (``oktopk_tpu/train/trainer.py:599-603`` ignores the returned carry);
 the reference's carry across iterations is not what the JAX package
-does. Dropout masks come from the ``generator`` the caller passes (one
-per worker, ``train/trainer.py``).
+does. Dropout draws flax's masks under the apply's dropout key ``rng``:
+the one ``Dropout_0`` module runs after the embedding and after each
+layer, so its sites are ``("Dropout_0", 1)``, ``2``, ``3``
+(``dropout_sites``).
 """
 
 from __future__ import annotations
@@ -19,12 +21,17 @@ import math
 import torch
 import torch.nn as nn
 
-from oktopk_tpu_torch.models.layers import dropout
-from oktopk_tpu_torch.models.layout import flax_named_leaves
+from oktopk_tpu_torch.models.layers import SiteKeys, dropout, site_hashes
+from oktopk_tpu_torch.models.layout import FlaxNamedModule
 from oktopk_tpu_torch.models.rnn import LSTMCell, lstm
 
 
-class PTBLSTM(nn.Module):
+def dropout_sites(num_layers: int = 2):
+    """flax's ``make_rng("dropout")`` suffixes of one apply, in order."""
+    return [("Dropout_0", i + 1) for i in range(num_layers + 1)]
+
+
+class PTBLSTM(FlaxNamedModule):
     """tokens [B, T] -> logits [B, T, vocab_size]."""
 
     def __init__(self, vocab_size: int = 10000, hidden_size: int = 1500,
@@ -37,12 +44,15 @@ class PTBLSTM(nn.Module):
             self.add_module(f"OptimizedLSTMCell_{i}",
                             LSTMCell(hidden_size, hidden_size))
         self.Dense_0 = nn.Linear(hidden_size, vocab_size)
+        self.site_hashes = site_hashes(dropout_sites(num_layers))
 
-    def forward(self, tokens, train: bool = True, generator=None):
-        x = dropout(self.Embed_0(tokens.long()), self.rate, train, generator)
+    def forward(self, tokens, train: bool = True, rng=None):
+        keys = (SiteKeys(rng, self.site_hashes)
+                if train and self.rate > 0.0 else None)
+        x = dropout(self.Embed_0(tokens.long()), self.rate, train, keys)
         for i in range(self.num_layers):
             x = lstm(x, (self.get_submodule(f"OptimizedLSTMCell_{i}"),))
-            x = dropout(x, self.rate, train, generator)
+            x = dropout(x, self.rate, train, keys)
         return self.Dense_0(x).to(torch.float32)
 
     @torch.no_grad()
@@ -60,6 +70,3 @@ class PTBLSTM(nn.Module):
         for i in range(self.num_layers):
             self.get_submodule(f"OptimizedLSTMCell_{i}").init_weights(
                 generator)
-
-    def jax_leaves(self):
-        return flax_named_leaves(self)

@@ -1,0 +1,34 @@
+"""The small MNIST CNN: two 5x5 conv-pool stages, a 512-wide dense layer
+and the head.
+
+Counterpart of ``oktopk_tpu/models/mnistnet.py``, with the flax names
+(``models/layout.py``): ``Conv_0..1`` (with biases) and ``Dense_0..1``.
+The head flattens NHWC. Input NHWC [B, 28, 28, 1], NCHW inside.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from oktopk_tpu_torch.models.layers import flatten_nhwc
+from oktopk_tpu_torch.models.layout import FlaxNamedModule
+
+
+class MnistNet(FlaxNamedModule):
+    """images NHWC [B, 28, 28, 1] -> logits [B, num_classes]."""
+
+    def __init__(self, num_classes: int = 10):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(1, 32, 5, 1, 2)
+        self.Conv_1 = nn.Conv2d(32, 64, 5, 1, 2)
+        self.Dense_0 = nn.Linear(64 * 7 * 7, 512)
+        self.Dense_1 = nn.Linear(512, num_classes)
+
+    def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
+        x = x_nhwc.permute(0, 3, 1, 2)
+        x = F.max_pool2d(F.relu(self.Conv_0(x)), 2, 2)
+        x = F.max_pool2d(F.relu(self.Conv_1(x)), 2, 2)
+        x = F.relu(self.Dense_0(flatten_nhwc(x)))
+        return self.Dense_1(x).to(torch.float32)

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import BatchNorm
+from oktopk_tpu_torch.models.layers import BatchNorm, flatten_nhwc
 
 CFG = {
     "vgg11": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
@@ -64,7 +64,7 @@ class VGG(nn.Module):
                 x = self.bns[i](x, train=train, update_stats=update_stats)
                 x = F.relu(x)
                 i += 1
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = flatten_nhwc(x)
         return self.dense(x).to(torch.float32)
 
     def jax_leaves(self) -> List[Tuple[str, nn.Parameter, str]]:

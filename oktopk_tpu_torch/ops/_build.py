@@ -34,6 +34,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "compaction": "compaction.cu",
     "fused_select": "fused_select.cu",
+    "threefry": "threefry.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "fused_select": ("oktopk_fused_select", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int64, _C.c_void_p,
         _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+    "threefry": ("oktopk_keep_mask", [
+        _C.c_uint32, _C.c_uint32, _C.c_uint64, _C.c_int64, _C.c_float,
+        _C.c_void_p, _C.c_void_p]),
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,21 @@
-"""CLI driver for data-parallel training with a sparse allreduce: VGG on
-CIFAR-10, DeepSpeech on AN4 (CTC) and the PTB LSTM.
+"""Command-line entry point for data-parallel training with a sparse
+allreduce: the CNN zoo on CIFAR-10, MNIST and ImageNet, DeepSpeech on
+AN4 (CTC) and the PTB LSTM.
 
 Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 :25-50, :130-135 that the port serves, under the same names
 (``--compressor`` takes every registry name but ``hierarchical``), plus
 ``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
-``cifar10`` (``--dnn vgg*``), ``an4`` (``lstman4``, ``lstman4_tiny``) or
-``ptb`` (``lstm``, ``lstm_tiny``); the data is the synthetic iterator of
-the model's family at its default sequence lengths (201 spectrogram
-frames, 35 tokens), 50,000 examples an epoch, as the JAX package's
-``make_dataset`` falls back to without files (the real loaders are not
-ported yet, ROADMAP.md). Any other dataset raises.
+``cifar10``, ``mnist`` or ``imagenet`` for the image models, ``an4``
+(``lstman4``, ``lstman4_tiny``) or ``ptb`` (``lstm``, ``lstm_tiny``).
+The batches come from ``data.make_dataset`` and the files under
+``--data-dir`` (default ``$OKTOPK_DATA_DIR``, else ``./data``): the
+CIFAR-10 pickle batches, the MNIST idx files, the ImageNet HDF5 file or
+the PTB text; without them, the synthetic iterator of the model's family
+(201 spectrogram frames, 35 tokens), with a warning, as the JAX
+package's command line falls back; the AN4 audio loader is not ported yet (ROADMAP.md). An
+epoch is the dataset's examples (50,000 for the synthetic data) over the
+global batch. Any other dataset raises.
 
 One process holds its P workers stacked on its device
 (``--num-workers``, default 1). A multi-process launch (``torchrun``,
@@ -25,6 +30,10 @@ Examples:
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
         --batch-size 16 --num-workers 4 --density 0.02 --max-iters 20 \\
         --compressor topkA --nsteps-update 2 --grad-clip 5.0
+    python -m oktopk_tpu_torch.train.main_trainer --dnn resnet50 \\
+        --dataset imagenet --batch-size 32 --num-workers 4 --density 0.02
+    python -m oktopk_tpu_torch.train.main_trainer --dnn resnet20 \\
+        --dataset cifar10 --data-dir /path/to/data --num-workers 4
     python -m oktopk_tpu_torch.train.main_trainer --dnn lstman4 \\
         --dataset an4 --batch-size 2 --num-workers 4 --grad-clip 400 \\
         --lr 3e-4 --max-iters 20
@@ -43,18 +52,20 @@ from oktopk_tpu_torch.collectives.registry import (
     TWO_LEVEL_ONLY,
     list_algorithms,
 )
+from oktopk_tpu_torch.data.loaders import SYNTHETIC_EXAMPLES
 
-# examples an epoch: CIFAR-10's training set, and the JAX package's
-# synthetic fallback for every dataset
-SYNTHETIC_EXAMPLES = 50000
-# the models each dataset trains
-DATASETS = {"cifar10": "image", "an4": "ctc", "ptb": "lm"}
+# the workload family each dataset trains
+DATASETS = {"cifar10": "image", "mnist": "image", "imagenet": "image",
+            "an4": "ctc", "ptb": "lm"}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dnn", default="vgg16")
     p.add_argument("--dataset", default="cifar10")
+    p.add_argument("--data-dir", default=None,
+                   help="dataset files (default: $OKTOPK_DATA_DIR, else "
+                        "./data); synthetic batches where they are missing")
     p.add_argument("--batch-size", type=int, default=16,
                    help="per-worker batch size")
     p.add_argument("--lr", type=float, default=0.1)
@@ -95,13 +106,14 @@ def parse_args(argv=None):
 
 
 def build_trainer(args):
-    """(Trainer, synthetic batch iterator, ProcessEnv): joins the process
+    """(Trainer, batch iterator, ProcessEnv, data meta): joins the process
     group on a multi-process launch (``launch.maybe_initialize``) and puts
     the trainer on ``ProcessGroupComm`` there, else on its stacked
-    workers."""
+    workers; the batches are ``make_dataset``'s (``meta["synthetic"]``
+    True without the files)."""
     from oktopk_tpu_torch import launch
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
-    from oktopk_tpu_torch.data import synthetic_iterator
+    from oktopk_tpu_torch.data import make_dataset
     from oktopk_tpu_torch.train.trainer import Trainer, workload
 
     if args.dataset not in DATASETS:
@@ -124,16 +136,18 @@ def build_trainer(args):
         algo_cfg = algo_cfg.replace(warmup_steps=args.warmup_steps)
     trainer = Trainer(cfg, algo_cfg=algo_cfg, device=dev, comm=comm)
     global_bs = args.batch_size * workers * args.nsteps_update
-    data = synthetic_iterator(args.dnn, global_bs, seed=args.seed)
-    return trainer, data, penv
+    data, meta = make_dataset(args.dataset, args.dnn, global_bs,
+                              path=args.data_dir, seed=args.seed)
+    return trainer, data, penv, meta
 
 
-def iterations(args, workers: int) -> int:
-    """``--max-iters``, else ``--max-epochs`` epochs of
-    ``SYNTHETIC_EXAMPLES`` examples at the global batch."""
+def iterations(args, workers: int,
+               num_examples: int = SYNTHETIC_EXAMPLES) -> int:
+    """``--max-iters``, else ``--max-epochs`` epochs of ``num_examples``
+    at the global batch."""
     global_bs = args.batch_size * workers * args.nsteps_update
     return args.max_iters or args.max_epochs * max(
-        1, SYNTHETIC_EXAMPLES // global_bs)
+        1, num_examples // global_bs)
 
 
 def main(argv=None) -> int:
@@ -141,7 +155,7 @@ def main(argv=None) -> int:
     # cuBLAS repeats its sums only with this set before the CUDA context
     # exists (the Trainer makes cuDNN deterministic)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    trainer, data, penv = build_trainer(args)
+    trainer, data, penv, meta = build_trainer(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = (logging.getLogger("oktopk_tpu_torch") if penv.is_coordinator
               else None)
@@ -152,7 +166,10 @@ def main(argv=None) -> int:
                     f"{penv.num_processes} processes ({penv.source}, "
                     f"{trainer.comm.backend})" if trainer.distributed
                     else "one process", trainer.device)
-    total = iterations(args, cfg.num_workers)
+    if logger and meta["synthetic"]:
+        logger.warning("dataset %s not found on disk: using synthetic data",
+                       args.dataset)
+    total = iterations(args, cfg.num_workers, meta["num_examples"])
     m = trainer.train(data, total, log_every=args.log_every, logger=logger)
     if logger:
         logger.info("done: %d iterations, loss %r, vol/step %d", total,

@@ -5,7 +5,7 @@ Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``optim/distributed.py::build_sparse_grad_step`` that the port runs
 (init, ``train_step``, ``train``, the step options ``nsteps_update``,
 ``grad_clip``, momentum correction and ``profile_norm``, and the
-workload dispatch of :44-53, :98-107, :558-624 for VGG, BERT
+workload dispatch of :44-53, :98-107, :558-624 for the CNN zoo, BERT
 pretraining, the PTB LSTM and DeepSpeech on AN4);
 the obs, resilience and autotune planes are not ported yet (ROADMAP.md).
 
@@ -38,7 +38,8 @@ One step:
 
 The workload (``workload(cfg.dnn)``) decides the batch keys, the loss
 and the optimizer, as in the JAX Trainer:
-- ``image`` (VGG): ``image``, ``label``; softmax cross entropy; SGD;
+- ``image`` (VGG and the rest of the CNN zoo): ``image``, ``label``;
+  softmax cross entropy; SGD;
 - ``bert`` (``bert*``): ``input_ids``, ``token_type_ids``,
   ``attention_mask``, ``mlm_labels``, ``nsp_labels``;
   ``bert_pretrain_loss`` (``mlm_loss`` and ``nsp_loss`` join the
@@ -50,20 +51,21 @@ and the optimizer, as in the JAX Trainer:
 - ``ctc`` (``lstman4*``): ``spect``, ``spect_lengths``, ``labels``,
   ``label_lengths``; ``ctc_loss`` over ``ctc_frame_len(spect_lengths)``
   capped at the logits' frames; SGD.
-BatchNorm running statistics (VGG, DeepSpeech) come from worker 0's
+BatchNorm running statistics (the CNNs, DeepSpeech) come from worker 0's
 microbatches, in order, as the JAX step returns them (``out_specs=P()``
 takes shard 0). The reported losses are the means of the P worker
 losses, added in rank order.
 
-Dropout (BERT, the PTB LSTM) draws its masks from one generator per
-worker on the device, ``dropout_gens[w]`` for local worker w, seeded by
-``worker_seed(cfg.seed, worker id)``: numpy's
-``SeedSequence([seed, worker]).generate_state(1)[0]``. Worker p's masks
-so depend on the seed and p alone, not on P or on the draws of workers
-0..p-1, and a rank draws its own without the others: the JAX step's
-structure, one stream per worker folded from its index
-(``oktopk_tpu/optim/distributed.py:261``), drawn microbatch after
-microbatch. The masks are not threefry's (ROADMAP.md, H16).
+Dropout (BERT, the PTB LSTM) draws JAX's own masks through the JAX
+step's key chain (``ops/prng.py``, on the host): the Trainer's key starts
+at ``PRNGKey(seed + 1)`` and is split every step into the next key and
+the step's key (``oktopk_tpu/train/trainer.py:231,631``); worker p folds
+its index into the step's key (``optim/distributed.py:261``) and splits
+that once per microbatch (:266), the second half being the apply's
+dropout key, from which each dropout site takes flax's key
+(``models/layers.py``). Worker p's masks so depend on (seed, step, p,
+microbatch) alone, not on P, and a rank derives its own workers' keys
+without the others'.
 
 On the card TF32 is switched off for cuDNN convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and
@@ -93,6 +95,7 @@ from oktopk_tpu_torch.convert import from_jax_params
 from oktopk_tpu_torch.models import create_model
 from oktopk_tpu_torch.models.deepspeech import CONV_TIME_STRIDE
 from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
+from oktopk_tpu_torch.ops import prng
 from oktopk_tpu_torch.optim import SGD, BertAdam
 from oktopk_tpu_torch.optim.distributed import SparseGradStep, flat_size
 from oktopk_tpu_torch.train import losses
@@ -123,11 +126,6 @@ def ctc_frame_len(spect_lengths: torch.Tensor) -> torch.Tensor:
     ``oktopk_tpu/train/trainer.py::_ctc_frame_len`` (:44-53)."""
     s = CONV_TIME_STRIDE
     return (spect_lengths + s - 1) // s
-
-
-def worker_seed(seed: int, worker: int) -> int:
-    """The seed of worker ``worker``'s dropout generator."""
-    return int(np.random.SeedSequence([seed, worker]).generate_state(1)[0])
 
 
 def _lecun_normal_(p: torch.Tensor, fan_in: int, gen: torch.Generator):
@@ -168,8 +166,10 @@ class Trainer:
         else:
             for m in model.modules():
                 if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                    # fan-in in/groups * kh * kw for a grouped kernel
                     _lecun_normal_(m.weight, m.weight[0].numel(), gen)
-                    torch.nn.init.zeros_(m.bias)
+                    if m.bias is not None:          # the ResNets' convs
+                        torch.nn.init.zeros_(m.bias)
         self.model = model.to(self.device)
         self.leaves = self.model.jax_leaves()
         self.params = [p for _, p, _ in self.leaves]
@@ -204,10 +204,7 @@ class Trainer:
             momentum_correction=mc, profile_norm=profile_norm)
         self.flat = torch.empty((W, n), dtype=torch.float32,
                                 device=self.device)
-        self.dropout_gens = [
-            torch.Generator(device=self.device).manual_seed(
-                worker_seed(cfg.seed, self.comm.first_worker + w))
-            for w in range(W)]
+        self._rng = prng.prng_key(cfg.seed + 1)
         self.stats = list(self.model.buffers())
         if self.distributed:
             changed = self.comm.replicate_(self.params).reshape(1, 1)
@@ -217,7 +214,7 @@ class Trainer:
 
     def load_jax_variables(self, params_np, batch_stats_np=None) -> None:
         """Take the flax model's weights (``convert.from_jax_params``)."""
-        sd = from_jax_params(params_np, batch_stats_np)
+        sd = from_jax_params(params_np, batch_stats_np, model=self.model)
         self.model.load_state_dict(sd, strict=batch_stats_np is not None
                                    or not self.stats)
 
@@ -233,17 +230,32 @@ class Trainer:
         for view, p in zip(self._jax_views(self.flat[w]), self.params):
             view.copy_(p.grad)
 
-    def _loss(self, mb, w: int):
-        """(loss, {aux metrics}) of worker ``w`` on microbatch ``mb``."""
-        gen = self.dropout_gens[w - self.comm.first_worker]
+    def microbatch_keys(self, step_key) -> np.ndarray:
+        """[W, nsteps_update, 2] uint32: the dropout key of each of this
+        process's workers' microbatches under the step's key, as the
+        JAX step derives them (fold in the worker's index, then split
+        once per microbatch, carrying the first half)."""
+        first, W = self.comm.first_worker, self.comm.local_workers
+        rng = prng.fold_in(step_key[None, :],
+                           np.arange(first, first + W, dtype=np.uint32))
+        out = []
+        for _ in range(self.cfg.nsteps_update):
+            pair = prng.split(rng)
+            rng = pair[:, 0]
+            out.append(pair[:, 1])
+        return np.stack(out, axis=1)
+
+    def _loss(self, mb, w: int, key):
+        """(loss, {aux metrics}) of worker ``w`` on microbatch ``mb``
+        under the dropout key ``key``."""
         if self.workload == "bert":
             mlm, nsp = self.model(mb["input_ids"], mb["token_type_ids"],
                                   mb["attention_mask"], train=True,
-                                  generator=gen)
+                                  rng=key)
             return losses.bert_pretrain_loss(mlm, nsp, mb["mlm_labels"],
                                              mb["nsp_labels"])
         if self.workload == "lm":
-            logits = self.model(mb["tokens"], train=True, generator=gen)
+            logits = self.model(mb["tokens"], train=True, rng=key)
             return losses.lm_cross_entropy(logits, mb["targets"]), {}
         if self.workload == "ctc":
             logits = self.model(mb["spect"], train=True,
@@ -283,6 +295,9 @@ class Trainer:
         lo, hi = first * ns * b, (first + W) * ns * b
         data = {k: torch.as_tensor(batch[k][lo:hi]).to(self.device)
                 for k in keys}
+        pair = prng.split(self._rng)
+        self._rng = pair[0]
+        mb_keys = self.microbatch_keys(pair[1])
         worker = []
         for i in range(W):
             for p in self.params:
@@ -291,7 +306,7 @@ class Trainer:
             for j in range(ns):      # autograd adds the microbatch grads
                 rows = slice((i * ns + j) * b, (i * ns + j + 1) * b)
                 loss, aux = self._loss({k: v[rows] for k, v in data.items()},
-                                       first + i)
+                                       first + i, mb_keys[i, j])
                 loss.backward()
                 for k, v in {"loss": loss, **aux}.items():
                     sums[k] = sums.get(k, 0.0) + v.detach()

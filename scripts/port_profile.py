@@ -82,7 +82,7 @@ def build_trainer(args, compressor):
             "--lr", "0.001", "--grad-clip", "400", "--warmup-steps", "1",
             "--compressor", compressor, "--density", str(args.density),
             "--seed", "0", "--max-iters", str(steps)])
-        trainer, data, _ = main_trainer.build_trainer(targs)
+        trainer, data, _, _ = main_trainer.build_trainer(targs)
         return trainer, [next(data) for _ in range(steps)], 1
     cfg = TrainConfig(dnn="vgg16", batch_size=args.batch // args.workers,
                       lr=0.1, density=args.density, num_workers=args.workers,

@@ -192,23 +192,37 @@ def test_forward_logits_with_padded_mask(which):
 
 
 def test_dropout_draws_from_the_generator():
-    """train=True with dropout: the same generator state gives the same
-    logits, another seed others; without a generator it raises."""
+    """train=True with dropout 0.1: the port draws flax's own masks from
+    the apply's dropout key (the key contract that replaced the
+    per-worker torch generators), so its logits equal flax's train-mode
+    apply under the same key within the forward tolerance; the same key
+    repeats bit for bit, another key gives others, and without a key it
+    raises."""
+    _, params = flax_init("tiny")
+    fm = jax_bert.BertForPreTraining(jax_bert.BertConfig.tiny(dropout=0.1))
     m = torch_bert.BertForPreTraining(torch_bert.BertConfig.tiny())
-    m.init_weights(torch.Generator().manual_seed(0))
+    m.load_state_dict(from_jax_params(params))
     ids, tt, am, _, _ = inputs(1024)
+    key = jax.random.PRNGKey(11)
+    mj, nj = fm.apply({"params": params}, ids, tt, am, train=True,
+                      rngs={"dropout": key})
 
-    def run(seed):
-        g = torch.Generator().manual_seed(seed)
+    def run(k):
         with torch.no_grad():
-            return m(t(ids), t(tt), t(am), train=True, generator=g)[0]
+            return m(t(ids), t(tt), t(am), train=True,
+                     rng=np.asarray(k))
 
-    assert torch.equal(run(3), run(3))
-    assert not torch.equal(run(3), run(4))
+    mt, nt = run(key)
+    for got, want in ((mt, mj), (nt, nj)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=2e-5 * np.abs(want).max())
+    assert torch.equal(run(key)[0], mt)
+    assert not torch.equal(run(jax.random.PRNGKey(12))[0], mt)
     with torch.no_grad():
         off = m(t(ids), t(tt), t(am), train=False)[0]
-    assert not torch.equal(run(3), off)
-    with pytest.raises(ValueError):
+    assert not torch.equal(mt, off)
+    with pytest.raises(ValueError, match="key"):
         m(t(ids), t(tt), t(am), train=True)
 
 

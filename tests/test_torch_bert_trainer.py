@@ -1,8 +1,9 @@
 """The BERT slice as a whole: the port's Trainer on ``bert_tiny`` against
 the JAX Trainer on the 4-device CPU mesh, and the ``main_bert`` CLI.
 
-Three steps, P = 4, global batch 16, oktopk with no dense warmup and
-cadence 2 (step 0 exact local and global recompute and repartition,
+Three steps, P = 4, global batch 16, dropout 0.1 (both sides draw
+JAX's masks from the JAX step's key chain), oktopk with no dense warmup
+and cadence 2 (step 0 exact local and global recompute and repartition,
 step 1 predicted, step 2 exact again), BertAdam with a warmup-linear
 schedule over 10 steps (warmup 0.1: step 0 at lr 0, then the decay).
 
@@ -51,9 +52,9 @@ def test_trainer_three_steps_match_jax(mesh4):
     from oktopk_tpu.train.trainer import Trainer as JTrainer
 
     jt = JTrainer(JTrain(**COMMON), mesh=mesh4, algo_cfg=JCfg(**ALGO),
-                  model_kwargs={"dropout": 0.0}, profile_norm=False)
+                  model_kwargs={"dropout": 0.1}, profile_norm=False)
     tt = Trainer(TrainConfig(**COMMON), algo_cfg=OkTopkConfig(**ALGO),
-                 device="cpu", model_kwargs={"dropout": 0.0})
+                 device="cpu", model_kwargs={"dropout": 0.1})
     p0 = jax.device_get(jt.state.params)
     tt.load_jax_variables(p0)
     assert tt.algo_cfg.n == jt.algo_cfg.n
@@ -84,8 +85,9 @@ def test_trainer_three_steps_match_jax(mesh4):
 
 
 def test_trainer_with_dropout_is_seeded():
-    """Dropout 0.1 on: two trainers from one seed take the same steps;
-    another seed's dropout masks give another loss."""
+    """Dropout 0.1 on: two trainers from one seed take the same steps
+    (the key chain starts at the seed); another seed's keys, and so its
+    masks, give another loss."""
     def run(seed):
         cfg = TrainConfig(**dict(COMMON, seed=seed))
         tr = Trainer(cfg, algo_cfg=OkTopkConfig(**ALGO), device="cpu")

@@ -21,8 +21,12 @@ module, and each test reads what its part wrote:
 - three narrow-VGG Trainer steps: bit-equal to the stacked Trainer on
   every rank, and within ``test_torch_vgg.py``'s tolerances of the JAX
   Trainer on the 4-device mesh;
-- two ``bert_tiny`` Trainer steps with dropout 0.1, each rank drawing its
-  own worker's masks: bit-equal to the stacked Trainer on every rank;
+- two ``bert_tiny`` Trainer steps with dropout 0.1, each rank deriving
+  its own worker's keys: bit-equal to the stacked Trainer on every rank,
+  and the keys and masks JAX's for that worker (the JAX Trainer's key
+  chain in ``jax.random``, flax's site key and ``bernoulli``);
+- one resnet20 oktopk step (BatchNorm statistics rank 0's everywhere):
+  bit-equal to the stacked Trainer on every rank;
 - the two-level ``hierarchical`` step as 2 pods x 2 over
   ``dist.new_group`` groups, with the ``dense``, ``oktopk`` and ``topkA``
   outers: results and every state field bit-equal on every rank to the
@@ -139,6 +143,7 @@ def dist(tmp_path_factory, mesh4):
                     slice(0, P)) for o in child.HIER_OUTERS}
                 stacked_trainer = child.run_trainer(None, weights)
                 stacked_bert = child.run_bert_trainer(None)
+                stacked_resnet = child.run_resnet(None)
             finally:
                 torch.set_num_threads(threads)
             jax_metrics = [jt.train_step(child.train_batch(s))
@@ -155,7 +160,7 @@ def dist(tmp_path_factory, mesh4):
     return {"ranks": ranks, "stacked": stacked, "jax": jax_runs,
             "stacked_hier": stacked_hier,
             "stacked_trainer": stacked_trainer,
-            "stacked_bert": stacked_bert,
+            "stacked_bert": stacked_bert, "stacked_resnet": stacked_resnet,
             "jax_trainer": (jax_metrics, jax_final)}
 
 
@@ -297,19 +302,51 @@ def test_trainer_matches_stacked(dist):
 
 
 def test_bert_with_dropout_matches_stacked(dist):
-    """bert_tiny, dropout 0.1: rank r draws worker r's masks from its own
-    generator, as the stacked Trainer's worker r does, so losses, metrics
-    and parameters are bit-equal on every rank."""
-    want_m, want_sd = dist["stacked_bert"]
+    """bert_tiny, dropout 0.1: rank r derives worker r's dropout keys from
+    the step's key alone, as the stacked Trainer's worker r does, so
+    losses, metrics and parameters are bit-equal on every rank; and those
+    keys and the embedding dropout's mask are JAX's for worker r: the JAX
+    Trainer's chain (``PRNGKey(seed + 1)``, a split a step, the worker
+    folded in, a split a microbatch) in ``jax.random``, flax's key for
+    the site, ``jax.random.bernoulli``."""
+    import flax.core.scope as flax_scope
+
+    want_m, want_sd, want_keys = dist["stacked_bert"]
+    rng = jax.random.PRNGKey(0 + 1)                 # TrainConfig seed 0
+    steps = []
+    for _ in range(len(want_keys)):
+        rng, sub = jax.random.split(rng)
+        steps.append(sub)
     for r, res in enumerate(dist["ranks"]):
-        got_m, got_sd = res["bert_trainer"]
+        got_m, got_sd, got_keys = res["bert_trainer"]
         for s, (gm, wm) in enumerate(zip(got_m, want_m)):
             assert gm.keys() == wm.keys()
             for k in gm:
                 bits(gm[k], wm[k], f"rank {r} step {s}: {k}")
         for k in want_sd:
             bits(got_sd[k], want_sd[k], f"rank {r}: {k}")
+        for s, ((keys, mask), (stacked_keys, _)) in enumerate(
+                zip(got_keys, want_keys)):
+            _, mb = jax.random.split(jax.random.fold_in(steps[s], r))
+            np.testing.assert_array_equal(keys[0, 0], np.asarray(mb))
+            np.testing.assert_array_equal(keys[0], stacked_keys[r])
+            site = flax_scope.LazyRng.create(
+                mb, "bert", "embeddings", "Dropout_0", 1).as_jax_rng()
+            want = jax.random.bernoulli(site, 0.9, tuple(mask.shape))
+            np.testing.assert_array_equal(mask.numpy(), np.asarray(want))
     assert float(want_m[0]["loss"]) != float(want_m[1]["loss"])
+
+
+def test_resnet_step_matches_stacked(dist):
+    want_m, want_sd = dist["stacked_resnet"]
+    for r, res in enumerate(dist["ranks"]):
+        got_m, got_sd = res["resnet"]
+        assert got_m.keys() == want_m.keys()
+        for k in got_m:
+            bits(got_m[k], want_m[k], f"rank {r}: {k}")
+        for k in want_sd:
+            bits(got_sd[k], want_sd[k], f"rank {r}: {k}")
+    assert float(want_m["comm_volume"]) > 0
 
 
 def test_trainer_matches_jax(dist):

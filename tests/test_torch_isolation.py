@@ -28,7 +28,12 @@ def _sources():
     assert len(files) > 20
     for mod in ("launch.py", "comm/process_group.py", "comm/fabric.py",
                 "collectives/hierarchical.py", "obs/metrics_buffer.py",
-                "obs/quality.py", "obs/volume.py"):
+                "obs/quality.py", "obs/volume.py", "ops/prng.py",
+                "data/loaders.py", "models/resnet.py",
+                "models/imagenet_resnet.py", "models/preresnet.py",
+                "models/resnext.py", "models/densenet.py",
+                "models/alexnet.py", "models/caffe_cifar.py",
+                "models/mnistnet.py"):
         assert PKG / mod in files
     return files
 

@@ -45,7 +45,7 @@ from oktopk_tpu_torch.convert import (flax_named_from_jax, from_jax_params,
 from oktopk_tpu_torch.data.synthetic import synthetic_batch
 from oktopk_tpu_torch.models import create_model
 from oktopk_tpu_torch.models.deepspeech import BatchRNN
-from oktopk_tpu_torch.models.layers import dropout
+from oktopk_tpu_torch.models.layers import SiteKeys, dropout, site_hashes
 from oktopk_tpu_torch.models.layout import flax_named_leaves, to_jax_layout
 from oktopk_tpu_torch.models.lstm import PTBLSTM
 from oktopk_tpu_torch.models.rnn import LSTMCell, lstm
@@ -247,8 +247,10 @@ PTB_NARROW = dict(vocab_size=50, hidden_size=24)
     ("lstm_tiny", {}, True),
     ("lstm_tiny", {}, False),
     # the narrow 2-layer lstm keeps the reference's keep 0.35: in eval
-    # mode its dropout is off on both sides
+    # mode its dropout is off on both sides, in train mode both draw
+    # flax's masks from one dropout key
     ("lstm", PTB_NARROW, False),
+    ("lstm", PTB_NARROW, True),
 ])
 def test_ptb_lstm_matches_flax(dnn, kw, train):
     """Logits and the flat gradient of the mean cross entropy, from a
@@ -258,15 +260,18 @@ def test_ptb_lstm_matches_flax(dnn, kw, train):
     vocab = kw.get("vocab_size", 1024)
     toks, tgts = b["tokens"] % vocab, b["targets"] % vocab
 
+    key = jax.random.PRNGKey(9)
+
     def loss(p):
-        logits, _ = fm.apply({"params": p}, toks, train=train)
+        logits, _ = fm.apply({"params": p}, toks, train=train,
+                             rngs={"dropout": key})
         return jax_losses.lm_cross_entropy(logits, tgts), logits
 
     (jl, jlogits), gp = jax.jit(jax.value_and_grad(loss, has_aux=True))(
         params)
     m = create_model(dnn, **kw)
     m.load_state_dict(from_jax_params(params))
-    logits = m(torch.from_numpy(toks), train=train)
+    logits = m(torch.from_numpy(toks), train=train, rng=np.asarray(key))
     tl = lm_cross_entropy(logits, torch.from_numpy(tgts))
     tl.backward()
     close(logits.detach(), jlogits, REL, "logits")
@@ -352,21 +357,29 @@ def test_lm_cross_entropy_matches_optax():
 # ---- dropout and synthetic data ----------------------------------------
 
 def test_ptb_dropout_rate_and_scale():
-    """The reference's keep 0.35: about 35% of the embedding's entries
-    survive, each divided by 0.35; the same generator state repeats the
-    mask."""
+    """The reference's keep 0.35 through flax's ``nn.Dropout``: the port's
+    ``dropout`` under a site's key equals flax's under the same key bit
+    for bit (so about 35% of the entries survive, each divided by 0.35);
+    the same key repeats the model's masks, and without a key it
+    raises."""
     m = PTBLSTM(vocab_size=64, hidden_size=32)
-    x = torch.ones(20000)
-    keep = dropout(x, m.rate, True, torch.Generator().manual_seed(0))
-    kept = keep != 0
-    assert abs(float(kept.float().mean()) - 0.35) < 0.015
-    np.testing.assert_allclose(keep[kept].numpy(), 1.0 / 0.35, rtol=1e-6)
+    key = jax.random.PRNGKey(5)
+    x = np.ones(20000, np.float32)
+    want = np.asarray(fnn.Dropout(m.rate, deterministic=False).apply(
+        {}, x, rngs={"dropout": key}))
+    # applied as the root module, its one draw's suffix is the count alone
+    keys = SiteKeys(np.asarray(key), site_hashes([(1,)]))
+    got = dropout(torch.from_numpy(x), m.rate, True, keys).numpy()
+    np.testing.assert_array_equal(got, want)
+    kept = got != 0
+    assert abs(float(kept.mean()) - 0.35) < 0.015
+    np.testing.assert_allclose(got[kept], 1.0 / 0.35, rtol=1e-6)
     toks = torch.randint(0, 64, (2, 5), generator=torch.Generator()
                          .manual_seed(1))
-    a = m(toks, train=True, generator=torch.Generator().manual_seed(2))
-    b = m(toks, train=True, generator=torch.Generator().manual_seed(2))
+    a = m(toks, train=True, rng=np.asarray(key))
+    b = m(toks, train=True, rng=np.asarray(key))
     assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="key"):
         m(toks, train=True)
 
 

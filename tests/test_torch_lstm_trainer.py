@@ -1,6 +1,6 @@
 """The LSTM slice as a whole: the port's Trainer on ``lstman4_tiny``
 (DeepSpeech, CTC) and ``lstm_tiny`` (the PTB LSTM) against the JAX
-Trainer on the 4-device CPU mesh, the per-worker dropout streams, and the
+Trainer on the 4-device CPU mesh, the per-worker dropout keys, and the
 ``main_trainer`` CLI on the AN4 and PTB datasets (synthetic data).
 
 Two steps each, P = 4, bs 2 per worker, oktopk with no dense warmup and
@@ -8,7 +8,8 @@ cadence 2 (step 0 the exact recomputes and the repartition, step 1
 predicted), on the float32 wire; ``lstman4_tiny`` on 101 spectrogram
 frames at d = 0.05 with ``grad_clip`` 400
 (``tests/test_train.py::test_ctc_lstman4_tiny_oktopk``), ``lstm_tiny`` at
-d = 0.05; SGD without momentum and weight decay. The wire is float32
+d = 0.05, without dropout and with the reference's keep 0.35 (both
+Trainers then draw JAX's masks from the JAX step's key chain); SGD without momentum and weight decay. The wire is float32
 here because a winner's residual is then exactly 0, so the residuals'
 zero pattern is every worker's selection (on the bf16 wire it is the
 rounding remainder, 0 or not by the last bits of acc; the bf16 wire is
@@ -33,7 +34,14 @@ lr times a reduced value near the global threshold on that side only.
   relative; parameters within 2 lr = 6e-4 (a flipped element moves by lr
   times a reduced value near the global threshold, 1.09 here);
   BatchNorm statistics within 2e-5 (4.8e-6 measured on step 1).
-- Both: losses rtol 1e-5; step 0's residuals, where the selections
+- ``lstm_tiny`` with dropout (keep 0.35, the masks JAX's on both
+  sides): the masks scale surviving activations by 1/0.35, and an
+  element of step 0's exchange lands within rounding of a threshold: the
+  selections (residual zero patterns) are equal, but the volume is 2
+  elements apart of 362,006 (wire bytes 8 of 1,448,024) on step 0 and
+  equal on step 1; held to ``lstman4_tiny``'s flip and count bounds, and
+  parameters to ``lstm_tiny``'s 5e-5 (1.5e-8 measured).
+- All: losses rtol 1e-5; step 0's residuals, where the selections
   agree, within 1e-4 of the largest.
 """
 
@@ -46,15 +54,22 @@ from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
 from oktopk_tpu_torch.convert import to_jax_params
 from oktopk_tpu_torch.data import synthetic_batch, synthetic_iterator
 from oktopk_tpu_torch.train import main_trainer
-from oktopk_tpu_torch.train.trainer import Trainer, worker_seed
+from oktopk_tpu_torch.ops import prng
+from oktopk_tpu_torch.train.trainer import Trainer
 
 ALGO = dict(warmup_steps=0, local_recompute_every=2,
             global_recompute_every=2, repartition_every=2,
             wire_dtype="float32")
+# id: (model, TrainConfig fields, sequence length, model fields)
 CASES = {
-    "lstman4_tiny": (dict(dataset="an4", lr=3e-4, density=0.05,
-                          grad_clip=400.0), 101),
-    "lstm_tiny": (dict(dataset="ptb", lr=0.5, density=0.05), None),
+    "lstman4_tiny": ("lstman4_tiny", dict(dataset="an4", lr=3e-4,
+                                          density=0.05, grad_clip=400.0),
+                     101, None),
+    "lstm_tiny": ("lstm_tiny", dict(dataset="ptb", lr=0.5, density=0.05),
+                  None, None),
+    "lstm_tiny_dropout": ("lstm_tiny", dict(dataset="ptb", lr=0.5,
+                                            density=0.05), None,
+                          {"dropout_keep": 0.35}),
 }
 STEPS = 2
 # What each model's run holds (see the module docstring): the share of
@@ -62,6 +77,7 @@ STEPS = 2
 # tolerance, and the parameters' absolute tolerance.
 HOLDS = {
     "lstm_tiny": dict(flips=0.0, counts=0.0, params=5e-5),
+    "lstm_tiny_dropout": dict(flips=1e-4, counts=2e-4, params=5e-5),
     "lstman4_tiny": dict(flips=1e-4, counts=2e-4, params=2 * 3e-4,
                          stats=2e-5),
 }
@@ -97,19 +113,19 @@ def runs(request, mesh4):
     from oktopk_tpu.config import TrainConfig as JTrain
     from oktopk_tpu.train.trainer import Trainer as JTrainer
 
-    dnn = request.param
-    kw, seq_len = CASES[dnn]
+    case = request.param
+    dnn, kw, seq_len, model_kw = CASES[case]
     common = dict(dnn=dnn, batch_size=2, num_workers=4, momentum=0.0,
                   weight_decay=0.0, **kw)
     jt = JTrainer(JTrain(**common), mesh=mesh4, algo_cfg=JCfg(**ALGO),
-                  warmup=False, profile_norm=False)
+                  warmup=False, profile_norm=False, model_kwargs=model_kw)
     tt = Trainer(TrainConfig(**common), algo_cfg=OkTopkConfig(**ALGO),
-                 device="cpu", warmup=False)
+                 device="cpu", warmup=False, model_kwargs=model_kw)
     p0 = host(jt.state.params)
     s0 = host(jt.state.model_state.get("batch_stats", {}))
     tt.load_jax_variables(p0, s0 or None)
     it = synthetic_iterator(dnn, 8, seed=4, seq_len=seq_len)
-    out = {"dnn": dnn, "n": (tt.algo_cfg.n, jt.algo_cfg.n),
+    out = {"dnn": case, "n": (tt.algo_cfg.n, jt.algo_cfg.n),
            "start": p0, "jax": [], "port": []}
     for _ in range(STEPS):
         b = next(it)
@@ -175,22 +191,27 @@ def test_parameters_and_batch_stats_match(runs):
             close(a, b, HOLDS[runs["dnn"]]["stats"], f"step {s} stats")
 
 
-# ---- per-worker dropout streams ----------------------------------------
+# ---- per-worker dropout keys ------------------------------------------
 
 @pytest.mark.parametrize("dnn,kw", [
     ("bert_tiny", {}),
     ("lstm", dict(vocab_size=64, hidden_size=16)),
 ])
 def test_worker_masks_do_not_depend_on_P(dnn, kw):
-    """Worker 1's dropout masks come from ``(seed, 1)`` alone: with P = 2
-    and P = 4 it draws the same masks on the same rows (the same loss, in
-    two microbatches), and they differ from worker 0's."""
-    def loss(P, w, rows):
-        cfg = TrainConfig(dnn=dnn, batch_size=2, num_workers=P, seed=3)
+    """Worker 1's dropout keys come from (seed, step, 1, microbatch)
+    alone: with P = 2 and P = 4 it gets the same keys, and so the same
+    loss on the same rows, in each of two microbatches; its two
+    microbatches' keys differ, and worker 0's differ from its."""
+    def keys(P):
+        cfg = TrainConfig(dnn=dnn, batch_size=2, num_workers=P, seed=3,
+                          nsteps_update=2)
         tr = Trainer(cfg, device="cpu", model_kwargs=kw)
         tr.model.load_state_dict(weights)
-        mb = {k: torch.as_tensor(v[rows]) for k, v in batch.items()}
-        return [float(tr._loss(mb, w)[0].detach()) for _ in range(2)]
+        return tr, tr.microbatch_keys(prng.split(tr._rng)[1])
+
+    def loss(tr, w, key):
+        mb = {k: torch.as_tensor(v) for k, v in batch.items()}
+        return float(tr._loss(mb, w, key)[0].detach())
 
     ref = Trainer(TrainConfig(dnn=dnn, num_workers=1), device="cpu",
                   model_kwargs=kw)
@@ -199,13 +220,14 @@ def test_worker_masks_do_not_depend_on_P(dnn, kw):
     batch = synthetic_batch(src, 2, np.random.RandomState(0))
     if dnn == "lstm":
         batch = {k: v % 64 for k, v in batch.items()}
-    two, four = loss(2, 1, slice(0, 2)), loss(4, 1, slice(0, 2))
+    (t2, k2), (t4, k4) = keys(2), keys(4)
+    assert k2.shape == (2, 2, 2) and k4.shape == (4, 2, 2)
+    np.testing.assert_array_equal(k2[1], k4[1])
+    two = [loss(t2, 1, k2[1, j]) for j in range(2)]
+    four = [loss(t4, 1, k4[1, j]) for j in range(2)]
     assert two == four
-    assert two[0] != two[1]                   # the stream moves on
-    assert loss(4, 0, slice(0, 2)) != four
-    assert worker_seed(3, 1) != worker_seed(3, 0)
-    assert worker_seed(3, 1) == int(np.random.SeedSequence(
-        [3, 1]).generate_state(1)[0])
+    assert two[0] != two[1]                   # the microbatches differ
+    assert loss(t4, 0, k4[0, 0]) != four[0]
 
 
 # ---- the CLI -------------------------------------------------------------
@@ -221,7 +243,7 @@ def test_main_trainer_lstm_cli_on_cpu(dnn, dataset, caplog):
         assert main_trainer.main(argv) == 0
     text = caplog.text
     assert "iter 2 loss" in text and "done: 2 iterations" in text, text
-    trainer, data, _ = main_trainer.build_trainer(
+    trainer, data, _, _ = main_trainer.build_trainer(
         main_trainer.parse_args(argv))
     assert trainer.workload == ("ctc" if dataset == "an4" else "lm")
     b = next(data)
@@ -236,7 +258,7 @@ def test_main_trainer_lstm_cli_on_cpu(dnn, dataset, caplog):
     ("lstm_tiny", "an4", ValueError), ("lstman4_tiny", "ptb", ValueError),
     ("vgg16", "an4", ValueError), ("lstman4_tiny", "cifar10", ValueError),
     ("lstman4_tiny", "librispeech", NotImplementedError),
-    ("vgg16", "imagenet", NotImplementedError)])
+    ("lstm_tiny", "imagenet", ValueError)])
 def test_main_trainer_dataset_and_model_must_agree(dnn, dataset, err):
     with pytest.raises(err):
         main_trainer.build_trainer(main_trainer.parse_args(

@@ -221,18 +221,52 @@ BERT_ALGO = dict(warmup_steps=0, local_recompute_every=2,
 
 def run_bert_trainer(comm, steps: int = 2):
     """``bert_tiny`` with dropout 0.1 from the seed's weights, ``steps``
-    steps: per-step metrics, then the state_dict."""
+    steps: per-step metrics, the state_dict, and per step the dropout
+    keys of this process's workers' microbatches ([W, 1, 2], derived as
+    the step derives them) with the embedding dropout's keep mask of its
+    first worker."""
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
     from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.models.bert import dropout_sites
+    from oktopk_tpu_torch.ops import prng
     from oktopk_tpu_torch.train.trainer import Trainer
 
     tt = Trainer(TrainConfig(**BERT_TRAIN),
                  algo_cfg=OkTopkConfig(**BERT_ALGO), device="cpu",
                  comm=comm)
-    metrics = [{k: v.clone() for k, v in tt.train_step(synthetic_batch(
-        "bert_tiny", 16, np.random.RandomState(20 + s))).items()}
-        for s in range(steps)]
-    return metrics, {k: v.clone() for k, v in tt.model.state_dict().items()}
+    cfg, b = tt.model.cfg, BERT_TRAIN["batch_size"]
+    metrics, keys = [], []
+    for s in range(steps):
+        mb = tt.microbatch_keys(prng.split(tt._rng)[1])
+        site = prng.flax_site_key(mb[0, 0], dropout_sites(cfg)[0])
+        keys.append((mb, prng.keep_mask(site, (b, 32, cfg.hidden_size),
+                                        1.0 - cfg.dropout)))
+        metrics.append({k: v.clone() for k, v in tt.train_step(
+            synthetic_batch("bert_tiny", 16,
+                            np.random.RandomState(20 + s))).items()})
+    return (metrics, {k: v.clone() for k, v in tt.model.state_dict().items()},
+            keys)
+
+
+RESNET_TRAIN = dict(dnn="resnet20", batch_size=2, lr=0.05, density=0.05,
+                    num_workers=P, seed=4)
+
+
+def run_resnet(comm):
+    """One oktopk step of resnet20 from the seed's weights (no dense
+    warmup), bs 2 a worker: the metrics and the state_dict (the BatchNorm
+    statistics rank 0's on every rank)."""
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    tt = Trainer(TrainConfig(**RESNET_TRAIN),
+                 algo_cfg=OkTopkConfig(warmup_steps=0), device="cpu",
+                 comm=comm)
+    m = tt.train_step(synthetic_batch("resnet20", 2 * P,
+                                      np.random.RandomState(30)))
+    return ({k: v.clone() for k, v in m.items()},
+            {k: v.clone() for k, v in tt.model.state_dict().items()})
 
 
 def register_narrow():
@@ -339,13 +373,15 @@ def _checks(rank: int, out_dir: str):
     weights = wait_load(os.path.join(out_dir, "weights.pt"))
     res["trainer"] = run_trainer(comm, weights)
     res["bert_trainer"] = run_bert_trainer(comm)
+    res["resnet"] = run_resnet(comm)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def checks_worker(rank, out_dir):
     """Spawn target: every comm verb, every compressor case, the
-    two-level cases over 2 pods x 2 ``new_group``s, three trainer steps
-    and two BERT steps with dropout over a 4-rank gloo group. The cases
+    two-level cases over 2 pods x 2 ``new_group``s, three trainer steps,
+    two BERT steps with dropout and one resnet20 step over a 4-rank gloo
+    group. The cases
     held to JAX start from the JAX states the parent writes to
     ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
     while these run."""
