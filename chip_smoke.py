@@ -179,6 +179,47 @@ and prints one JSON line per phase:
               ``meta["synthetic"]`` False), then ``--dataset imagenet``
               without a file, which warns and trains on synthetic data.
 
+After loader_cli, the train surface, on files written into one temporary
+directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
+``OKTOPK_NATIVE=1``, so a failing g++ build fails the run):
+
+28. text_data — a corpus of 100 seeded documents and a 30,522-entry
+              ``vocab.txt``; the native WordPiece tokenizer (g++ from
+              ``native/``) equal to the Python one on every line and
+              pair; the native prefetch ring and the Python batcher,
+              each batch whole records and each epoch every record
+              once; host ms a batch;
+29. bert_ckpt — ``main_bert --model bert_base --data-dir T --num-workers
+              4 --batch-size 8 --max-seq-length 128 --density 0.01
+              --num-minibatches 4 --ckpt-dir D`` (the corpus, not
+              synthetic data); the file verified by its manifest,
+              restored into a fresh full-width Trainer on the card with
+              every leaf bit-equal to the file, one step from it
+              (counters around it); two ``--resume D`` runs of two more
+              steps in new processes, their losses, volumes and final
+              files bit-identical; bytes, save and restore seconds;
+30. preempt — ``main_bert ... --handle-preemption --num-minibatches 50``
+              in its own session, SIGUSR2 after its third logged step:
+              exit 3 and the state parked at the step it stopped; the
+              rerun resumes there, runs to step 50, exits 0 and clears
+              the parked state; the session killed on a deadline;
+31. glue_cli — ``glue --task mrpc --model bert_base --data-dir T/MRPC
+              --vocab-file T/vocab.txt --ckpt D --epochs 1`` on TSVs the
+              script writes: the grafted encoder bit-equal to the
+              checkpoint's ``bert`` subtree; a finite loss, the metrics,
+              exit 0 (counters around it);
+32. an4_eval — ``main_trainer --dnn lstman4 --dataset an4`` on 16
+              tone-coded WAV files and their manifests, four steps (one
+              dense), ``--ckpt-every 4``; ``evaluate`` on the card and on
+              the CPU: the CTC loss within 1e-4 relative (H18),
+              hypotheses, WER and CER equal, or the differing count;
+33. dist_ckpt — four gloo ranks of full-width VGG-16 through
+              ``main_trainer.build_trainer``, four steps, a checkpoint
+              (every rank's sparse row gathered to rank 0) whose state is
+              the stacked Trainer's file bit for bit, and a four-rank
+              restore giving each rank its row back; host time of the
+              gather and of one stop poll (the ranks' agreement).
+
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
 no result and exits non-zero, as does a machine without CUDA.
@@ -196,6 +237,7 @@ import sys
 import time
 
 N_VGG16 = 14728266
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SEED = 0
 ITERS = 25
@@ -2142,13 +2184,14 @@ def trainer_rank(rank, tmp, world, dev, want_path):
     dist_guard(_trainer_rank, rank, tmp, world, dev, want_path)
 
 
-def run_cli(cmd, timeout_s: float):
-    """Run ``cmd`` in its own session; on timeout kill the whole session
-    (the launcher and its workers) and raise."""
+def run_cli(cmd, timeout_s: float, env=None):
+    """Run ``cmd`` in its own session from the repository root; on
+    timeout kill the whole session (the launcher and its workers) and
+    raise."""
     import signal
     p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True,
-                         start_new_session=True)
+                         stderr=subprocess.STDOUT, text=True, env=env,
+                         cwd=ROOT, start_new_session=True)
     try:
         out, _ = p.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -2699,6 +2742,767 @@ def phase_loader_cli(dev, steps: int = 3):
     return out
 
 
+# ---- the train surface (slice 9): files, checkpoints, preemption, eval --
+
+N_VOCAB_BASE = 30522         # BERT-base's embedding rows: the vocab written
+SLICE9_SYLLABLES = ("ka", "lo", "mi", "ne", "ru", "sa", "ti", "vo", "ze",
+                    "pa", "gu", "be", "do", "fi", "ho", "ja")
+SLICE9_DEADLINE_S = 420      # a CLI run that hangs fails the phase
+
+
+def slice9_words():
+    """Two- and three-syllable words; the vocabulary holds every other
+    one whole, and every syllable as a word start and as a ``##`` piece,
+    so WordPiece splits the rest."""
+    s = SLICE9_SYLLABLES
+    return ([a + b for a in s for b in s]
+            + [a + b + c for a in s[:8] for b in s for c in s[:6]])
+
+
+def write_corpus(root: str, n_docs: int = 100, seed: int = SEED) -> dict:
+    """``root/wikipedia/part-0.txt`` (sentence per line, blank line
+    between documents, some accented and capitalised words) and
+    ``root/vocab.txt`` of exactly ``N_VOCAB_BASE`` entries."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    words = slice9_words()
+    docs = []
+    for _ in range(n_docs):
+        sents = []
+        for _ in range(rng.randint(3, 7)):
+            ws = [words[i] for i in rng.randint(0, len(words),
+                                                rng.randint(4, 15))]
+            ws[0] = ws[0].capitalize()
+            if rng.rand() < 0.3:
+                ws[-1] = ws[-1].replace("e", "é")
+            sents.append(" ".join(ws) + rng.choice([".", "!", "?", ","]))
+        docs.append("\n".join(sents))
+    os.makedirs(os.path.join(root, "wikipedia"), exist_ok=True)
+    with open(os.path.join(root, "wikipedia", "part-0.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n\n".join(docs) + "\n")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", "!", "?",
+             ",", "'"]
+    vocab += list(SLICE9_SYLLABLES) + ["##" + s for s in SLICE9_SYLLABLES]
+    vocab += words[::2]
+    vocab += [f"[unused{i}]" for i in range(N_VOCAB_BASE - len(vocab))]
+    with open(os.path.join(root, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    return {"documents": n_docs, "vocab": len(vocab),
+            "corpus_bytes": os.path.getsize(
+                os.path.join(root, "wikipedia", "part-0.txt"))}
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def phase_text_data(root: str) -> dict:
+    """The corpus and vocabulary the slice trains on, then on the host:
+    the native WordPiece tokenizer built with g++ and equal to the Python
+    ``FullTokenizer`` on every corpus line and pair; the native prefetch
+    ring and the Python batcher (``_batched`` under ``OKTOPK_NATIVE=0``)
+    for two epochs each, every batch whole records and each epoch every
+    record once (their shuffles differ by design; the ring's batches are
+    held to the JAX package's ring by ``tests/test_torch_text_data.py``);
+    host ms a batch of the pretraining iterator (native and Python
+    tokenizer), of the ring and of the Python batcher."""
+    import numpy as np
+    from oktopk_tpu_torch import native
+    from oktopk_tpu_torch.data import bert_pretrain, loaders, tokenization
+    from oktopk_tpu_torch.native.loader import make_prefetch_iter
+    from oktopk_tpu_torch.native.tokenizer import NativeTokenizer
+
+    info = write_corpus(root)
+    t0 = time.perf_counter()
+    if not native.resolve("tokenizer"):
+        raise AssertionError("OKTOPK_NATIVE=1 did not resolve to native")
+    build_s = time.perf_counter() - t0
+    vocab = os.path.join(root, "vocab.txt")
+    nat, py = NativeTokenizer(vocab), tokenization.FullTokenizer(vocab)
+    if nat.vocab_size != N_VOCAB_BASE:
+        raise AssertionError(f"native tokenizer: vocab {nat.vocab_size}")
+    lines = [ln for ln in open(os.path.join(root, "wikipedia",
+                                            "part-0.txt"),
+                               encoding="utf-8").read().split("\n") if ln]
+    unk, pieces = 0, 0
+    for ln in lines:
+        ids = py.convert_tokens_to_ids(py.tokenize(ln))
+        if nat.encode(ln) != ids:
+            raise AssertionError(f"native tokenizer differs on {ln!r}")
+        unk += ids.count(1)
+        pieces += len(ids)
+    for a, b in zip(lines, lines[1:]):
+        if nat.encode_pair(a, b, 128) != py.encode_pair(a, b, 128):
+            raise AssertionError(f"encode_pair differs on {a!r}, {b!r}")
+    corpus = os.path.join(root, "wikipedia")
+    its = {name: bert_pretrain.pretrain_iterator(corpus, tok, 32, 128,
+                                                 seed=SEED)
+           for name, tok in (("native", nat), ("python", py))}
+    for _ in range(3):
+        a, b = next(its["native"]), next(its["python"])
+        for k in b:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"pretraining batch {k} differs by "
+                                     "tokenizer")
+    batch_ms = {name: median_ms(lambda it=it: next(it))
+                for name, it in its.items()}
+    x = {k: np.concatenate([next(its["native"])[k] for _ in range(8)])
+         for k in ("input_ids", "nsp_labels")}
+    n = len(x["nsp_labels"])
+    x["index"] = np.arange(n, dtype=np.int32)
+    ring = make_prefetch_iter(x, 32, seed=SEED)
+    # the Python batcher shuffles by another rule than the ring, so the
+    # two are held to the same contract, not to each other: every batch
+    # whole records, each epoch every record once
+    os.environ["OKTOPK_NATIVE"] = "0"
+    try:
+        python = loaders._batched(x, 32, SEED)
+    finally:
+        os.environ["OKTOPK_NATIVE"] = "1"
+    per_epoch = n // 32
+    for name, it in (("ring", ring), ("python", python)):
+        seen = []
+        for i in range(2 * per_epoch):
+            a = next(it)
+            for k in x:
+                if not np.array_equal(a[k], x[k][a["index"]]):
+                    raise AssertionError(f"{name} batch {i}: {k} is not "
+                                         "its records'")
+            seen.append(a["index"])
+        for e in range(2):
+            rows = np.sort(np.concatenate(seen[e * per_epoch:
+                                               (e + 1) * per_epoch]))
+            if not np.array_equal(rows, np.arange(n)):
+                raise AssertionError(f"{name} epoch {e} is not every "
+                                     "record once")
+    ring_ms = median_ms(lambda: next(ring))
+    python_ms = median_ms(lambda: next(python))
+    out = {"phase": "text_data", **info, "lines": len(lines),
+           "wordpieces": pieces, "unk": unk, "native_build_s": build_s,
+           "native_equal_python": True,
+           "ring_and_python_epochs_every_record_once": True,
+           "python_batch_ms": python_ms,
+           "pretrain_batch_ms": batch_ms, "ring_batch_ms": ring_ms,
+           "batch": "32 x 128 (pretrain), 32 x 128 ids (ring)"}
+    emit(out)
+    return out
+
+
+def slice9_env(state_dir: str) -> dict:
+    env = dict(os.environ, OKTOPK_NATIVE="1", OKTOPK_STATE_DIR=state_dir,
+               OKTOPK_RUN_ID="chip_smoke")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return env
+
+
+BERT9_MODEL = "bert_base"
+BERT9_ARGV = ["--model", BERT9_MODEL, "--num-workers", "4", "--batch-size",
+              "8", "--max-seq-length", "128", "--density", "0.01",
+              "--seed", str(SEED), "--log-every", "1"]
+AN4_DNN = "lstman4"
+
+
+def run_module(module: str, argv, env, timeout_s: float = SLICE9_DEADLINE_S):
+    """``python -m module argv`` through ``run_cli``: (rc, output)."""
+    return run_cli([sys.executable, "-m", module] + list(argv), timeout_s,
+                   env)
+
+
+def iter_lines(out: str):
+    return [ln.split(" ", 2)[2] for ln in out.splitlines()
+            if re.search(r" iter \d+ loss ", ln)]
+
+
+def sha256(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{prefix}/{k}")
+    elif tree is not None:
+        yield prefix, tree
+
+
+def trees_bit_equal(a, b, what: str) -> int:
+    """Raise unless the two state trees hold the same leaves, bit for
+    bit; returns the leaf count."""
+    import numpy as np
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        raise AssertionError(f"{what}: the trees' leaves differ")
+    for (p, x), (_, y) in zip(la, lb):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                x.reshape(-1).view(np.uint8), y.reshape(-1).view(np.uint8)):
+            raise AssertionError(f"{what}: {p} differs")
+    return len(la)
+
+
+def phase_bert_ckpt(dev, root: str) -> dict:
+    """BERT-base at full width through the ``main_bert`` CLI on the
+    corpus (``meta["synthetic"]`` False), P = 4, bs 8, seq 128, d = 0.01,
+    four steps, ``--ckpt-dir``; the file verified by its manifest and
+    restored into a fresh full-width Trainer on the card, every leaf
+    bit-equal to the file, one step from it with the counters set to 0
+    just before and read just after; then two ``--resume`` runs of two
+    more steps each, in new processes, whose logged losses and volumes
+    and whose final files repeat bit for bit."""
+    import torch
+    from oktopk_tpu_torch.train import checkpoint as ckpt
+    from oktopk_tpu_torch.train import durable, main_bert
+
+    env = slice9_env(os.path.join(root, "state"))
+    d = os.path.join(root, "bert_ckpt")
+    t0 = time.perf_counter()
+    rc, out = run_module("oktopk_tpu_torch.train.main_bert", BERT9_ARGV + [
+        "--data-dir", root, "--num-minibatches", "4", "--ckpt-dir", d], env)
+    run_s = time.perf_counter() - t0
+    saved = re.search(r"checkpoint (\S+): (\d+) B in (\S+) s", out)
+    if rc != 0 or saved is None or "synthetic" in out \
+            or len(iter_lines(out)) != 4:
+        raise AssertionError(f"main_bert --ckpt-dir: exit {rc}\n"
+                             f"{out[-4000:]}")
+    path = saved.group(1)
+    t0 = time.perf_counter()
+    v = durable.verify_checkpoint(path)
+    verify_s = time.perf_counter() - t0
+    if not v.ok or v.reason != "ok":
+        raise AssertionError(f"bert_ckpt: {path} fails verification: "
+                             f"{v.reason}")
+    t0 = time.perf_counter()
+    data = durable.read_file(path)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    durable.compute_digest(data)
+    digest_s = time.perf_counter() - t0
+    del data
+    args = main_bert.parse_args(BERT9_ARGV + ["--data-dir", root,
+                                              "--num-minibatches", "6",
+                                              "--device", str(dev)])
+    trainer, batches = main_bert.build_trainer(args)
+    if args.data_meta["synthetic"]:
+        raise AssertionError("bert_ckpt: the corpus was not read")
+    t0 = time.perf_counter()
+    tree, step = ckpt.restore_checkpoint(d, trainer.train_state(
+        gather=False))
+    restore_read_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.load_train_state(tree)
+    torch.cuda.synchronize()
+    restore_load_s = time.perf_counter() - t0
+    leaves = trees_bit_equal(trainer.train_state(host=True),
+                             ckpt.read_payload(path)["state"],
+                             "bert_ckpt restore")
+    del tree
+    ckpt.clear_cache()
+    torch.cuda.synchronize()
+    zero_counts()
+    m = trainer.train(batches, 1, start_step=step)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert_launched(launches, DROPOUT_KERNELS, "bert_ckpt resumed step")
+    if not math.isfinite(m["loss"]):
+        raise AssertionError(f"bert_ckpt: resumed loss {m['loss']}")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    resumes = []
+    for i in range(2):
+        out_dir = os.path.join(root, f"bert_resume{i}")
+        t0 = time.perf_counter()
+        rc, out = run_module("oktopk_tpu_torch.train.main_bert",
+                             BERT9_ARGV + ["--data-dir", root,
+                                           "--num-minibatches", "6",
+                                           "--resume", d, "--ckpt-dir",
+                                           out_dir], env)
+        lines = iter_lines(out)
+        done = re.search(r"done: loss (\S+) comm volume/step (\d+)", out)
+        if rc != 0 or len(lines) != 2 or done is None \
+                or "resumed at step 4" not in out:
+            raise AssertionError(f"main_bert --resume: exit {rc}\n"
+                                 f"{out[-4000:]}")
+        resumes.append({"seconds": time.perf_counter() - t0,
+                        "steps": [ln.rsplit(" ", 1)[0] for ln in lines],
+                        "done": done.groups(),
+                        "sha256": sha256(os.path.join(out_dir,
+                                                      "ckpt-6.msgpack"))})
+    a, b = resumes
+    if (a["steps"], a["done"], a["sha256"]) != (b["steps"], b["done"],
+                                                b["sha256"]):
+        raise AssertionError(f"bert_ckpt: two resumes differ: {a} vs {b}")
+    out = {"phase": "bert_ckpt", "model": BERT9_MODEL, "P": 4,
+           "file": os.path.basename(path), "bytes": int(saved.group(2)),
+           "leaves": leaves, "first_run_s": run_s,
+           "save_s": float(saved.group(3)), "verify_s": verify_s,
+           "read_s": read_s, "digest_s": digest_s,
+           "restore_read_verify_decode_s": restore_read_s,
+           "restore_to_card_s": restore_load_s, "restore_bit_equal": True,
+           "resumed_step_loss": m["loss"], "launches": launches,
+           "resumes_bit_identical": True, "resume_s": [r["seconds"]
+                                                       for r in resumes],
+           "resume_steps": a["steps"], "resume_done": a["done"],
+           "final_sha256": a["sha256"][:16]}
+    emit(out)
+    return out
+
+
+def phase_preempt(root: str) -> dict:
+    """``main_bert --model bert_base ... --handle-preemption
+    --num-minibatches 50`` in its own session; SIGUSR2 after its third
+    logged step: it must exit with code 3 and park the state at the step
+    it stopped; a second run with the flag resumes there, runs to step
+    50, exits 0 and clears the parked state. The session is killed on a
+    deadline: a hang fails the run."""
+    import selectors
+    import signal
+
+    from oktopk_tpu_torch.train import checkpoint as ckpt
+    from oktopk_tpu_torch.train import preemption
+
+    state_dir = os.path.join(root, "state")
+    env = slice9_env(state_dir)
+    argv = BERT9_ARGV + ["--data-dir", root, "--num-minibatches", "50",
+                         "--handle-preemption"]
+    cmd = [sys.executable, "-m", "oktopk_tpu_torch.train.main_bert"] + argv
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=env,
+                         cwd=ROOT, start_new_session=True)
+    lines, signalled_after = [], None
+    sel = selectors.DefaultSelector()
+    sel.register(p.stdout, selectors.EVENT_READ)
+    deadline = time.monotonic() + SLICE9_DEADLINE_S
+    try:
+        while True:
+            if time.monotonic() > deadline:
+                raise AssertionError("preempt: the run did not end in "
+                                     f"{SLICE9_DEADLINE_S} s")
+            if not sel.select(timeout=1.0):
+                continue
+            line = p.stdout.readline()
+            if not line:
+                break
+            lines.append(line.rstrip())
+            steps = [ln for ln in lines if re.search(r" iter \d+ loss ", ln)]
+            if signalled_after is None and len(steps) >= 3:
+                os.kill(p.pid, signal.SIGUSR2)
+                signalled_after = int(re.search(r" iter (\d+) ",
+                                                steps[-1]).group(1))
+        rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    stop_s = time.perf_counter() - t0
+    out = "\n".join(lines)
+    parked = re.search(r"preempted @ step (\d+): state parked at (\S+)",
+                       out)
+    if rc != 3 or parked is None or signalled_after is None:
+        raise AssertionError(f"preempt: exit {rc} (want 3)\n{out[-4000:]}")
+    stopped = int(parked.group(1))
+    last = max(int(re.search(r" iter (\d+) ", ln).group(1))
+               for ln in lines if re.search(r" iter \d+ loss ", ln))
+    if stopped != last or ckpt.read_payload(
+            parked.group(2), use_cache=False)["step"] != stopped:
+        raise AssertionError(f"preempt: parked step {stopped}, last logged "
+                             f"step {last}")
+    t0 = time.perf_counter()
+    rc, out2 = run_module("oktopk_tpu_torch.train.main_bert", argv, env)
+    resume_s = time.perf_counter() - t0
+    steps2 = iter_lines(out2)
+    sub = preemption.interrupted_state_path(state_dir, "chip_smoke") + ".d"
+    if (rc != 0 or f"resumed interrupted state at step {stopped}" not in out2
+            or len(steps2) != 50 - stopped or os.path.isdir(sub)
+            and os.listdir(sub)):
+        raise AssertionError(f"preempt resume: exit {rc}, {len(steps2)} "
+                             f"steps\n{out2[-4000:]}")
+    res = {"phase": "preempt", "signal": "SIGUSR2",
+           "signalled_after_step": signalled_after,
+           "exit": 3, "parked_step": stopped, "stop_run_s": stop_s,
+           "resume_exit": 0, "resumed_steps": len(steps2),
+           "resume_run_s": resume_s, "parked_state_cleared": True}
+    emit(res)
+    return res
+
+
+def write_mrpc(root: str, n_train: int = 64, n_dev: int = 32,
+               seed: int = SEED) -> None:
+    """MRPC-shaped TSVs (Quality, #1 ID, #2 ID, #1 String, #2 String):
+    a paraphrase drops one word of the first sentence, a non-paraphrase
+    is another sentence."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    words = slice9_words()
+
+    def sentence():
+        return " ".join(words[i] for i in rng.randint(0, len(words),
+                                                      rng.randint(5, 16)))
+    os.makedirs(root, exist_ok=True)
+    for name, n in (("train.tsv", n_train), ("dev.tsv", n_dev)):
+        rows = ["Quality\t#1 ID\t#2 ID\t#1 String\t#2 String"]
+        for i in range(n):
+            a = sentence()
+            y = int(rng.rand() < 0.5)
+            if y:
+                ws = a.split()
+                del ws[rng.randint(len(ws))]
+                b = " ".join(ws)
+            else:
+                b = sentence()
+            rows.append(f"{y}\t{2 * i}\t{2 * i + 1}\t{a}\t{b}")
+        with open(os.path.join(root, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(rows) + "\n")
+
+
+def phase_glue_cli(dev, root: str) -> dict:
+    """``glue --task mrpc --model bert_base --data-dir T/MRPC --vocab-file
+    T/vocab.txt --ckpt D --epochs 1`` on TSVs the script writes: the
+    grafted encoder bit-equal to the checkpoint's ``bert`` subtree (the
+    head left as initialised), then the command line on the card with
+    the counters set to 0 just before and read just after: finite loss,
+    the metrics, exit 0."""
+    import logging
+
+    import torch
+    from oktopk_tpu_torch.convert import bert_to_jax_params
+    from oktopk_tpu_torch.data.tokenization import FullTokenizer
+    from oktopk_tpu_torch.train import checkpoint as ckpt
+    from oktopk_tpu_torch.train import glue
+
+    mrpc = os.path.join(root, "MRPC")
+    write_mrpc(mrpc)
+    d = os.path.join(root, "bert_ckpt")
+    argv = ["--task", "mrpc", "--model", BERT9_MODEL, "--data-dir", mrpc,
+            "--vocab-file", os.path.join(root, "vocab.txt"), "--ckpt", d,
+            "--epochs", "1", "--batch-size", "8", "--device", str(dev)]
+    args = glue.parse_args(argv)
+    model = glue.build_model(args, FullTokenizer(args.vocab_file))
+    t0 = time.perf_counter()
+    glue.graft_encoder(model, d)
+    graft_s = time.perf_counter() - t0
+    want = ckpt.read_payload(ckpt.latest_checkpoint(d))["state"]["params"]
+    got = bert_to_jax_params(model.state_dict())
+    leaves = trees_bit_equal(got["bert"], want["bert"], "glue graft")
+    if "Dense_0" not in got or "bert" not in want:
+        raise AssertionError("glue: the classifier's tree is not flax's")
+    del model, got, want
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    logger = logging.getLogger("oktopk_tpu_torch.glue")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = glue.main(argv)
+    finally:
+        logger.removeHandler(handler)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts()
+    ckpt.clear_cache()
+    torch.cuda.empty_cache()
+    msgs = [r.getMessage() for r in records]
+    epoch = [m for m in msgs if m.startswith("epoch 0: train loss")]
+    loss = (float(epoch[0].split()[4]) if epoch else float("nan"))
+    if rc != 0 or not epoch or not math.isfinite(loss) \
+            or "accuracy=" not in epoch[0] or "f1=" not in epoch[0]:
+        raise AssertionError(f"glue CLI: exit {rc}, log {msgs}")
+    assert_launched(launches, ("threefry",), "glue_cli")
+    out = {"phase": "glue_cli", "task": "mrpc", "model": BERT9_MODEL,
+           "train_rows": 64, "dev_rows": 32, "batch": 8,
+           "graft_bit_equal": True, "encoder_leaves": leaves,
+           "graft_s": graft_s, "cli_s": cli_s, "log": epoch[0],
+           "launches": launches}
+    emit(out)
+    return out
+
+
+def tone_wav(path: str, text: str, rng) -> None:
+    """16 kHz PCM: each character a sine in its own 5-bin band (as the
+    synthetic AN4 batches code it), 8 hops of 10 ms, over a little
+    noise."""
+    import wave
+
+    import numpy as np
+    from oktopk_tpu_torch.data import audio
+    parts = []
+    t = np.arange(8 * audio.HOP) / audio.SAMPLE_RATE
+    for ch in text.upper():
+        c = audio.AN4_LABELS.index(ch)
+        parts.append(0.5 * np.sin(2 * np.pi * (c * 5 + 2) * 50.0 * t))
+    x = np.concatenate(parts + [np.zeros(audio.WINDOW)])
+    x = x + 0.01 * rng.randn(len(x))
+    pcm = np.clip(x * 32767, -32768, 32767).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(audio.SAMPLE_RATE)
+        w.writeframes(pcm.tobytes())
+
+
+def write_an4(root: str, n: int = 16, seed: int = SEED) -> None:
+    """``n`` tone-coded utterances of AN4-like words with their
+    transcripts, and both manifests."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    words = ["YES", "NO", "ENTER", "ERASE", "RUBOUT", "STOP", "GO", "TWO",
+             "SIX", "NINE"]
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for i in range(n):
+        text = " ".join(rng.choice(words, size=rng.randint(1, 4)))
+        tone_wav(os.path.join(root, f"u{i}.wav"), text, rng)
+        with open(os.path.join(root, f"u{i}.txt"), "w") as f:
+            f.write(text)
+        lines.append(f"u{i}.wav,u{i}.txt")
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"an4_{split}_manifest.csv"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def phase_an4_eval(dev, root: str) -> dict:
+    """``main_trainer --dnn lstman4 --dataset an4 --data-dir T
+    --num-workers 4 --batch-size 2 --density 0.02 --grad-clip 400
+    --max-iters 4 --ckpt-dir D --ckpt-every 4`` (one dense warmup step)
+    on WAV files and manifests the script writes (``meta["synthetic"]``
+    False), counters set to 0 just before and read just after; then
+    ``evaluate --dnn lstman4 --dataset an4 --ckpt D`` on the card and on
+    the CPU, two batches of two utterances: the CTC loss within 1e-4
+    relative (lstman4_parity's tolerance, H18), the greedy hypotheses and
+    WER/CER equal, or the count of differing hypotheses stated."""
+    import logging
+
+    import torch
+    from oktopk_tpu_torch.data import make_dataset
+    from oktopk_tpu_torch.train import checkpoint as ckpt
+    from oktopk_tpu_torch.train import evaluate, main_trainer
+
+    data_dir = os.path.join(root, "an4")
+    write_an4(data_dir)
+    d = os.path.join(root, "an4_ckpt")
+    it, meta = make_dataset("an4", AN4_DNN, 8, path=data_dir)
+    if meta["synthetic"]:
+        raise AssertionError("an4_eval: the manifests were not read")
+    batch_ms = median_ms(lambda: next(it))
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    logger = logging.getLogger("oktopk_tpu_torch")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = main_trainer.main([
+            "--dnn", AN4_DNN, "--dataset", "an4", "--data-dir", data_dir,
+            "--device", str(dev), "--num-workers", "4", "--batch-size",
+            "2", "--density", "0.02", "--grad-clip", "400", "--lr", "3e-4",
+            "--max-iters", "4", "--warmup-steps", "1", "--ckpt-dir", d,
+            "--ckpt-every", "4", "--seed", str(SEED), "--log-every", "1"])
+    finally:
+        logger.removeHandler(handler)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    msgs = [r.getMessage() for r in records]
+    saved = [m for m in msgs if m.startswith("checkpoint ")]
+    if rc != 0 or not saved or any("synthetic" in m for m in msgs):
+        raise AssertionError(f"an4_eval main_trainer: exit {rc}, {msgs}")
+    assert_launched(launches, SPARSE_KERNELS, "an4_eval main_trainer")
+    torch.cuda.empty_cache()
+    res = {}
+    for where in (str(dev), "cpu"):
+        t0 = time.perf_counter()
+        metrics, hyps = evaluate.evaluate(evaluate.parse_args([
+            "--dnn", AN4_DNN, "--dataset", "an4", "--data-dir", data_dir,
+            "--ckpt", d, "--batch-size", "2", "--num-batches", "2",
+            "--device", where]))
+        res[where] = (metrics, hyps, time.perf_counter() - t0)
+        ckpt.clear_cache()
+        torch.cuda.empty_cache()
+    (gm, gh, gs), (cm, ch, cs) = res[str(dev)], res["cpu"]
+    if not all(math.isfinite(v) for v in gm.values()):
+        raise AssertionError(f"an4_eval: card metrics {gm}")
+    rel = abs(gm["loss"] - cm["loss"]) / abs(cm["loss"])
+    if rel > 1e-4:
+        raise AssertionError(f"an4_eval: loss card {gm['loss']} vs CPU "
+                             f"{cm['loss']} ({rel:.2e} relative)")
+    differing = sum(a != b for a, b in zip(gh, ch))
+    if not differing and (gm["wer"], gm["cer"]) != (cm["wer"], cm["cer"]):
+        raise AssertionError("an4_eval: equal hypotheses, other WER/CER")
+    out = {"phase": "an4_eval", "utterances": 16, "frames": 400,
+           "batch_ms": batch_ms, "train_s": train_s, "checkpoint": saved[0],
+           "launches": launches, "card": gm, "cpu": cm,
+           "loss_rel_diff": rel, "hypotheses": len(gh),
+           "differing_hypotheses": differing, "eval_card_s": gs,
+           "eval_cpu_s": cs, "hypothesis_0": gh[0] if gh else None}
+    emit(out)
+    return out
+
+
+def _ckpt_rank(rank: int, tmp: str, world: int, dev: str, ckpt_dir: str):
+    import torch.distributed as dist
+
+    from oktopk_tpu_torch.train import main_trainer
+    from oktopk_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    dist_join(rank, world, tmp, "gloo", dev)
+    argv = ["--device", dev, "--backend", "gloo"]
+    trainer, data, _, _ = main_trainer.build_trainer(vgg_args(argv))
+    recs, launches = run_vgg_steps(trainer, data, 4)
+    t0 = time.perf_counter()
+    state = trainer.train_state()          # every row gathered to rank 0
+    gather_s = time.perf_counter() - t0
+    if rank == 0:
+        save_checkpoint(ckpt_dir, state, 4)
+    del state
+    dist.barrier()
+    # the ranks' agreement on a stop, polled before each step: one
+    # stopping poll (no step runs)
+    agree_ms = median_ms(lambda: trainer.train(data, 1,
+                                               should_stop=lambda: True),
+                         reps=20)
+    fresh, _, _, _ = main_trainer.build_trainer(vgg_args(argv))
+    tree, step = restore_checkpoint(ckpt_dir, fresh.train_state(
+        gather=False))
+    fresh.load_train_state(tree)
+    n = trees_bit_equal(fresh.train_state(host=True, gather=False),
+                        trainer.train_state(host=True, gather=False),
+                        f"dist_ckpt rank {rank} restore")
+    return {"step": step, "leaves": n, "launches": launches,
+            "losses": [r["loss"] for r in recs], "gather_s": gather_s,
+            "agree_ms": agree_ms}
+
+
+def ckpt_rank(rank, tmp, world, dev, ckpt_dir):
+    """Spawn target: full-width VGG-16 as one gloo rank, four steps, a
+    checkpoint (the rows gathered to rank 0), its restore; host seconds
+    of the gather and host ms of one stop poll (the ranks' agreement)."""
+    dist_guard(_ckpt_rank, rank, tmp, world, dev, ckpt_dir)
+
+
+def phase_dist_ckpt(dev, root: str) -> dict:
+    """Four gloo ranks of full-width VGG-16 through ``main_trainer.
+    build_trainer`` (one dense warmup step, three oktopk steps), then a
+    checkpoint: its ``state`` tree bit-equal to the stacked Trainer's
+    file from the same seed, and a four-rank restore that puts each
+    rank's row back, bit for bit."""
+    import torch
+    from oktopk_tpu_torch.train import main_trainer
+    from oktopk_tpu_torch.train.checkpoint import (clear_cache,
+                                                   read_payload,
+                                                   save_checkpoint)
+
+    stacked_dir = os.path.join(root, "dist_stacked")
+    ranks_dir = os.path.join(root, "dist_ranks")
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        trainer, data, _, _ = main_trainer.build_trainer(vgg_args(
+            ["--device", str(dev), "--num-workers", str(DIST_P)]))
+        want, _ = run_vgg_steps(trainer, data, 4)
+        save_checkpoint(stacked_dir, trainer.train_state(), 4)
+        del trainer
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(ckpt_rank, DIST_P,
+                            (DIST_P, str(dev), ranks_dir), "dist_ckpt")
+        ranks_s = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    for r, res in enumerate(ranks):
+        if res["losses"] != [w["loss"] for w in want]:
+            raise AssertionError(f"dist_ckpt rank {r}: losses "
+                                 f"{res['losses']} vs stacked")
+        assert_launched(res["launches"], SPARSE_KERNELS,
+                        f"dist_ckpt rank {r}")
+    got = read_payload(os.path.join(ranks_dir, "ckpt-4.msgpack"),
+                       use_cache=False)["state"]
+    ref = read_payload(os.path.join(stacked_dir, "ckpt-4.msgpack"),
+                       use_cache=False)["state"]
+    leaves = trees_bit_equal(got, ref, "dist_ckpt file")
+    clear_cache()
+    out = {"phase": "dist_ckpt", "model": "vgg16", "ranks": DIST_P,
+           "file_equal_to_stacked": True, "leaves": leaves,
+           "residual_rows": int(got["sparse_state"]["residual"].shape[0]),
+           "bytes": os.path.getsize(os.path.join(ranks_dir,
+                                                 "ckpt-4.msgpack")),
+           "restored_rows_bit_equal": [res["leaves"] for res in ranks],
+           "gather_s": [res["gather_s"] for res in ranks],
+           "stop_poll_ms": [res["agree_ms"] for res in ranks],
+           "ranks_s": ranks_s}
+    emit(out)
+    return ranks[0]["launches"]
+
+
+def slice9_phases(dev, by_path: dict) -> None:
+    """The train-surface phases in one temporary directory (the state
+    directory inside it), removed at the end; each phase's time."""
+    import shutil
+    import tempfile
+
+    import torch
+    root = tempfile.mkdtemp(prefix="oktopk_slice9_")
+    secs = {}
+    old = {k: os.environ.get(k) for k in ("OKTOPK_STATE_DIR",
+                                         "OKTOPK_NATIVE")}
+    os.environ["OKTOPK_STATE_DIR"] = os.path.join(root, "state")
+    os.environ["OKTOPK_NATIVE"] = "1"       # g++ failing must fail the run
+    try:
+        for name, fn in (("text_data", lambda: phase_text_data(root)),
+                         ("bert_ckpt", lambda: phase_bert_ckpt(dev, root)),
+                         ("preempt", lambda: phase_preempt(root)),
+                         ("glue_cli", lambda: phase_glue_cli(dev, root)),
+                         ("an4_eval", lambda: phase_an4_eval(dev, root)),
+                         ("dist_ckpt", lambda: phase_dist_ckpt(dev, root))):
+            t0 = time.perf_counter()
+            res = fn()
+            secs[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            if name == "bert_ckpt":
+                by_path["bert, resumed from its checkpoint"] = \
+                    res["launches"]
+            elif name == "glue_cli":
+                by_path[f"glue ({BERT9_MODEL}, MRPC)"] = res["launches"]
+            elif name == "an4_eval":
+                by_path["lstman4 on AN4 files (main_trainer CLI)"] = \
+                    res["launches"]
+            elif name == "dist_ckpt":
+                by_path["oktopk + checkpoint, one worker per process "
+                        "(rank 0 of 4)"] = res
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "slice9_seconds", **secs, "total": sum(secs.values())})
+
+
 def kernel_line(timings, errs, by_path, edge_err, big, tf_timings):
     """The ``{"kernels": [...]}`` entries at the main path's shapes (the
     compaction's phase-(a) form; ``forms`` has every form), then each
@@ -2839,6 +3643,7 @@ def main() -> int:
     by_path["lstm (PTB)"] = phase_lstm_trainer(dev)
     by_path["resnet50"] = phase_resnet50_trainer(dev)
     phase_loader_cli(dev)
+    slice9_phases(dev, by_path)
     by_path["hierarchical"] = phase_hierarchical(dev)
     phase_dist_allreduce(dev)
     by_path["hierarchical, one worker per process (rank 0 of 4)"] = \

@@ -24,6 +24,8 @@ Every result is bit-equal to ``StackedComm``'s row for this rank:
 - ``ppermute_pair`` (gtopk's XOR butterfly) is one
   ``all_to_all_single`` whose split sizes are nonzero only for the
   partner: gloo has no send/recv of CUDA tensors.
+- ``gather`` is one ``dist.gather`` to the group's rank 0 (a
+  checkpoint's per-worker rows, which rank 0 alone writes).
 - The data-moving verbs carry bf16 values as they are; no verb does
   arithmetic on bf16.
 
@@ -113,6 +115,22 @@ class ProcessGroupComm:
                           dtype=x.dtype, device=x.device)
         dist.all_gather(list(out[0].unbind(0)), x[0].contiguous(),
                         group=self.group)
+        return out
+
+    def gather(self, x: torch.Tensor):
+        """[1, ...] -> [1, P, ...] on the group's rank 0: every rank's row,
+        in rank order; None on the other ranks (a checkpoint's rows,
+        which rank 0 alone writes)."""
+        self._check(x)
+        dst = 0 if self.group is None else dist.get_global_rank(self.group,
+                                                                0)
+        if self.first_worker != 0:
+            dist.gather(x[0].contiguous(), None, dst=dst, group=self.group)
+            return None
+        out = torch.empty((1, self.size) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.gather(x[0].contiguous(), list(out[0].unbind(0)), dst=dst,
+                    group=self.group)
         return out
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:

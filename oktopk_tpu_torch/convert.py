@@ -35,8 +35,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from oktopk_tpu_torch.models.bert import (BertForPreTraining, flax_path,
-                                          torch_key)
+from oktopk_tpu_torch.models.bert import (BertForPreTraining,
+                                          BertForSequenceClassification,
+                                          flax_path, torch_key)
 from oktopk_tpu_torch.models.layout import (FlaxNamedModule, flax_named_key,
                                             flax_named_path,
                                             from_jax_layout, to_jax_layout)
@@ -74,7 +75,8 @@ def _family(model, tree_says: str) -> str:
     """"bert", "flax_named" or "vgg": the model's, else the tree's."""
     if model is None:
         return tree_says
-    if isinstance(model, BertForPreTraining):
+    if isinstance(model, (BertForPreTraining,
+                          BertForSequenceClassification)):
         return "bert"
     return "flax_named" if isinstance(model, FlaxNamedModule) else "vgg"
 
@@ -226,3 +228,224 @@ def to_jax_params(tensors: Dict[str, torch.Tensor],
         else:
             raise KeyError(f"unexpected state_dict key {key!r}")
     return params, stats
+
+
+# ---------------------------------------------------------------------------
+# the whole train state, as the JAX package's DistTrainState state dict
+
+# SparseState fields the JAX state holds as int32 (the rest are float32)
+_INT32_FIELDS = ("step", "boundaries", "last_local_count",
+                 "last_global_count")
+
+
+def _nest(pairs) -> dict:
+    """A nested dict from (flax path, leaf) pairs, its keys sorted at
+    every level as ``jax.device_get`` leaves a flax tree."""
+    tree: dict = {}
+    for path, v in pairs:
+        _set(tree, path, v)
+
+    def srt(t):
+        return ({k: srt(t[k]) for k in sorted(t)} if isinstance(t, dict)
+                else t)
+    return srt(tree)
+
+
+def _get(tree, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def stat_path(model, key: str) -> str:
+    """The flax ``batch_stats`` path of a model buffer (a BatchNorm's
+    ``mean`` or ``var``)."""
+    fam = _family(model, "vgg")
+    if fam == "flax_named":
+        return flax_named_path(key)[0]
+    if fam == "vgg":
+        _, i, leaf = key.split(".")
+        return f"BatchNorm_{i}/{leaf}"
+    raise KeyError(f"BERT has no batch statistics ({key!r})")
+
+
+def _flat_tree(trainer, flat: torch.Tensor) -> dict:
+    """A params-shaped tree of the flat [n] buffer's segments (the flat
+    buffers are in the JAX leaf order and layout)."""
+    return _nest((path, flat[s:e].view(shp)) for (path, _, _), shp, s, e in
+                 zip(trainer.leaves, trainer.jax_shapes,
+                     trainer.offsets[:-1], trainer.offsets[1:]))
+
+
+def _rows(trainer, t: torch.Tensor, gather: bool) -> torch.Tensor:
+    """Every worker's row of a per-worker tensor ([W, ...] -> [P, ...]):
+    across processes gathered to rank 0 (a collective); the other ranks
+    keep their own rows."""
+    if gather and trainer.comm.local_workers < trainer.comm.size:
+        got = trainer.comm.gather(t)
+        return t if got is None else got[0]
+    return t
+
+
+def train_state_to_jax(trainer, host: bool = True,
+                       gather: bool = True) -> dict:
+    """The Trainer's whole state as the JAX ``DistTrainState`` state
+    dict: ``params`` and ``model_state`` (``{"batch_stats": ...}`` where
+    the model has BatchNorm, else ``{}``) in the flax tree and layouts;
+    ``opt_state`` as SGD's ``{step, momentum_buf}`` (the momentum in the
+    params' tree, or None) or BertAdam's ``{step, m, v}``;
+    ``sparse_state`` (one ``SparseState`` field dict, or ``{"0": ...,
+    "1": ...}`` with ``num_buckets > 1``) and ``local_momentum`` (None
+    without momentum correction) with every worker's row; ``health``
+    and ``quality`` None (the port has neither the guard nor the quality
+    taps in its step).
+
+    ``host`` copies every leaf to a fresh host array (the checkpoint);
+    otherwise the leaves are the live tensors, viewed in the flax
+    layout. Across processes ``gather`` collects every rank's rows on
+    rank 0 (a collective: every rank calls it; rank 0's tree is the
+    whole state, the other ranks' hold their own rows); without it each
+    rank gives its own rows (enough for a restore template)."""
+    from oktopk_tpu_torch.collectives.state import TENSOR_FIELDS
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.train.checkpoint import host_tree
+
+    model = trainer.model
+    params = _nest((path, to_jax_layout(p.detach(), layout))
+                   for path, p, layout in trainer.leaves)
+    stats = _nest((stat_path(model, k), b)
+                  for k, b in model.named_buffers())
+    opt = trainer.optimizer
+    if isinstance(opt, BertAdam):
+        opt_state = {"step": opt.step, "m": _flat_tree(trainer, opt.m),
+                     "v": _flat_tree(trainer, opt.v)}
+    else:
+        buf = (None if opt.momentum_buf is None else _nest(
+            (path, to_jax_layout(b, layout))
+            for (path, _, layout), b in zip(trainer.leaves,
+                                            opt.momentum_buf)))
+        opt_state = {"step": np.asarray(opt.step, np.int32),
+                     "momentum_buf": buf}
+    gs = trainer.grad_step
+    sparse = [{f: _rows(trainer, getattr(st, f).to(
+        torch.int32 if f in _INT32_FIELDS else torch.float32), gather)
+        for f in TENSOR_FIELDS} for st in gs.states]
+    moms = (None if gs.momenta is None
+            else [_rows(trainer, m, gather) for m in gs.momenta])
+    bucketed = trainer.cfg.num_buckets > 1
+    state = {
+        "params": params,
+        "model_state": {"batch_stats": stats} if stats else {},
+        "opt_state": opt_state,
+        "sparse_state": ({str(i): s for i, s in enumerate(sparse)}
+                         if bucketed else sparse[0]),
+        "local_momentum": (None if moms is None else
+                           {str(i): m for i, m in enumerate(moms)}
+                           if bucketed else moms[0]),
+        "health": None,
+        "quality": None,
+    }
+    return host_tree(state) if host else state
+
+
+def _as_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
+@torch.no_grad()
+def _copy(dst: torch.Tensor, src, what: str) -> None:
+    src = _as_tensor(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{what}: checkpoint shape {tuple(src.shape)} "
+                         f"vs the model's {tuple(dst.shape)}")
+    if src is not dst:
+        dst.copy_(src)
+
+
+def load_train_state_from_jax(trainer, tree: dict,
+                              parts=("params", "model_state", "opt_state",
+                                     "sparse_state", "local_momentum")
+                              ) -> None:
+    """Put a JAX ``DistTrainState`` state dict (``train_state_to_jax``'s
+    layout, from either package's checkpoint) into the Trainer, in
+    place. Each process takes its own workers' rows of the per-worker
+    state. A leaf that is a tensor is the live state itself (a restore
+    template's default) and is left as it is. ``parts`` names the fields
+    to load (``evaluate`` loads the model's alone)."""
+    from oktopk_tpu_torch.collectives.state import (TENSOR_FIELDS,
+                                                    SparseState)
+    from oktopk_tpu_torch.optim import BertAdam
+
+    model, dev = trainer.model, trainer.device
+    if "params" in parts:
+        for path, p, layout in trainer.leaves:
+            a = _get(tree["params"], path)
+            if not isinstance(a, torch.Tensor):
+                _copy(p, from_jax_layout(_as_tensor(a), layout),
+                      f"params/{path}")
+    if "model_state" in parts:
+        for k, b in model.named_buffers():
+            path = "batch_stats/" + stat_path(model, k)
+            _copy(b, _get(tree["model_state"], path), path)
+    if "opt_state" in parts:
+        _load_opt(trainer, tree["opt_state"], BertAdam)
+    first, W, P = (trainer.comm.first_worker, trainer.comm.local_workers,
+                   trainer.comm.size)
+
+    def rows(a, what):
+        a = _as_tensor(a)
+        if a.shape[0] != P:
+            raise ValueError(f"{what}: the checkpoint has {a.shape[0]} "
+                             f"workers, the trainer {P}")
+        return a[first:first + W].to(dev)
+
+    gs = trainer.grad_step
+    bucketed = trainer.cfg.num_buckets > 1
+    if "sparse_state" in parts:
+        ss = tree["sparse_state"]
+        for b, st in enumerate(gs.states):
+            d = ss[str(b)] if bucketed else ss
+            if isinstance(d["step"], torch.Tensor):
+                continue
+            kw = {f: rows(d[f], f"sparse_state/{f}").to(
+                getattr(st, f).dtype) for f in TENSOR_FIELDS}
+            if kw["residual"].shape != st.residual.shape:
+                raise ValueError("sparse_state/residual: checkpoint "
+                                 f"{tuple(kw['residual'].shape)} vs "
+                                 f"{tuple(st.residual.shape)}")
+            gs.states[b] = SparseState(
+                **kw, host_step=int(kw["step"].reshape(-1)[0]))
+    if "local_momentum" in parts and gs.momenta is not None:
+        lm = tree["local_momentum"]
+        for b in range(len(gs.momenta)):
+            a = lm[str(b)] if bucketed else lm
+            if not isinstance(a, torch.Tensor):
+                _copy(gs.momenta[b], rows(a, "local_momentum"),
+                      "local_momentum")
+
+
+def _load_opt(trainer, opt_state: dict, bert_adam_cls) -> None:
+    opt = trainer.optimizer
+    if isinstance(opt, bert_adam_cls):
+        if not isinstance(opt_state["step"], torch.Tensor):
+            opt.step = _as_tensor(opt_state["step"]).to(
+                device=trainer.device, dtype=torch.int32).reshape(())
+        for name in ("m", "v"):
+            flat = getattr(opt, name)
+            for (path, _, _), shp, s, e in zip(
+                    trainer.leaves, trainer.jax_shapes,
+                    trainer.offsets[:-1], trainer.offsets[1:]):
+                _copy(flat[s:e].view(shp), _get(opt_state[name], path),
+                      f"opt_state/{name}/{path}")
+        return
+    opt.step = int(np.asarray(opt_state["step"]))
+    if opt.momentum_buf is not None:
+        for (path, _, layout), buf in zip(trainer.leaves, opt.momentum_buf):
+            a = _get(opt_state["momentum_buf"], path)
+            _copy(buf, from_jax_layout(_as_tensor(a), layout),
+                  f"opt_state/momentum_buf/{path}")

@@ -2,19 +2,18 @@
 
 Counterpart of ``oktopk_tpu/data/loaders.py:28-290``: the CIFAR-10
 pickle batches, the MNIST idx files, the reference's ImageNet HDF5 file
-(RandomResizedCrop, flip and normalise in numpy), the PTB text, and
-``make_dataset``, which returns ``(iterator, meta)`` and yields the
-synthetic batches of the same shapes (``data/synthetic.py``) when the
-files are missing, with ``meta["synthetic"]`` True and 50,000 examples
-an epoch. The same files and seed give the same batches as the JAX
-package's Python path: the same numpy draws in the same order.
-
-Not ported yet (ROADMAP.md): the native prefetch ring the JAX package's
-``_batched`` takes when ``OKTOPK_NATIVE`` asks for it (this module never
-reads that variable), and the AN4 audio and Wikipedia pretraining
-loaders with their tokenizer: with those files present ``make_dataset``
-raises ``NotImplementedError``; without them it falls back to the
-synthetic batches, as the JAX package does.
+(RandomResizedCrop, flip and normalise in numpy), the PTB text, the AN4
+manifests (``data/audio.py``), the Wikipedia sentence-per-line corpus
+with its ``vocab.txt`` (``data/bert_pretrain.py``, tokenized by the
+native WordPiece tokenizer when ``OKTOPK_NATIVE`` resolves to it, else
+by ``data/tokenization.py``, whose hash fallback without a vocab file
+is sized to the model's table), and ``make_dataset``, which returns
+``(iterator, meta)`` and yields the synthetic batches of the same shapes
+(``data/synthetic.py``) when the files are missing, with
+``meta["synthetic"]`` True and 50,000 examples an epoch. The same files
+and seed give the same batches as the JAX package: the same numpy draws
+in the same order, and the native prefetch ring (``native/loader.py``)
+for shuffled epochs when the policy resolves to it.
 """
 
 from __future__ import annotations
@@ -33,18 +32,30 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 # examples an epoch of the synthetic fallback
 SYNTHETIC_EXAMPLES = 50000
+# examples an epoch of the AN4 manifests (the JAX package's count)
+AN4_EXAMPLES = 948
 
 
 def _batched(x: Dict[str, np.ndarray], batch_size: int, seed: int,
              shuffle: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-    """Epoch batches, reshuffled each epoch from one ``RandomState``."""
-    n = len(next(iter(x.values())))
-    rng = np.random.RandomState(seed)
-    while True:
-        order = rng.permutation(n) if shuffle else np.arange(n)
-        for i in range(0, n - batch_size + 1, batch_size):
-            sel = order[i:i + batch_size]
-            yield {k: v[sel] for k, v in x.items()}
+    """Epoch batches, reshuffled each epoch from one ``RandomState``; a
+    shuffled stream comes from the native prefetch ring when
+    ``native.resolve("loader")`` says so (``OKTOPK_NATIVE``)."""
+    from oktopk_tpu_torch import native
+    if shuffle and native.resolve("loader"):
+        from oktopk_tpu_torch.native.loader import make_prefetch_iter
+        return make_prefetch_iter(x, batch_size, seed=seed)
+
+    def gen():
+        n = len(next(iter(x.values())))
+        rng = np.random.RandomState(seed)
+        while True:
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            for i in range(0, n - batch_size + 1, batch_size):
+                sel = order[i:i + batch_size]
+                yield {k: v[sel] for k, v in x.items()}
+
+    return gen()
 
 
 def load_cifar10(path: str, split: str = "train"):
@@ -196,10 +207,32 @@ def load_ptb(path: str, split: str = "train", num_steps: int = 35):
     return {"tokens": toks, "targets": tgts}, len(vocab)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"the {what} loader is not ported to oktopk_tpu_torch yet "
-        "(ROADMAP.md); without its files the synthetic batches are used")
+def _wikipedia(path: str, dnn: str, batch_size: int, seed: int,
+               seq_len: Optional[int]):
+    """MLM/NSP batches from ``<path>/wikipedia`` (a file or a directory
+    of files) and ``<path>/vocab.txt``."""
+    from oktopk_tpu_torch.data.bert_pretrain import pretrain_iterator
+    from oktopk_tpu_torch.data.tokenization import FullTokenizer
+    corpus = os.path.join(path, "wikipedia")
+    if not os.path.exists(corpus):
+        raise FileNotFoundError(corpus)
+    vocab_file = os.path.join(path, "vocab.txt")
+    tok = None
+    from oktopk_tpu_torch import native
+    if os.path.exists(vocab_file) and native.resolve("tokenizer"):
+        from oktopk_tpu_torch.native.tokenizer import NativeTokenizer
+        tok = NativeTokenizer(vocab_file)
+    vocab_size = 1024 if dnn == "bert_tiny" else 30522
+    if tok is None:
+        # without a vocab file the hash ids must fall inside the model's
+        # embedding table
+        tok = FullTokenizer(
+            vocab_file if os.path.exists(vocab_file) else None,
+            fallback_size=vocab_size)
+    seq = seq_len or (32 if dnn == "bert_tiny" else 128)
+    return (pretrain_iterator(corpus, tok, batch_size, seq, seed,
+                              vocab_size),
+            {"synthetic": False, "num_examples": SYNTHETIC_EXAMPLES})
 
 
 def make_dataset(dataset: str, dnn: str, batch_size: int,
@@ -212,16 +245,17 @@ def make_dataset(dataset: str, dnn: str, batch_size: int,
     path = path or os.environ.get("OKTOPK_DATA_DIR", "./data")
     try:
         if dataset == "wikipedia":
-            if not os.path.exists(os.path.join(path, "wikipedia")):
-                raise FileNotFoundError(path)
-            _not_ported("Wikipedia pretraining")
+            return _wikipedia(path, dnn, batch_size, seed, seq_len)
         if dataset == "an4":
+            from oktopk_tpu_torch.data.audio import an4_iterator
             manifest = os.path.join(
                 path, "an4_train_manifest.csv" if split == "train"
                 else "an4_val_manifest.csv")
             if not os.path.exists(manifest):
                 raise FileNotFoundError(manifest)
-            _not_ported("AN4 audio")
+            it = an4_iterator(manifest, batch_size, seed=seed,
+                              shuffle=split == "train")
+            return it, {"synthetic": False, "num_examples": AN4_EXAMPLES}
         if dataset == "imagenet":
             h5path = os.path.join(path, "imagenet-shuffled.hdf5")
             if not os.path.exists(h5path):

@@ -237,7 +237,53 @@ def dropout_sites(cfg: BertConfig):
     return sites
 
 
-class BertForPreTraining(nn.Module):
+class _FlaxInitMixin:
+    """flax's default initialisers and the flax leaf order, shared by the
+    pretraining and the classification models."""
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """flax's default initialisers, drawn on the CPU from
+        ``generator`` module by module (the draws are not JAX's: parity
+        runs start from carried-over weights)."""
+        def lecun_(w, fan_in):
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), std=std,
+                                          a=-2.0 * std, b=2.0 * std,
+                                          generator=generator))
+
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                lecun_(m.weight, m.in_features)
+                m.bias.zero_()
+            elif isinstance(m, DenseGeneral):
+                lecun_(m.kernel, math.prod(m.in_shape))
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape,
+                                           generator=generator)
+                               / math.sqrt(m.embedding_dim))
+            elif isinstance(m, LayerNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+        if hasattr(self, "mlm_bias"):
+            self.mlm_bias.zero_()
+
+    def jax_leaves(self) -> List[Tuple[str, nn.Parameter, str]]:
+        """(flax path, parameter, layout) in ``jax.tree.flatten`` order:
+        dict keys sorted as strings at every level, so the encoder runs
+        layer_0, layer_1, layer_10, layer_11, layer_2, ..., and the
+        embeddings LayerNorm_0, position_, token_type_, word_embeddings.
+        The tied decoder has no leaf of its own."""
+        leaves = []
+        for key, p in self.named_parameters():
+            path, layout = flax_path(key)
+            leaves.append((tuple(path.split("/")), path, p, layout))
+        leaves.sort(key=lambda t: t[0])
+        return [(path, p, layout) for _, path, p, layout in leaves]
+
+
+class BertForPreTraining(_FlaxInitMixin, nn.Module):
     """MLM + NSP heads over ``BertModel``; the MLM decoder is the word
     embedding table. Returns float32 (mlm_logits [B, T, vocab],
     nsp_logits [B, 2])."""
@@ -268,46 +314,33 @@ class BertForPreTraining(nn.Module):
         nsp_logits = self.nsp(pooled)
         return mlm_logits.to(torch.float32), nsp_logits.to(torch.float32)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """flax's default initialisers, drawn on the CPU from
-        ``generator`` module by module (the draws are not JAX's: parity
-        runs start from carried-over weights)."""
-        def lecun_(w, fan_in):
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), std=std,
-                                          a=-2.0 * std, b=2.0 * std,
-                                          generator=generator))
 
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                lecun_(m.weight, m.in_features)
-                m.bias.zero_()
-            elif isinstance(m, DenseGeneral):
-                lecun_(m.kernel, math.prod(m.in_shape))
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                m.weight.copy_(torch.randn(m.weight.shape,
-                                           generator=generator)
-                               / math.sqrt(m.embedding_dim))
-            elif isinstance(m, LayerNorm):
-                m.scale.fill_(1.0)
-                m.bias.zero_()
-        self.mlm_bias.zero_()
+class BertForSequenceClassification(_FlaxInitMixin, nn.Module):
+    """The GLUE head over ``BertModel``, as the JAX package's
+    ``BertForSequenceClassification`` (``oktopk_tpu/models/bert.py:
+    135-149``): the pooled output, flax's ``Dropout_0`` and a
+    ``Dense_0`` of ``num_labels`` outputs, flax-named ``bert/...``,
+    ``Dense_0/...``, so a pretraining checkpoint's ``bert`` subtree
+    grafts onto it (``train/checkpoint.py::load_encoder_params``).
+    Returns float32 logits [B, num_labels]."""
 
-    def jax_leaves(self) -> List[Tuple[str, nn.Parameter, str]]:
-        """(flax path, parameter, layout) in ``jax.tree.flatten`` order:
-        dict keys sorted as strings at every level, so the encoder runs
-        layer_0, layer_1, layer_10, layer_11, layer_2, ..., and the
-        embeddings LayerNorm_0, position_, token_type_, word_embeddings.
-        The tied decoder has no leaf of its own."""
-        leaves = []
-        for key, p in self.named_parameters():
-            path, layout = flax_path(key)
-            leaves.append((tuple(path.split("/")), path, p, layout))
-        leaves.sort(key=lambda t: t[0])
-        return [(path, p, layout) for _, path, p, layout in leaves]
+    def __init__(self, cfg: BertConfig, num_labels: int = 2):
+        super().__init__()
+        self.cfg = cfg
+        self.num_labels = num_labels
+        self.bert = BertModel(cfg)
+        self.Dense_0 = nn.Linear(cfg.hidden_size, num_labels)
+        self.site_hashes = site_hashes(dropout_sites(cfg)
+                                       + [("Dropout_0", 1)])
 
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                train: bool = True, rng=None):
+        keys = (SiteKeys(rng, self.site_hashes)
+                if train and self.cfg.dropout > 0.0 else None)
+        _, pooled = self.bert(input_ids, token_type_ids, attention_mask,
+                              train, keys)
+        x = dropout(pooled, self.cfg.dropout, train, keys)
+        return self.Dense_0(x).to(torch.float32)
 
 def flax_path(key: str) -> Tuple[str, str]:
     """(flax path, layout) of a ``state_dict`` key of

@@ -9,6 +9,8 @@ Counterpart of ``oktopk_tpu/optim/sgd.py:29-61`` (the reference's custom
     p  += -lr * d_p
 
 Parameters are updated in place (the JAX form returns new arrays).
+``step`` counts the updates, as ``SGDState.step`` does (a host int; the
+checkpoint writes it as the JAX state's int32).
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ class SGD:
         self.weight_decay = weight_decay
         self.nesterov = nesterov
         self.momentum_buf: List[torch.Tensor] | None = None
+        self.step = 0
 
     def init(self, params: Sequence[torch.Tensor]) -> None:
         self.momentum_buf = ([torch.zeros_like(p) for p in params]
                              if self.momentum else None)
+        self.step = 0
 
     @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor],
@@ -46,3 +50,4 @@ class SGD:
             else:
                 d = g
             p.add_(-self.lr * d)
+        self.step += 1

@@ -4,18 +4,33 @@ AN4 (CTC) and the PTB LSTM.
 
 Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 :25-50, :130-135 that the port serves, under the same names
-(``--compressor`` takes every registry name but ``hierarchical``), plus
-``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
+(``--compressor`` takes every registry name but ``hierarchical``), the
+checkpoint and preemption flags of :148-169 (``--ckpt-dir``,
+``--ckpt-every``, ``--ckpt-async``, ``--ckpt-keep``, ``--ckpt-force``,
+``--resume``, ``--handle-preemption``), plus ``--num-workers``,
+``--device`` and ``--backend``. ``--dataset`` is
 ``cifar10``, ``mnist`` or ``imagenet`` for the image models, ``an4``
 (``lstman4``, ``lstman4_tiny``) or ``ptb`` (``lstm``, ``lstm_tiny``).
 The batches come from ``data.make_dataset`` and the files under
 ``--data-dir`` (default ``$OKTOPK_DATA_DIR``, else ``./data``): the
 CIFAR-10 pickle batches, the MNIST idx files, the ImageNet HDF5 file or
-the PTB text; without them, the synthetic iterator of the model's family
-(201 spectrogram frames, 35 tokens), with a warning, as the JAX
-package's command line falls back; the AN4 audio loader is not ported yet (ROADMAP.md). An
-epoch is the dataset's examples (50,000 for the synthetic data) over the
-global batch. Any other dataset raises.
+the PTB text or the AN4 manifests and WAV files; without them, the
+synthetic iterator of the model's family (201 spectrogram frames, 35
+tokens), with a warning, as the JAX package's command line falls back.
+An epoch is the dataset's examples (50,000 for the synthetic data, 948
+for AN4) over the global batch. Any other dataset raises.
+
+The loop is the JAX command line's (:320-387): chunks of at most an
+epoch; after a chunk that ends on a multiple of ``--ckpt-every``, a
+checkpoint in the JAX package's format (``train/checkpoint.py``; written
+by rank 0, the state gathered from every rank first), on a background
+thread with ``--ckpt-async`` and pruned to the newest ``--ckpt-keep``.
+``--resume DIR`` restores the newest verified checkpoint (the step
+counter, parameters, optimizer and sparse state; the data iterator and
+the dropout key chain start again from ``--seed``, as in the JAX
+package, H20). ``--handle-preemption`` stops between steps on SIGINT,
+SIGTERM, SIGUSR2 or SIGUSR1, parks the state (``train/preemption.py``),
+and exits with code 3; a later run with the flag resumes from it.
 
 One process holds its P workers stacked on its device
 (``--num-workers``, default 1). A multi-process launch (``torchrun``,
@@ -39,6 +54,9 @@ Examples:
         --lr 3e-4 --max-iters 20
     torchrun --standalone --nproc-per-node 4 \\
         -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 --max-iters 20
+    python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
+        --num-workers 4 --max-iters 100 --ckpt-dir ckpts --ckpt-every 50 \\
+        --handle-preemption
 """
 
 from __future__ import annotations
@@ -47,6 +65,7 @@ import argparse
 import logging
 import os
 import sys
+import time
 
 from oktopk_tpu_torch.collectives.registry import (
     TWO_LEVEL_ONLY,
@@ -99,6 +118,24 @@ def parse_args(argv=None):
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="process-group backend across processes (default: "
                         "nccl on a card, gloo on the CPU)")
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="checkpoint every N iterations (0 = off)")
+    p.add_argument("--ckpt-async", action="store_true",
+                   help="write checkpoints on a background thread: the "
+                        "step loop pays the copy to host memory only")
+    p.add_argument("--ckpt-keep", type=int, default=0,
+                   help="retention: keep the newest N checkpoints plus "
+                        "the newest qualified one (0 = keep everything)")
+    p.add_argument("--ckpt-force", action="store_true",
+                   help="restore a checkpoint even when most of its "
+                        "leaves mismatch the model")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint directory (or file) to resume from")
+    p.add_argument("--handle-preemption", action="store_true",
+                   help="stop between steps on SIGINT/SIGTERM/SIGUSR2 "
+                        "(SIGUSR1 also requeues), park the state and exit "
+                        "with code 3; resume a parked state on start")
     args = p.parse_args(argv)
     if args.compressor == "hierarchical":
         p.error(TWO_LEVEL_ONLY)
@@ -150,6 +187,31 @@ def iterations(args, workers: int,
         1, num_examples // global_bs)
 
 
+def resume(trainer, args, logger) -> int:
+    """The step to start from: ``--resume``'s newest verified checkpoint,
+    else (with ``--handle-preemption``) a parked state, else 0; the
+    state goes into the trainer."""
+    from oktopk_tpu_torch.train.checkpoint import restore_checkpoint
+    from oktopk_tpu_torch.train.preemption import load_interrupted_state
+
+    template = trainer.train_state(gather=False)
+    if args.resume:
+        tree, start = restore_checkpoint(args.resume, template,
+                                         force=args.ckpt_force)
+        what = f"resumed from {args.resume}"
+    else:
+        parked = (load_interrupted_state(template)
+                  if args.handle_preemption else None)
+        if parked is None:
+            return 0
+        tree, start = parked
+        what = "resumed interrupted state"
+    trainer.load_train_state(tree)
+    if logger:
+        logger.info("%s at iter %d", what, start)
+    return start
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     # cuBLAS repeats its sums only with this set before the CUDA context
@@ -157,8 +219,8 @@ def main(argv=None) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     trainer, data, penv, meta = build_trainer(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    logger = (logging.getLogger("oktopk_tpu_torch") if penv.is_coordinator
-              else None)
+    rank0 = penv.is_coordinator
+    logger = logging.getLogger("oktopk_tpu_torch") if rank0 else None
     cfg = trainer.cfg
     if logger:
         logger.info("experiment %s: %d workers, %s on %s",
@@ -169,12 +231,68 @@ def main(argv=None) -> int:
     if logger and meta["synthetic"]:
         logger.warning("dataset %s not found on disk: using synthetic data",
                        args.dataset)
+    from oktopk_tpu_torch.train import preemption
+    from oktopk_tpu_torch.train.checkpoint import save_checkpoint
+    from oktopk_tpu_torch.train.durable import (AsyncCheckpointer,
+                                                apply_retention)
+
+    preempt = (preemption.PreemptionHandler() if args.handle_preemption
+               else None)
+    done = resume(trainer, args, logger)
+    global_bs = args.batch_size * cfg.num_workers * args.nsteps_update
+    per_epoch = max(1, meta["num_examples"] // global_bs)
     total = iterations(args, cfg.num_workers, meta["num_examples"])
-    m = trainer.train(data, total, log_every=args.log_every, logger=logger)
-    if logger:
+    saving = bool(args.ckpt_dir and args.ckpt_every)
+    checkpointer = (AsyncCheckpointer(args.ckpt_dir, keep_last=args.ckpt_keep)
+                    if rank0 and saving and args.ckpt_async else None)
+    m = {}
+    try:
+        while done < total:
+            chunk = min(total - done, per_epoch)
+            start = done
+            m = trainer.train(data, chunk, log_every=args.log_every,
+                              logger=logger, start_step=done,
+                              should_stop=(preempt.should_stop if preempt
+                                           else None))
+            done = trainer.last_step
+            if done == start:       # stopped before the chunk's first step
+                break
+            if logger:
+                logger.info("epoch done @ iter %d: loss %.4f vol/step %.0f",
+                            done, m["loss"], m["comm_volume"])
+            if saving and done % args.ckpt_every == 0:
+                t0 = time.perf_counter()
+                state = trainer.train_state()       # every rank: gathers
+                if checkpointer is not None:
+                    checkpointer.save(state, done)
+                elif rank0:
+                    path = save_checkpoint(args.ckpt_dir, state, done)
+                    if args.ckpt_keep:
+                        apply_retention(args.ckpt_dir,
+                                        keep_last=args.ckpt_keep)
+                    logger.info("checkpoint %s: %d B in %.3f s", path,
+                                os.path.getsize(path),
+                                time.perf_counter() - t0)
+            if done < start + chunk:  # stopped (every rank agreed)
+                break
+    finally:
+        if checkpointer is not None and preempt is None:
+            checkpointer.close(timeout=300.0)
+    if logger and m and done >= total:
         logger.info("done: %d iterations, loss %r, vol/step %d", total,
                     m["loss"], int(m["comm_volume"]))
+    if preempt is not None:
+        if done < total:               # another rank may have been signalled
+            preempt.request_stop()
+        return preemption.epilogue(
+            trainer.train_state, done, preempt, logger or _quiet(),
+            rank=penv.process_id, completed=done >= total,
+            checkpointer=checkpointer)
     return 0
+
+
+def _quiet() -> logging.Logger:
+    return logging.getLogger("oktopk_tpu_torch.quiet")
 
 
 if __name__ == "__main__":

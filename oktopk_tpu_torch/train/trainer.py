@@ -3,11 +3,20 @@ one worker per process.
 
 Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``optim/distributed.py::build_sparse_grad_step`` that the port runs
-(init, ``train_step``, ``train``, the step options ``nsteps_update``,
-``grad_clip``, momentum correction and ``profile_norm``, and the
-workload dispatch of :44-53, :98-107, :558-624 for the CNN zoo, BERT
-pretraining, the PTB LSTM and DeepSpeech on AN4);
+(init, ``train_step``, ``train`` with ``should_stop`` and ``last_step``
+(:635-671), ``eval_step`` (:874-919), the step options
+``nsteps_update``, ``grad_clip``, momentum correction and
+``profile_norm``, and the workload dispatch of :44-53, :98-107, :558-624
+for the CNN zoo, BERT pretraining, the PTB LSTM and DeepSpeech on AN4);
 the obs, resilience and autotune planes are not ported yet (ROADMAP.md).
+
+The train state goes in and out as the JAX package's ``DistTrainState``
+state dict (``train_state`` / ``load_train_state``, over
+``convert.train_state_to_jax`` / ``load_train_state_from_jax``), which
+``train/checkpoint.py`` writes in the JAX package's file format. Across
+processes the export gathers every rank's rows of the per-worker state
+(a collective), so rank 0's file is the stacked Trainer's, and a restore
+gives each rank its own row.
 
 The comm decides where the workers live: ``StackedComm`` (the default)
 holds all P on one device; ``ProcessGroupComm`` one per process, the rank
@@ -91,7 +100,9 @@ import torch
 from oktopk_tpu_torch import resolve_device
 from oktopk_tpu_torch.comm import StackedComm
 from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
-from oktopk_tpu_torch.convert import from_jax_params
+from oktopk_tpu_torch.convert import (from_jax_params,
+                                      load_train_state_from_jax,
+                                      train_state_to_jax)
 from oktopk_tpu_torch.models import create_model
 from oktopk_tpu_torch.models.deepspeech import CONV_TIME_STRIDE
 from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
@@ -205,6 +216,8 @@ class Trainer:
         self.flat = torch.empty((W, n), dtype=torch.float32,
                                 device=self.device)
         self._rng = prng.prng_key(cfg.seed + 1)
+        self.last_step = 0
+        self.last_hypotheses = []      # eval_step's, DeepSpeech only
         self.stats = list(self.model.buffers())
         if self.distributed:
             changed = self.comm.replicate_(self.params).reshape(1, 1)
@@ -333,13 +346,21 @@ class Trainer:
 
     def train(self, data_iter: Iterable, num_iters: int, log_every: int = 50,
               logger: Optional[logging.Logger] = None,
-              start_step: int = 0) -> Dict[str, float]:
+              start_step: int = 0, should_stop=None) -> Dict[str, float]:
         """Run ``num_iters`` steps; returns the last step's metrics on the
-        host."""
+        host (empty when no step ran). ``should_stop`` is polled before
+        each step, and a True stops the loop between steps (the JAX
+        Trainer's preemption hook); across processes the ranks agree on
+        it (one small psum a step), so all stop at the same step.
+        ``last_step`` is the last step run."""
         metrics = {}
         t0 = time.time()
+        self.last_step = start_step
         for i in range(num_iters):
+            if should_stop is not None and self._agree(should_stop()):
+                break
             step = start_step + i + 1
+            self.last_step = step
             metrics = self.train_step(next(data_iter))
             if (i + 1) % log_every == 0 and logger is not None:
                 dt = (time.time() - t0) / log_every
@@ -348,3 +369,78 @@ class Trainer:
                             float(metrics["comm_volume"]), dt)
                 t0 = time.time()
         return {k: float(v) for k, v in metrics.items()}
+
+    def _agree(self, stop: bool) -> bool:
+        """``stop`` of any process (across processes; else as given)."""
+        if not self.distributed:
+            return bool(stop)
+        flag = torch.full((1, 1), int(bool(stop)), dtype=torch.int32,
+                          device=self.device)
+        return int(self.comm.psum(flag)[0, 0]) > 0
+
+    # ---- the train state ----------------------------------------------
+
+    def train_state(self, host: bool = False, gather: bool = True) -> dict:
+        """The JAX ``DistTrainState`` state dict of this Trainer
+        (``convert.train_state_to_jax``); a collective across processes
+        unless ``gather`` is False."""
+        return train_state_to_jax(self, host=host, gather=gather)
+
+    def load_train_state(self, tree: dict, parts=None) -> None:
+        """Take a ``DistTrainState`` state dict (e.g. a restored
+        checkpoint's ``state``), in place."""
+        kw = {} if parts is None else {"parts": parts}
+        load_train_state_from_jax(self, tree, **kw)
+
+    # ---- eval ---------------------------------------------------------
+
+    @torch.no_grad()
+    def eval_step(self, batch) -> Dict[str, torch.Tensor]:
+        """Forward-only loss and accuracy on a whole batch, the model in
+        eval mode (no dropout, BatchNorm's running statistics), as the
+        JAX Trainer's ``eval_step``: images give ``loss`` and
+        ``accuracy``; the PTB LSTM ``loss`` and ``ppl``; BERT the
+        pretraining ``loss``, ``mlm_loss`` and ``nsp_loss``; DeepSpeech
+        the CTC ``loss`` and the greedy-decoded ``wer`` and ``cer``,
+        averaged over the batch (the argmax on the device, the decoding
+        on the host; the hypotheses are kept in ``last_hypotheses``)."""
+        keys = BATCH_KEYS[self.workload]
+        b = {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
+             for k in keys}
+        m = self.model
+        if self.workload == "lm":
+            loss = losses.lm_cross_entropy(m(b["tokens"], train=False),
+                                           b["targets"])
+            return {"loss": loss, "ppl": torch.exp(loss)}
+        if self.workload == "bert":
+            mlm, nsp = m(b["input_ids"], b["token_type_ids"],
+                         b["attention_mask"], train=False)
+            loss, aux = losses.bert_pretrain_loss(mlm, nsp, b["mlm_labels"],
+                                                  b["nsp_labels"])
+            return {"loss": loss, **aux}
+        if self.workload == "ctc":
+            from oktopk_tpu_torch.data.audio import AN4_LABELS
+            from oktopk_tpu_torch.utils.decoder import GreedyDecoder
+
+            logits = m(b["spect"], train=False)
+            frames = torch.clamp(ctc_frame_len(b["spect_lengths"]),
+                                 max=logits.shape[1])
+            loss = losses.ctc_loss(logits, frames, b["labels"],
+                                   b["label_lengths"])
+            dec = GreedyDecoder(AN4_LABELS)
+            hyps = dec.decode_ids(torch.argmax(logits, -1).cpu().numpy(),
+                                  frames.cpu().numpy())
+            labs = np.asarray(batch["labels"])
+            lens = np.asarray(batch["label_lengths"])
+            refs = ["".join(AN4_LABELS[c] for c in labs[i, :lens[i]])
+                    for i in range(labs.shape[0])]
+            self.last_hypotheses = hyps
+            wer = float(np.mean([dec.wer(h, r) for h, r in zip(hyps, refs)]))
+            cer = float(np.mean([dec.cer(h, r) for h, r in zip(hyps, refs)]))
+            return {"loss": loss, "wer": torch.tensor(wer),
+                    "cer": torch.tensor(cer)}
+        logits = m(b["image"], train=False)
+        loss = losses.softmax_cross_entropy(logits, b["label"])
+        acc = torch.mean((torch.argmax(logits, -1) == b["label"]).to(
+            torch.float32))
+        return {"loss": loss, "accuracy": acc}

@@ -20,7 +20,12 @@ module, and each test reads what its part wrote:
   ``test_torch_oktopk.py``);
 - three narrow-VGG Trainer steps: bit-equal to the stacked Trainer on
   every rank, and within ``test_torch_vgg.py``'s tolerances of the JAX
-  Trainer on the 4-device mesh;
+  Trainer on the 4-device mesh; then a checkpoint (every rank's sparse
+  state gathered to rank 0) whose state is the stacked Trainer's file
+  bit for bit, restored on four ranks, each taking its own row;
+- a narrow-VGG run that rank 1 alone asks to stop: every rank stops at
+  that step and its epilogue returns 3, and rank 0's parked state is
+  the stacked Trainer's parked file bit for bit;
 - two ``bert_tiny`` Trainer steps with dropout 0.1, each rank deriving
   its own worker's keys: bit-equal to the stacked Trainer on every rank,
   and the keys and masks JAX's for that worker (the JAX Trainer's key
@@ -141,7 +146,12 @@ def dist(tmp_path_factory, mesh4):
                 stacked_hier = {o: child.run_hierarchical(
                     o, hierarchical_comm(child.PODS, P // child.PODS),
                     slice(0, P)) for o in child.HIER_OUTERS}
-                stacked_trainer = child.run_trainer(None, weights)
+                stacked_ckpt = {}
+                stacked_trainer = child.run_trainer(
+                    None, weights, ckpt_dir=str(d / "ckpt_stacked"),
+                    ckpt=stacked_ckpt)
+                stacked_preempt = child.run_preempt(
+                    None, weights, str(d / "parked_stacked"))
                 stacked_bert = child.run_bert_trainer(None)
                 stacked_resnet = child.run_resnet(None)
             finally:
@@ -160,6 +170,8 @@ def dist(tmp_path_factory, mesh4):
     return {"ranks": ranks, "stacked": stacked, "jax": jax_runs,
             "stacked_hier": stacked_hier,
             "stacked_trainer": stacked_trainer,
+            "stacked_ckpt": stacked_ckpt, "dir": d,
+            "stacked_preempt": stacked_preempt,
             "stacked_bert": stacked_bert, "stacked_resnet": stacked_resnet,
             "jax_trainer": (jax_metrics, jax_final)}
 
@@ -347,6 +359,47 @@ def test_resnet_step_matches_stacked(dist):
         for k in want_sd:
             bits(got_sd[k], want_sd[k], f"rank {r}: {k}")
     assert float(want_m["comm_volume"]) > 0
+
+
+def test_trainer_checkpoint_is_the_stacked_file(dist):
+    """Four ranks' checkpoint (every rank's SparseState row gathered to
+    rank 0) holds the stacked Trainer's state bit for bit, and a restore
+    on four ranks gives each rank its own row back."""
+    from oktopk_tpu_torch.train.checkpoint import read_payload
+
+    assert dist["stacked_ckpt"]["restored"]
+    assert all(res["trainer_ckpt"]["restored"] for res in dist["ranks"])
+    got = read_payload(str(dist["dir"] / "ckpt_dist" / "ckpt-3.msgpack"))
+    want = read_payload(str(dist["dir"] / "ckpt_stacked"
+                            / "ckpt-3.msgpack"))
+    flat_got = jax.tree_util.tree_flatten_with_path(got["state"])[0]
+    flat_want = jax.tree_util.tree_flatten_with_path(want["state"])[0]
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (path, g), (_, w) in zip(flat_got, flat_want):
+        bits(g, w, jax.tree_util.keystr(path))
+    assert got["state"]["sparse_state"]["residual"].shape[0] == P
+
+
+def test_one_rank_stopped_stops_every_rank(dist):
+    """Rank 1 alone asks to stop after step 2 of 4: every rank stops
+    there (the ranks agree between steps), every rank's epilogue
+    returns 3, and rank 0 parks the gathered state, which is the
+    stacked Trainer's parked file bit for bit."""
+    from oktopk_tpu_torch.train.checkpoint import read_payload
+
+    assert dist["stacked_preempt"] == (2, 3)
+    assert [res["preempt"] for res in dist["ranks"]] == [(2, 3)] * P
+    got = read_payload(str(dist["dir"] / "parked_dist" / "local.msgpack.d"
+                           / "ckpt-2.msgpack"))
+    want = read_payload(str(dist["dir"] / "parked_stacked"
+                            / "local.msgpack.d" / "ckpt-2.msgpack"))
+    assert got["step"] == want["step"] == 2
+    flat_got = jax.tree_util.tree_flatten_with_path(got["state"])[0]
+    flat_want = jax.tree_util.tree_flatten_with_path(want["state"])[0]
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (path, g), (_, w) in zip(flat_got, flat_want):
+        bits(g, w, jax.tree_util.keystr(path))
+    assert got["state"]["sparse_state"]["residual"].shape[0] == P
 
 
 def test_trainer_matches_jax(dist):

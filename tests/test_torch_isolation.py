@@ -2,7 +2,7 @@
 layer and process-group comm included) nor ``chip_smoke.py`` (nor the
 port's profiling and A/B scripts, ``psum_ab.py`` among them, nor the
 worker module that the process-group tests spawn) imports ``jax``,
-``flax`` or ``oktopk_tpu``,
+``flax``, ``optax``, ``msgpack`` or ``oktopk_tpu``,
 and importing every module of the package leaves ``jax`` out of
 ``sys.modules``."""
 
@@ -16,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "oktopk_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oktopk_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "oktopk_tpu")
 
 
 def _sources():
@@ -33,7 +33,13 @@ def _sources():
                 "models/imagenet_resnet.py", "models/preresnet.py",
                 "models/resnext.py", "models/densenet.py",
                 "models/alexnet.py", "models/caffe_cifar.py",
-                "models/mnistnet.py"):
+                "models/mnistnet.py", "data/tokenization.py",
+                "data/bert_pretrain.py", "data/audio.py",
+                "native/__init__.py", "native/tokenizer.py",
+                "native/loader.py", "utils/decoder.py", "train/msgpack.py",
+                "train/durable.py", "train/checkpoint.py",
+                "train/preemption.py", "train/evaluate.py",
+                "train/glue.py"):
         assert PKG / mod in files
     return files
 

@@ -167,11 +167,16 @@ def _second_draw(dnn, seed):
 
 
 def test_unported_loaders_raise_with_their_files(tmp_path):
+    """The AN4 and Wikipedia loaders were the last unported ones; with
+    their files present they are now taken, with the JAX meta (their
+    batches are held in ``tests/test_torch_text_data.py``)."""
     (tmp_path / "an4_train_manifest.csv").write_text("a.wav,a.txt\n")
     (tmp_path / "wikipedia").mkdir()
     for dataset, dnn in (("an4", "lstman4"), ("wikipedia", "bert_base")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            loaders.make_dataset(dataset, dnn, 2, path=str(tmp_path))
+        _, meta = loaders.make_dataset(dataset, dnn, 2, path=str(tmp_path))
+        _, jmeta = jax_loaders.make_dataset(dataset, dnn, 2,
+                                            path=str(tmp_path))
+        assert meta == jmeta and meta["synthetic"] is False
 
 
 def test_data_dir_from_the_environment(data_dir, monkeypatch):

@@ -283,19 +283,90 @@ def train_batch(s: int):
             "label": rng.randint(0, 10, size=(16,)).astype(np.int32)}
 
 
-def run_trainer(comm, weights, steps: int = 3):
+def run_trainer(comm, weights, steps: int = 3, ckpt_dir=None, ckpt=None):
     """Three steps of the narrow VGG from the given flax weights: per-step
-    metrics, then the state_dict."""
+    metrics, then the state_dict. With ``ckpt_dir``, then a checkpoint of
+    the train state (gathered from every rank, written by rank 0) and its
+    restore into a fresh Trainer on the same comm: ``ckpt["restored"]``
+    says whether every leaf of this rank's state came back bit for
+    bit."""
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    register_narrow()
+
+    def trainer():
+        return Trainer(TrainConfig(**TRAIN),
+                       algo_cfg=OkTopkConfig(**TRAIN_ALGO), device="cpu",
+                       comm=comm)
+
+    tt = trainer()
+    tt.load_jax_variables(*weights)
+    metrics = [{k: v.clone() for k, v in tt.train_step(train_batch(s))
+                .items()} for s in range(steps)]
+    if ckpt_dir is not None:
+        import torch.distributed as dist
+
+        from oktopk_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+        state = tt.train_state()                 # every rank: gathers
+        if comm is None or comm.first_worker == 0:
+            save_checkpoint(ckpt_dir, state, steps)
+        if comm is not None:
+            dist.barrier()
+        fresh = trainer()
+        tree, _ = restore_checkpoint(ckpt_dir,
+                                     fresh.train_state(gather=False))
+        fresh.load_train_state(tree)
+        mine = _host_leaves(tt.train_state(host=True, gather=False))
+        back = _host_leaves(fresh.train_state(host=True, gather=False))
+        ckpt["restored"] = len(mine) == len(back) and all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(mine, back))
+    return metrics, {k: v.clone() for k, v in tt.model.state_dict().items()}
+
+
+def run_preempt(comm, weights, state_dir, stop_after: int = 2,
+                steps: int = 4):
+    """The CLIs' preemption path on the narrow VGG: ``steps`` steps asked
+    for, a stop asked after step ``stop_after`` by rank 1 alone (by the
+    one process on the stacked comm), then the epilogue, which parks the
+    gathered state under ``state_dir`` (rank 0 writes). Returns (the
+    last step run, the epilogue's exit code)."""
+    import logging
+
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.train.preemption import (PreemptionHandler,
+                                                   epilogue)
     from oktopk_tpu_torch.train.trainer import Trainer
 
     register_narrow()
     tt = Trainer(TrainConfig(**TRAIN), algo_cfg=OkTopkConfig(**TRAIN_ALGO),
                  device="cpu", comm=comm)
     tt.load_jax_variables(*weights)
-    metrics = [{k: v.clone() for k, v in tt.train_step(train_batch(s))
-                .items()} for s in range(steps)]
-    return metrics, {k: v.clone() for k, v in tt.model.state_dict().items()}
+    preempt = PreemptionHandler(exit_signals=(), requeue_signals=())
+    rank = 0 if comm is None else comm.first_worker
+    signalled = comm is None or rank == 1
+
+    def should_stop():
+        if signalled and tt.last_step >= stop_after:
+            preempt.request_stop()
+        return preempt.should_stop()
+
+    tt.train((train_batch(s) for s in range(steps)), steps,
+             should_stop=should_stop)
+    if tt.last_step < steps:            # another rank may have stopped
+        preempt.request_stop()
+    rc = epilogue(tt.train_state, tt.last_step, preempt,
+                  logging.getLogger("oktopk_tpu_torch.quiet"), rank=rank,
+                  completed=tt.last_step >= steps, state_dir=state_dir)
+    return tt.last_step, rc
+
+
+def _host_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _host_leaves(tree[k])]
+    return [] if tree is None else [np.asarray(tree)]
 
 
 # ---- the worker processes ---------------------------------------------
@@ -371,7 +442,12 @@ def _checks(rank: int, out_dir: str):
     t = torch.full((3,), float(rank))
     res["inter_replicate"] = (int(hcomm.inter.replicate_([t])), float(t[0]))
     weights = wait_load(os.path.join(out_dir, "weights.pt"))
-    res["trainer"] = run_trainer(comm, weights)
+    res["trainer_ckpt"] = {}
+    res["trainer"] = run_trainer(comm, weights,
+                                 ckpt_dir=os.path.join(out_dir, "ckpt_dist"),
+                                 ckpt=res["trainer_ckpt"])
+    res["preempt"] = run_preempt(comm, weights,
+                                 os.path.join(out_dir, "parked_dist"))
     res["bert_trainer"] = run_bert_trainer(comm)
     res["resnet"] = run_resnet(comm)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -379,9 +455,10 @@ def _checks(rank: int, out_dir: str):
 
 def checks_worker(rank, out_dir):
     """Spawn target: every comm verb, every compressor case, the
-    two-level cases over 2 pods x 2 ``new_group``s, three trainer steps,
-    two BERT steps with dropout and one resnet20 step over a 4-rank gloo
-    group. The cases
+    two-level cases over 2 pods x 2 ``new_group``s, three trainer steps
+    and a checkpoint of them, saved and restored, a run stopped by one
+    rank and parked, two BERT steps with dropout and one resnet20 step
+    over a 4-rank gloo group. The cases
     held to JAX start from the JAX states the parent writes to
     ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
     while these run."""
