@@ -179,6 +179,31 @@ and prints one JSON line per phase:
               ``meta["synthetic"]`` False), then ``--dataset imagenet``
               without a file, which warns and trains on synthetic data.
 
+Between resnet50_trainer and loader_cli, bfloat16 compute
+(``--compute-dtype bfloat16``; their seconds in a ``bf16_seconds``
+line):
+
+34. bf16_parity — mnistnet, resnet20, bert_tiny, lstman4_tiny and
+              lstm_tiny from one seed's weights (resnet20 and
+              lstman4_tiny also on BatchNorm's running statistics): the
+              card's bfloat16 logits and flat gradient against the CPU's
+              bfloat16 within ``BF16_PARITY_FACTOR`` times the card's own
+              distance from float32 (d_ref); the card again with cuBLAS
+              allowed to reduce in bfloat16, its distance beside;
+35. bf16_trainer — VGG-16, ResNet-50, BERT-base, DeepSpeech and the PTB
+              LSTM at full width, P = 4 stacked, float32 then bfloat16
+              in the same configuration (``BF16_CONFIGS``): the split of
+              the steps, peak memory, finite losses (falling on a
+              repeated batch but the PTB LSTM's), K1 and the compaction
+              launched, one profiled step each (device launches and
+              time); ResNet-50 in bfloat16 twice from one seed, bit for
+              bit, its convolutions' TFLOP/s and the elementwise and
+              reduction passes; BERT-base's fwd/bwd with cuBLAS's
+              bfloat16 reduction allowed and not, in turns;
+36. bf16_cli — ``main_trainer --dnn vgg16 --compute-dtype bfloat16``,
+              three steps in its own process: exit 0, its last loss and
+              volume equal to bf16_trainer's third VGG-16 step.
+
 After loader_cli, the train surface, on files written into one temporary
 directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
 ``OKTOPK_NATIVE=1``, so a failing g++ build fails the run):
@@ -1618,23 +1643,29 @@ def phase_lstman4_parity(dev):
     return errs, verdict
 
 
-def trainer_run(dev, argv, steps: int, phase: str, profile: bool = False):
-    """``steps`` steps of ``main_trainer.build_trainer(argv)`` on the card
-    (P = 4 workers stacked), CUDA events around the collective, launch
-    counters set to 0 just before the steps and read after each: per-step
-    records, the launches, the peak memory and the trainer's digests;
-    with ``profile``, one more step under the profiler: its device
-    launches, device time and the costliest kernels."""
+def trainer_run(dev, argv, steps: int, phase: str, profile: bool = False,
+                build=None, after=None):
+    """``steps`` steps of ``main_trainer.build_trainer(argv)`` (or of
+    ``build()``'s (trainer, batches)) on the card (P = 4 workers
+    stacked), CUDA events around the collective, launch counters set to
+    0 just before the steps and read after each: per-step records, the
+    launches, the peak memory, the trainer's digests and the model's
+    compute dtype; with ``profile``, one more step under the profiler:
+    its device launches, device time and the costliest kernels; then
+    ``after(trainer, batches)``'s result."""
     import hashlib
 
     import torch
     from oktopk_tpu_torch.train import main_trainer
 
-    args = main_trainer.parse_args(argv + ["--device", str(dev), "--seed",
-                                           str(SEED), "--num-workers", "4",
-                                           "--max-iters", str(steps)])
     t0 = time.perf_counter()
-    trainer, data, _, _ = main_trainer.build_trainer(args)
+    if build is None:
+        args = main_trainer.parse_args(
+            argv + ["--device", str(dev), "--seed", str(SEED),
+                    "--num-workers", "4", "--max-iters", str(steps)])
+        trainer, data, _, _ = main_trainer.build_trainer(args)
+    else:
+        trainer, data = build()
     build_s = time.perf_counter() - t0
     batches = [next(data) for _ in range(steps)]
     clock = StepClock(trainer)
@@ -1675,13 +1706,16 @@ def trainer_run(dev, argv, steps: int, phase: str, profile: bool = False):
         top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
         profiled = {"device_launches": sum(counts.values()),
                     "device_ms": sum(by_op.values()),
-                    "top_ms": {k: v for k, v in top}}
+                    "top_ms": {k: v for k, v in top},
+                    "by_kind_ms": device_split(by_op)}
     out = {"n": trainer.algo_cfg.n, "k": trainer.algo_cfg.k,
            "profiled": profiled,
            "build_s": build_s, "recs": recs, "launches": launches,
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated(dev) / 1e9,
-           "params_sha1": digest.hexdigest()}
+           "params_sha1": digest.hexdigest(),
+           "dtype": str(trainer.model.compute_dtype),
+           "after": after(trainer, data) if after else None}
     del trainer, clock
     torch.cuda.empty_cache()
     return out
@@ -2648,6 +2682,389 @@ def phase_resnet50_trainer(dev, steps: int = 5):
                              f"differ: {differ}")
     return first["launches"]
 
+
+# ---- bfloat16 compute (slice 10) ----------------------------------------
+
+# name: (registry name, train). The families with BatchNorm also run on
+# their running statistics (``_running``, train=False): in train mode
+# the gradient passes through the batch statistics' backward, where it
+# cancels and bfloat16's own distance from float32 is a third of the
+# largest element (ROADMAP.md, H21), too wide a yardstick to tell much.
+BF16_FAMILIES = {
+    "mnistnet": ("mnistnet", True),
+    "resnet20": ("resnet20", True),
+    "resnet20_running": ("resnet20", False),
+    "bert_tiny": ("bert_tiny", True),
+    "lstman4_tiny": ("lstman4_tiny", True),
+    "lstman4_tiny_running": ("lstman4_tiny", False),
+    "lstm_tiny": ("lstm_tiny", True),
+}
+# the card's bfloat16 may lie this many times the card's own bfloat16
+# distance from its float32 (d_ref) away from the CPU's bfloat16
+BF16_PARITY_FACTOR = 1.0
+BF16_VGG_ARGV = ["--dnn", "vgg16", "--batch-size", "16", "--density",
+                 "0.02", "--warmup-steps", "1", "--lr", "0.01"]
+BF16_RUNS = {}           # bf16_trainer's bfloat16 runs, for bf16_cli
+
+
+def bf16_inputs(dnn: str, rng):
+    """(inputs, output weights) of ``dnn`` at a narrow batch, numpy."""
+    import numpy as np
+    from oktopk_tpu_torch.models.registry import IMAGE_SHAPES
+    if dnn == "bert_tiny":
+        ids = rng.randint(0, 1024, (4, 32)).astype(np.int32)
+        am = np.ones((4, 32), np.int32)
+        am[1, 20:] = 0
+        xs = (ids, rng.randint(0, 2, (4, 32)).astype(np.int32), am)
+        return xs, [rng.randn(4, 32, 1024).astype(np.float32),
+                    rng.randn(4, 2).astype(np.float32)]
+    if dnn == "lstman4_tiny":
+        return ((rng.randn(2, 161, 101, 1).astype(np.float32),),
+                [rng.randn(2, 51, 29).astype(np.float32)])
+    if dnn == "lstm_tiny":
+        return ((rng.randint(0, 1024, (4, 35)).astype(np.int32),),
+                [rng.randn(4, 35, 1024).astype(np.float32)])
+    return ((rng.randn(4, *IMAGE_SHAPES[dnn]).astype(np.float32),),
+            [rng.randn(4, 10).astype(np.float32)])
+
+
+def bf16_fwd_bwd(dnn: str, sd, dtype, where, xs, ws, train: bool = True):
+    """The logits and the flat gradient (JAX leaf order) of a weighted
+    sum of the logits, float64 on the host, of ``dnn`` in ``dtype`` on
+    ``where`` from the state_dict ``sd``, no dropout; ``train`` False
+    runs BatchNorm on its running statistics."""
+    import torch
+    from oktopk_tpu_torch.models import create_model
+    kw = {"dropout": 0.0} if dnn == "bert_tiny" else {}
+    m = create_model(dnn, dtype=dtype, **kw)
+    m.load_state_dict(sd)
+    m.to(where)
+    out = m(*[torch.from_numpy(a).to(where) for a in xs], train=train)
+    out = out if isinstance(out, tuple) else (out,)
+    if any(o.dtype != torch.float32 for o in out):
+        raise AssertionError(f"bf16_parity {dnn}: logits not float32")
+    sum((o * torch.from_numpy(w).to(where)).sum()
+        for o, w in zip(out, ws)).backward()
+    leaves = [(path, p.numel()) for path, p, _ in m.jax_leaves()]
+    return (torch.cat([o.detach().reshape(-1) for o in out]).cpu().double(),
+            flat_grad(m).cpu().double(), leaves)
+
+
+def phase_bf16_parity(dev):
+    """Each family at narrow width (``BF16_FAMILIES``) from one seed's
+    weights, made on the CPU, and the same inputs, no dropout: the logits
+    and the flat gradient of a weighted sum of the logits in bfloat16 on
+    the card against bfloat16 on the CPU, held to ``BF16_PARITY_FACTOR``
+    times the card's d_ref = max|card bf16 - card f32| / max|card f32|
+    (bfloat16's own distance from float32); the card's bfloat16 once
+    more with cuBLAS allowed to reduce in bfloat16
+    (``allow_bf16_reduced_precision_reduction``), its distance from the
+    CPU beside."""
+    import numpy as np
+    import torch
+    from oktopk_tpu_torch.models import create_model
+
+    matmul = torch.backends.cuda.matmul
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    for name, (dnn, train) in BF16_FAMILIES.items():
+        torch.manual_seed(SEED)
+        kw = {"dropout": 0.0} if dnn == "bert_tiny" else {}
+        base = create_model(dnn, **kw)
+        if hasattr(base, "init_weights"):
+            base.init_weights(torch.Generator().manual_seed(SEED))
+        sd = base.state_dict()
+        xs, ws = bf16_inputs(dnn, np.random.RandomState(SEED))
+        res = {}
+        for tag, where, dt, reduced in (
+                ("cpu_bf16", "cpu", bf16, False),
+                ("card_f32", dev, f32, False),
+                ("card_bf16", dev, bf16, False),
+                ("card_bf16_reduced", dev, bf16, True)):
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+            res[tag] = bf16_fwd_bwd(dnn, sd, dt, where, xs, ws, train)
+        matmul.allow_bf16_reduced_precision_reduction = False
+        err = {}
+        diff = (res["card_bf16"][1] - res["cpu_bf16"][1]).abs()
+        at, leaf = int(diff.argmax()), None
+        for path, size in res["cpu_bf16"][2]:
+            if at < size:
+                leaf = path
+                break
+            at -= size
+        for i, f in enumerate(("logits", "grad")):
+            scale = float(res["card_f32"][i].abs().max())
+            d = lambda a, b: float((res[a][i] - res[b][i]).abs().max()) \
+                / scale
+            err[f] = {"d_ref": d("card_bf16", "card_f32"),
+                      "card_vs_cpu": d("card_bf16", "cpu_bf16"),
+                      "reduced_vs_cpu": d("card_bf16_reduced", "cpu_bf16"),
+                      "reduced_vs_card": d("card_bf16_reduced",
+                                           "card_bf16")}
+            err[f]["ratio"] = err[f]["card_vs_cpu"] / err[f]["d_ref"]
+        out[name] = err
+        emit({"phase": "bf16_parity", "model": name, "train": train, **err,
+              "grad_card_vs_cpu_largest_at": leaf})
+        for f, e in err.items():
+            if not (0 < e["d_ref"] < 1) or not all(
+                    math.isfinite(v) for v in e.values()):
+                raise AssertionError(f"bf16_parity {name} {f}: {e}")
+            if e["card_vs_cpu"] > BF16_PARITY_FACTOR * e["d_ref"]:
+                raise AssertionError(
+                    f"bf16_parity {name} {f}: the card's bfloat16 is "
+                    f"{e['card_vs_cpu']} off the CPU's, over "
+                    f"{BF16_PARITY_FACTOR} x d_ref {e['d_ref']}")
+    emit({"phase": "bf16_parity_summary", "models": len(out),
+          "factor_of_d_ref": BF16_PARITY_FACTOR})
+    torch.cuda.empty_cache()
+    return out
+
+
+# cuDNN's and cuBLAS's product kernels (convolutions, their layout
+# transposes, GEMMs), by name
+PRODUCT_KEYS = ("conv", "wgrad", "dgrad", "fprop", "implicit", "gemm",
+                "xmma", "cutlass", "nhwcToNchw", "nchwToNhwc")
+
+
+def device_split(by_op: dict) -> dict:
+    """A profiled step's device ms by kind of kernel: products (the
+    convolutions with cuDNN's layout transposes, and GEMMs), elementwise
+    passes, reductions, the rest."""
+    split = {"products": 0.0, "elementwise": 0.0, "reduce": 0.0,
+             "other": 0.0}
+    for name, ms in by_op.items():
+        if any(k in name for k in PRODUCT_KEYS):
+            split["products"] += ms
+        elif "elementwise" in name:
+            split["elementwise"] += ms
+        elif "reduce" in name:
+            split["reduce"] += ms
+        else:
+            split["other"] += ms
+    return split
+
+
+def conv_flops(model, x) -> float:
+    """The convolutions' floating-point operations in one training step on
+    the batch ``x``: each convolution's forward 2 x MACs, its weight
+    gradient the same, its input gradient the same but for the stem's
+    (the images need none)."""
+    import torch
+    fwd = []
+
+    def hook(m, i, o):
+        k = m.weight
+        fwd.append(2.0 * o.numel() * k[0].numel())
+
+    hs = [m.register_forward_hook(hook) for m in model.modules()
+          if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(x, train=True, update_stats=False)
+    for h in hs:
+        h.remove()
+    return 3.0 * sum(fwd) - fwd[0]
+
+
+def run_line(run) -> dict:
+    """A ``trainer_run``'s oktopk steps (all but the dense first):
+    medians and spread, peak memory, the profiled step's device launches
+    and time, every step's loss."""
+    sparse = run["recs"][1:]
+
+    def med(key):
+        return statistics.median(r[key] for r in sparse)
+    prof = run["profiled"] or {}
+    return {"median_oktopk_step_ms": med("ms"),
+            "spread_oktopk_step_ms": [min(r["ms"] for r in sparse),
+                                      max(r["ms"] for r in sparse)],
+            "fwd_bwd_ms": med("fwd_bwd_ms"),
+            "collective_ms": med("collective_ms"),
+            "optimizer_ms": med("optimizer_ms"),
+            "max_memory_allocated_gb": run["max_memory_allocated_gb"],
+            "device_launches_per_step": prof.get("device_launches"),
+            "device_ms_per_step": prof.get("device_ms"),
+            "losses": [r["loss"] for r in run["recs"]]}
+
+
+def memorize(trainer, data, steps: int = 4) -> list:
+    """``steps`` more steps on one batch, repeated: the losses, which must
+    fall on a batch the model sees again (the synthetic labels are drawn
+    anew for each batch, so over fresh batches the loss only wanders)."""
+    b = next(data)
+    return [float(trainer.train_step(b)["loss"]) for _ in range(steps)]
+
+
+def check_bf16_run(run, name: str, falling: bool = True) -> None:
+    """Finite losses, falling on a repeated batch (``memorize``, the last
+    below the first) unless ``falling`` is False, K1 and the compaction
+    launched, every oktopk step's volume above 0."""
+    losses = [r["loss"] for r in run["recs"]]
+    mem = run["after"]["memorize"]
+    if not all(math.isfinite(x) for x in losses + mem) or \
+            (falling and not mem[-1] < mem[0]):
+        raise AssertionError(f"bf16_trainer {name}: losses {losses}, on a "
+                             f"repeated batch {mem}")
+    assert_launched(run["launches"], SPARSE_KERNELS, f"bf16_trainer {name}")
+    for r in run["recs"][1:]:
+        if r["comm_volume"] <= 0:
+            raise AssertionError(f"bf16_trainer {name} step {r['step']}: "
+                                 "volume 0")
+
+
+def bert_reduction_turns(trainer, data, turns: int) -> dict:
+    """``turns`` rounds of four steps with cuBLAS's bfloat16 reduction
+    allowed, not, not, allowed: the fwd/bwd ms (CUDA events) of each."""
+    import torch
+    matmul = torch.backends.cuda.matmul
+    clock = StepClock(trainer)
+    ab = {"reduced": [], "float32": []}
+    for _ in range(turns):
+        for mode in ("reduced", "float32", "float32", "reduced"):
+            matmul.allow_bf16_reduced_precision_reduction = \
+                mode == "reduced"
+            b = next(data)
+            clock.mark("start")
+            trainer.train_step(b)
+            clock.mark("end")
+            torch.cuda.synchronize()
+            ab[mode].append(clock.split()["fwd_bwd_ms"])
+    matmul.allow_bf16_reduced_precision_reduction = False
+    trainer.grad_step = clock.inner
+    return {k: {"median": statistics.median(v), "all": v}
+            for k, v in ab.items()}
+
+
+BF16_CONFIGS = {
+    # model: (argv, steps: one dense and the rest oktopk but for BERT and
+    # the PTB LSTM, whose first step is the exact recompute)
+    "vgg16": (BF16_VGG_ARGV, 6),
+    "resnet50": (RESNET50_ARGV + ["--lr", "0.01"], 5),
+    "bert_base": (["--model", "bert_base", "--lr", "2e-5"], 5),
+    "lstman4": (LSTMAN4_ARGV, 5),
+    # the written-out cell's cost (H22); at the uniform loss from the
+    # start, so its losses are reported, not held to fall
+    "lstm": (["--dnn", "lstm", "--dataset", "ptb", "--batch-size", "20",
+              "--lr", "1.0", "--density", "0.02", "--warmup-steps", "0"],
+             3),
+}
+
+
+def phase_bf16_trainer(dev) -> dict:
+    """bfloat16 compute at full width, P = 4 stacked on the card, each
+    model beside float32 in the same configuration and call
+    (``BF16_CONFIGS``): VGG-16 (global batch 64, d = 0.02, bf16 wire,
+    one dense and five oktopk steps); ResNet-50 (``--batch-size 32``,
+    224 x 224, d = 0.02, one dense and four oktopk steps; bfloat16 twice
+    from one seed, bit for bit); BERT-base (``main_bert.build_trainer
+    --compute-dtype bfloat16``, bs 8, seq 128, dropout 0.1, d = 0.01,
+    five steps; then cuBLAS's bfloat16 reduction allowed and not, in
+    turns); DeepSpeech (``lstman4``, bs 2, d = 0.02, clip 400, one dense
+    and four oktopk steps); the PTB LSTM (bs 20, d = 0.02, three steps:
+    the written-out cell's cost, H22). Each run: the split of its steps,
+    peak memory, finite losses (but the PTB LSTM's, falling over four
+    more steps on one repeated batch, eight for BERT-base, ``memorize``),
+    K1 and the compaction launched, and one
+    profiled step (device launches and time); ResNet-50's
+    profiled steps split into convolutions (their TFLOP/s), elementwise
+    passes and reductions (the written-out BatchNorm's, and the casts').
+    Returns {path: launches} of the bfloat16 runs."""
+    import torch
+    from oktopk_tpu_torch.models import create_model
+    from oktopk_tpu_torch.train import main_bert
+
+    by_path = {}
+    for model, (argv, steps) in BF16_CONFIGS.items():
+        runs = {}
+        for dt in ("float32", "bfloat16", "bfloat16 again"):
+            if dt == "bfloat16 again" and model != "resnet50":
+                continue
+            full = argv + ["--compute-dtype", dt.split()[0]]
+            build = None
+            if model == "bert_base":
+                # BertAdam's schedule over 100 steps: the memorizing
+                # steps after the run still move the weights
+                build = lambda: main_bert.build_trainer(main_bert.parse_args(
+                    full + ["--num-workers", "4", "--seed", str(SEED),
+                            "--device", str(dev), "--num-minibatches",
+                            "100"]))
+            turns = model == "bert_base" and dt == "bfloat16"
+            after = None if dt == "bfloat16 again" else (
+                lambda tr, data, turns=turns: {
+                "reduction_turns": (bert_reduction_turns(tr, data, 2)
+                                    if turns else None),
+                "memorize": memorize(tr, data,
+                                     8 if model == "bert_base" else 4)})
+            runs[dt] = trainer_run(dev, full, steps,
+                                   f"bf16_trainer_{model}_{dt[:8]}",
+                                   profile=dt != "bfloat16 again",
+                                   build=build, after=after)
+        bf = runs["bfloat16"]
+        check_bf16_run(bf, model, falling=model != "lstm")
+        if bf["dtype"] != "torch.bfloat16" or \
+                runs["float32"]["dtype"] != "None":
+            raise AssertionError(f"bf16_trainer {model}: compute dtypes "
+                                 f"{bf['dtype']}, {runs['float32']['dtype']}")
+        by_path[f"{model} bf16"] = bf["launches"]
+        line = {dt: run_line(runs[dt]) for dt in ("float32", "bfloat16")}
+        if model == "resnet50":
+            again = runs["bfloat16 again"]
+            same = bf["params_sha1"] == again["params_sha1"] and all(
+                a[k] == b[k] for a, b in zip(bf["recs"], again["recs"])
+                for k in ("loss", "comm_volume", "wire_bytes"))
+            if not same:
+                raise AssertionError("bf16_trainer resnet50: two runs from "
+                                     "one seed differ")
+            m = create_model("resnet50").to(dev)
+            flops = conv_flops(m, torch.zeros(1, 224, 224, 3,
+                                              device=dev)) * 128
+            del m
+            line.update(conv_tflop_per_step=flops / 1e12,
+                        repeats_bit_equal=same)
+            for dt in ("float32", "bfloat16"):
+                prof = runs[dt]["profiled"]
+                line[dt].update(
+                    busy_share=prof["device_ms"]
+                    / line[dt]["median_oktopk_step_ms"],
+                    by_kind_ms=prof["by_kind_ms"], top_ms=prof["top_ms"],
+                    conv_tflops=flops / (prof["by_kind_ms"]["products"]
+                                         * 1e-3) / 1e12)
+        for dt in ("float32", "bfloat16"):
+            line[dt]["losses_on_a_repeated_batch"] = \
+                runs[dt]["after"]["memorize"]
+        if model == "bert_base":
+            line["bf16_reduction_fwd_bwd_ms"] = \
+                bf["after"]["reduction_turns"]
+        emit({"phase": "bf16_trainer_summary", "model": model,
+              "steps": steps, "argv": argv, **line})
+        BF16_RUNS[model] = bf
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_bf16_cli(dev):
+    """``python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16
+    --num-workers 4 --warmup-steps 1 --max-iters 3 --compute-dtype
+    bfloat16`` in its own process: exit 0, and its logged last loss and
+    volume equal to bf16_trainer's third VGG-16 step (deterministic
+    cuDNN and cuBLAS: equal, not near)."""
+    cmd = [sys.executable, "-m", "oktopk_tpu_torch.train.main_trainer",
+           "--device", str(dev), "--num-workers", "4", "--max-iters", "3",
+           "--compute-dtype", "bfloat16"] + BF16_VGG_ARGV
+    t0 = time.perf_counter()
+    rc, out = run_cli(cmd, 300)
+    secs = time.perf_counter() - t0
+    done = re.search(r"done: 3 iterations, loss (\S+), vol/step (\d+)", out)
+    if rc != 0 or done is None:
+        raise AssertionError(f"bf16_cli: exit {rc}\n{out[-4000:]}")
+    cli = {"loss": float(done.group(1)), "comm_volume": int(done.group(2))}
+    ref = BF16_RUNS["vgg16"]["recs"][2]
+    ref = {"loss": ref["loss"], "comm_volume": int(ref["comm_volume"])}
+    if cli != ref:
+        raise AssertionError(f"bf16_cli: last step {cli}, bf16_trainer's "
+                             f"third VGG-16 step {ref}")
+    emit({"phase": "bf16_cli", "cmd": " ".join(cmd[1:]), "exit": rc,
+          "seconds": secs, "last_step": cli,
+          "equal_to_bf16_trainer": True})
 
 def write_cifar10(root: str, n: int = 64, seed: int = 0) -> None:
     """A small ``cifar-10-batches-py`` (torchvision's pickle layout)."""
@@ -3642,6 +4059,11 @@ def main() -> int:
     by_path["lstman4"] = phase_lstman4_trainer(dev)
     by_path["lstm (PTB)"] = phase_lstm_trainer(dev)
     by_path["resnet50"] = phase_resnet50_trainer(dev)
+    t0 = time.perf_counter()
+    phase_bf16_parity(dev)
+    by_path.update(phase_bf16_trainer(dev))
+    phase_bf16_cli(dev)
+    emit({"phase": "bf16_seconds", "total": time.perf_counter() - t0})
     phase_loader_cli(dev)
     slice9_phases(dev, by_path)
     by_path["hierarchical"] = phase_hierarchical(dev)

@@ -202,15 +202,18 @@ class TrainConfig:
     # BertAdam's warmup fraction and schedule length (0: constant lr)
     warmup_proportion: float = 0.01
     total_steps: int = 0
-    # the model's compute dtype; only float32 is ported
+    # the model's computation dtype (flax's ``dtype``): "bfloat16" runs
+    # the products in bfloat16; master parameters, gradients, the sparse
+    # collective and the optimizer stay float32
     compute_dtype: str = "float32"
     num_buckets: int = 1
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r} is not ported yet "
-                "(float32 only; ROADMAP.md)")
+        # the JAX command lines' choices for --compute-dtype
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype must be 'float32' or 'bfloat16', got "
+                f"{self.compute_dtype!r}")
 
     def experiment_slug(self) -> str:
         mode = "comp" if self.compressor != "dense" else "dense"

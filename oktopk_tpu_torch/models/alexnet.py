@@ -9,25 +9,27 @@ NCHW inside.
 from __future__ import annotations
 
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import flatten_nhwc
+from oktopk_tpu_torch.models.layers import (Conv2d, Linear, flatten_nhwc,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
 class AlexNet(FlaxNamedModule):
     """images NHWC [B, 32, 32, 3] -> logits [B, num_classes]."""
 
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, 64, 3, 2, 1)
-        self.Conv_1 = nn.Conv2d(64, 192, 3, 1, 1)
-        self.Conv_2 = nn.Conv2d(192, 384, 3, 1, 1)
-        self.Conv_3 = nn.Conv2d(384, 256, 3, 1, 1)
-        self.Conv_4 = nn.Conv2d(256, 256, 3, 1, 1)
+        self.Conv_0 = Conv2d(3, 64, 3, 2, 1)
+        self.Conv_1 = Conv2d(64, 192, 3, 1, 1)
+        self.Conv_2 = Conv2d(192, 384, 3, 1, 1)
+        self.Conv_3 = Conv2d(384, 256, 3, 1, 1)
+        self.Conv_4 = Conv2d(256, 256, 3, 1, 1)
         # 32 -> 16 (stride 2) -> 2 after three pools
-        self.Dense_0 = nn.Linear(256 * 2 * 2, num_classes)
+        self.Dense_0 = Linear(256 * 2 * 2, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = x_nhwc.permute(0, 3, 1, 2)

@@ -10,7 +10,8 @@ Numerics follow flax, not ``torch.nn``'s defaults:
   key and value ``DenseGeneral`` kernels [hidden, heads, head_dim] with
   biases [heads, head_dim], kept in the flax shapes; the query scaled by
   1/sqrt(head_dim) before the product; masked logits filled with
-  ``finfo(float32).min`` (not -10000); softmax in float32; dropout on the
+  ``finfo(dtype).min`` (not -10000); softmax in float32 (in bfloat16,
+  flax's own bfloat16 softmax, ``FlaxSoftmax``); dropout on the
   weights with one mask broadcast over batch and heads, multiplied by
   mask / keep_prob as flax does (``attention_dropout``); an out kernel
   [heads, head_dim, hidden]. Written as ``torch.matmul`` and softmax
@@ -42,8 +43,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import (SiteKeys, attention_dropout,
-                                            dropout, site_hashes)
+from oktopk_tpu_torch.models.layers import (Embedding, Linear, Mixed,
+                                            SiteKeys, attention_dropout,
+                                            dropout, promote, resolve_dtype,
+                                            scalar_like, set_compute_dtype,
+                                            site_hashes)
 
 # stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -63,10 +67,7 @@ class BertConfig:
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"BERT compute dtype {self.dtype} is not ported yet "
-                "(float32 only; ROADMAP.md)")
+        resolve_dtype(self.dtype)       # float32 or bfloat16
 
     @staticmethod
     def base(**kw) -> "BertConfig":
@@ -85,8 +86,10 @@ class BertConfig:
                           max_position=128, **kw)
 
 
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(epsilon=eps)`` over the last axis."""
+class LayerNorm(Mixed, nn.Module):
+    """flax ``nn.LayerNorm(epsilon=eps)`` over the last axis; with a
+    compute dtype, in float32 on the promoted input, the result cast
+    (``force_float32_reductions``)."""
 
     def __init__(self, features: int, eps: float):
         super().__init__()
@@ -95,14 +98,18 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        dt = self.compute_dtype
+        if dt is not None:
+            x = x.to(torch.float32)
         mean = x.mean(-1, keepdim=True)
         mean2 = (x * x).mean(-1, keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean) * mul + self.bias
+        y = (x - mean) * mul + self.bias
+        return y if dt is None else y.to(dt)
 
 
-class DenseGeneral(nn.Module):
+class DenseGeneral(Mixed, nn.Module):
     """flax ``DenseGeneral`` with its kernel and bias in the flax shapes:
     ``in_shape`` axes of the input contract with the kernel's leading
     axes; the output has ``out_shape`` trailing axes."""
@@ -117,13 +124,15 @@ class DenseGeneral(nn.Module):
     def forward(self, x):
         fan_in, fan_out = math.prod(self.in_shape), math.prod(self.out_shape)
         lead = x.shape[:x.dim() - len(self.in_shape)]
+        x, kernel, bias = promote(self.compute_dtype, x, self.kernel,
+                                  self.bias)
         y = torch.matmul(x.reshape(lead + (fan_in,)),
-                         self.kernel.reshape(fan_in, fan_out))
-        y = y + self.bias.reshape(fan_out)
+                         kernel.reshape(fan_in, fan_out))
+        y = y + bias.reshape(fan_out)
         return y.reshape(lead + self.out_shape)
 
 
-class SelfAttention(nn.Module):
+class SelfAttention(Mixed, nn.Module):
     """flax ``MultiHeadDotProductAttention`` (qkv_features = out_features
     = hidden) applied to x as query, key and value."""
 
@@ -142,16 +151,65 @@ class SelfAttention(nn.Module):
         q = self.query(x).transpose(1, 2)
         k = self.key(x).transpose(1, 2)
         v = self.value(x).transpose(1, 2)
-        q = q / math.sqrt(self.head_dim)
+        depth = math.sqrt(self.head_dim)
+        # flax: query / sqrt(depth).astype(dtype)
+        q = q / (depth if self.compute_dtype is None
+                 else scalar_like(depth, q))
         logits = torch.matmul(q, k.transpose(-1, -2))     # [B, h, Tq, Tk]
         big_neg = torch.finfo(logits.dtype).min
         logits = torch.where(mask, logits,
                              torch.full((), big_neg, dtype=logits.dtype,
                                         device=logits.device))
-        w = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+        if self.compute_dtype is None:
+            w = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+        else:       # flax: jax.nn.softmax(w).astype(dtype), in bfloat16
+            w = FlaxSoftmax.apply(logits)
         w = attention_dropout(w, self.rate, train, keys)
         y = torch.matmul(w, v).transpose(1, 2)            # [B, T, h, hd]
         return self.out(y)
+
+
+class FlaxSoftmax(torch.autograd.Function):
+    """``jax.nn.softmax`` over the last axis in the operand's dtype, op
+    for op: ``exp(x - max) / sum``, and its custom JVP transposed,
+    ``y * g - y * sum(y * g)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        u = torch.exp(x - x.amax(-1, keepdim=True))
+        y = u / u.sum(-1, keepdim=True)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yg = y * g
+        return yg + y * -yg.sum(-1, keepdim=True)
+
+
+class FlaxErfc(torch.autograd.Function):
+    """``lax.erfc`` and its JVP rule, ``-2/sqrt(pi) * (g * exp(-x^2))``,
+    op for op in the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.special.erfc(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c = scalar_like(-2.0 / math.sqrt(math.pi), x)
+        return c * (g * torch.exp(-(x * x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's exact ``gelu``; in a compute dtype, as ``jax.nn.gelu``
+    writes it, ``0.5 * x * erfc(-x * sqrt(0.5))`` op for op."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="none")
+    return 0.5 * x * FlaxErfc.apply(-x * scalar_like(math.sqrt(0.5), x))
 
 
 class BertEmbeddings(nn.Module):
@@ -159,9 +217,9 @@ class BertEmbeddings(nn.Module):
         super().__init__()
         self.rate = cfg.dropout
         h = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
-        self.position_embeddings = nn.Embedding(cfg.max_position, h)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
+        self.word_embeddings = Embedding(cfg.vocab_size, h)
+        self.position_embeddings = Embedding(cfg.max_position, h)
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size, h)
         self.LayerNorm_0 = LayerNorm(h, cfg.layer_norm_eps)
 
     def forward(self, input_ids, token_type_ids, train: bool, keys):
@@ -181,14 +239,14 @@ class BertLayer(nn.Module):
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.attention = SelfAttention(cfg)
         self.attention_ln = LayerNorm(h, eps)
-        self.intermediate = nn.Linear(h, cfg.intermediate_size)
-        self.output = nn.Linear(cfg.intermediate_size, h)
+        self.intermediate = Linear(h, cfg.intermediate_size)
+        self.output = Linear(cfg.intermediate_size, h)
         self.output_ln = LayerNorm(h, eps)
 
     def forward(self, x, mask, train: bool, keys):
         y = self.attention(x, mask, train, keys)
         x = self.attention_ln(x + dropout(y, self.rate, train, keys))
-        h = F.gelu(self.intermediate(x), approximate="none")
+        h = gelu(self.intermediate(x))
         h = self.output(h)
         return self.output_ln(x + dropout(h, self.rate, train, keys))
 
@@ -210,7 +268,7 @@ class BertModel(nn.Module):
         super().__init__()
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoder(cfg)
-        self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 train: bool = True, keys=None):
@@ -293,11 +351,12 @@ class BertForPreTraining(_FlaxInitMixin, nn.Module):
         self.cfg = cfg
         h = cfg.hidden_size
         self.bert = BertModel(cfg)
-        self.mlm_dense = nn.Linear(h, h)
+        self.mlm_dense = Linear(h, h)
         self.mlm_ln = LayerNorm(h, cfg.layer_norm_eps)
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
-        self.nsp = nn.Linear(h, 2)
+        self.nsp = Linear(h, 2)
         self.site_hashes = site_hashes(dropout_sites(cfg))
+        set_compute_dtype(self, cfg.dtype)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 train: bool = True, rng=None):
@@ -307,9 +366,12 @@ class BertForPreTraining(_FlaxInitMixin, nn.Module):
                 if train and self.cfg.dropout > 0.0 else None)
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask,
                                 train, keys)
-        h = F.gelu(self.mlm_dense(seq), approximate="none")
+        h = gelu(self.mlm_dense(seq))
         h = self.mlm_ln(h)
-        table = self.bert.embeddings.word_embeddings.weight
+        # the tied decoder casts the table on its own (flax's
+        # table.astype(dtype)); the float32 bias promotes the sum
+        (table,) = promote(self.compute_dtype,
+                           self.bert.embeddings.word_embeddings.weight)
         mlm_logits = torch.matmul(h, table.t()) + self.mlm_bias
         nsp_logits = self.nsp(pooled)
         return mlm_logits.to(torch.float32), nsp_logits.to(torch.float32)
@@ -329,9 +391,10 @@ class BertForSequenceClassification(_FlaxInitMixin, nn.Module):
         self.cfg = cfg
         self.num_labels = num_labels
         self.bert = BertModel(cfg)
-        self.Dense_0 = nn.Linear(cfg.hidden_size, num_labels)
+        self.Dense_0 = Linear(cfg.hidden_size, num_labels)
         self.site_hashes = site_hashes(dropout_sites(cfg)
                                        + [("Dropout_0", 1)])
+        set_compute_dtype(self, cfg.dtype)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 train: bool = True, rng=None):

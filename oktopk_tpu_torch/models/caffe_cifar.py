@@ -14,23 +14,26 @@ The head flattens NHWC. Input NHWC, NCHW inside.
 from __future__ import annotations
 
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import flatten_nhwc, pad_bottom_right
+from oktopk_tpu_torch.models.layers import (Conv2d, Linear, flatten_nhwc,
+                                            pad_bottom_right,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
 class CaffeCifar(FlaxNamedModule):
     """images NHWC [B, 32, 32, 3] -> logits [B, num_classes]."""
 
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, 32, 5, 1, 2)
-        self.Conv_1 = nn.Conv2d(32, 32, 5, 1, 2)
-        self.Conv_2 = nn.Conv2d(32, 64, 5, 1, 2)
-        self.Dense_0 = nn.Linear(64 * 4 * 4, 64)
-        self.Dense_1 = nn.Linear(64, num_classes)
+        self.Conv_0 = Conv2d(3, 32, 5, 1, 2)
+        self.Conv_1 = Conv2d(32, 32, 5, 1, 2)
+        self.Conv_2 = Conv2d(32, 64, 5, 1, 2)
+        self.Dense_0 = Linear(64 * 4 * 4, 64)
+        self.Dense_1 = Linear(64, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = self.Conv_0(x_nhwc.permute(0, 3, 1, 2))

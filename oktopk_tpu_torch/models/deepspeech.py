@@ -27,7 +27,8 @@ import math
 import torch
 import torch.nn as nn
 
-from oktopk_tpu_torch.models.layers import BatchNorm
+from oktopk_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 from oktopk_tpu_torch.models.rnn import LSTMCell, lstm
 
@@ -64,13 +65,14 @@ class DeepSpeech(FlaxNamedModule):
     frequency bins (AN4's spectrograms)."""
 
     def __init__(self, num_classes: int = 29, rnn_hidden: int = 800,
-                 num_layers: int = 5, freq: int = 161):
+                 num_layers: int = 5, freq: int = 161,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(1, 32, (41, 11), stride=(2, 2),
-                                padding=(20, 5))
+        self.Conv_0 = Conv2d(1, 32, (41, 11), stride=(2, 2),
+                             padding=(20, 5))
         self.BatchNorm_0 = BatchNorm(32)
-        self.Conv_1 = nn.Conv2d(32, 32, (21, 11), stride=(2, 1),
-                                padding=(10, 5))
+        self.Conv_1 = Conv2d(32, 32, (21, 11), stride=(2, 1),
+                             padding=(10, 5))
         self.BatchNorm_1 = BatchNorm(32)
         f = (freq + 2 * 20 - 41) // 2 + 1
         f = (f + 2 * 10 - 21) // 2 + 1
@@ -80,7 +82,8 @@ class DeepSpeech(FlaxNamedModule):
                 f * 32 if i == 0 else rnn_hidden, rnn_hidden,
                 batch_norm=i > 0))
         self.BatchNorm_2 = BatchNorm(rnn_hidden, axes=(0, 1))
-        self.Dense_0 = nn.Linear(rnn_hidden, num_classes, bias=False)
+        self.Dense_0 = Linear(rnn_hidden, num_classes, bias=False)
+        set_compute_dtype(self, dtype)
 
     def forward(self, spect, train: bool = True, update_stats: bool = True):
         x = spect.permute(0, 3, 1, 2)

@@ -19,7 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import BatchNorm
+from oktopk_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
@@ -29,9 +30,9 @@ class DenseLayer(nn.Module):
     def __init__(self, cin: int, growth_rate: int):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(cin)
-        self.Conv_0 = nn.Conv2d(cin, 4 * growth_rate, 1, bias=False)
+        self.Conv_0 = Conv2d(cin, 4 * growth_rate, 1, bias=False)
         self.BatchNorm_1 = BatchNorm(4 * growth_rate)
-        self.Conv_1 = nn.Conv2d(4 * growth_rate, growth_rate, 3, 1, 1,
+        self.Conv_1 = Conv2d(4 * growth_rate, growth_rate, 3, 1, 1,
                                 bias=False)
 
     def forward(self, x, train: bool = True, update_stats: bool = True):
@@ -45,12 +46,13 @@ class DenseNet(FlaxNamedModule):
     """images NHWC [B, 32, 32, 3] -> logits [B, num_classes]."""
 
     def __init__(self, depth: int = 100, growth_rate: int = 12,
-                 compression: float = 0.5, num_classes: int = 10):
+                 compression: float = 0.5, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n = (depth - 4) // 6
         self.layers_per_block = n
         c = 2 * growth_rate
-        self.Conv_0 = nn.Conv2d(3, c, 3, 1, 1, bias=False)
+        self.Conv_0 = Conv2d(3, c, 3, 1, 1, bias=False)
         for block in range(3):
             for i in range(n):
                 self.add_module(f"DenseLayer_{block * n + i}",
@@ -60,9 +62,10 @@ class DenseNet(FlaxNamedModule):
             if block < 2:
                 out = int(c * compression)
                 self.add_module(f"Conv_{block + 1}",
-                                nn.Conv2d(c, out, 1, bias=False))
+                                Conv2d(c, out, 1, bias=False))
                 c = out
-        self.Dense_0 = nn.Linear(c, num_classes)
+        self.Dense_0 = Linear(c, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         n = self.layers_per_block

@@ -21,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import BatchNorm
+from oktopk_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
@@ -29,15 +30,15 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, filters: int, strides: int = 1):
         super().__init__()
         out = 4 * filters
-        self.Conv_0 = nn.Conv2d(cin, filters, 1, bias=False)
+        self.Conv_0 = Conv2d(cin, filters, 1, bias=False)
         self.BatchNorm_0 = BatchNorm(filters)
-        self.Conv_1 = nn.Conv2d(filters, filters, 3, strides, 1, bias=False)
+        self.Conv_1 = Conv2d(filters, filters, 3, strides, 1, bias=False)
         self.BatchNorm_1 = BatchNorm(filters)
-        self.Conv_2 = nn.Conv2d(filters, out, 1, bias=False)
+        self.Conv_2 = Conv2d(filters, out, 1, bias=False)
         self.BatchNorm_2 = BatchNorm(out)
         self.project = cin != out or strides != 1
         if self.project:
-            self.Conv_3 = nn.Conv2d(cin, out, 1, strides, bias=False)
+            self.Conv_3 = Conv2d(cin, out, 1, strides, bias=False)
             self.BatchNorm_3 = BatchNorm(out)
 
     def forward(self, x, train: bool = True, update_stats: bool = True):
@@ -55,9 +56,10 @@ class ResNet50(FlaxNamedModule):
     [B, num_classes]."""
 
     def __init__(self, num_classes: int = 1000,
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.Conv_0 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.BatchNorm_0 = BatchNorm(64)
         c, i = 64, 0
         for stage, nblocks in enumerate(stage_sizes):
@@ -68,7 +70,8 @@ class ResNet50(FlaxNamedModule):
                                 Bottleneck(c, filters, strides))
                 c, i = 4 * filters, i + 1
         self.num_blocks = i
-        self.Dense_0 = nn.Linear(c, num_classes)
+        self.Dense_0 = Linear(c, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = x_nhwc.permute(0, 3, 1, 2)

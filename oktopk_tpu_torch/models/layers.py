@@ -1,5 +1,20 @@
 """Layers shared by the port's models, written out to match flax.
 
+- flax's ``dtype`` field (mixed precision): the layers that flax gives a
+  ``dtype`` derive from ``Mixed``, whose ``compute_dtype`` the model
+  sets once (``set_compute_dtype``) from its ``dtype`` argument. None,
+  the float32 model's, casts nothing: the layer computes in its
+  tensors' own dtype (float32, or float64 after ``.double()``), as
+  before. bfloat16 is flax's ``promote_dtype(x, kernel, bias,
+  dtype=bf16)``: ``Conv2d``, ``Linear`` and ``Embedding`` cast the input
+  and the float32 parameters to bfloat16 at every call, so the product
+  runs and rounds in bfloat16, and the bias is added after it in
+  bfloat16, as flax adds it (not fused into the product). The
+  parameters, and the gradients that reach them through the casts,
+  stay float32 (flax's ``param_dtype``). ``BatchNorm`` (and BERT's
+  ``LayerNorm``) take flax's ``force_float32_reductions``: statistics
+  and normalisation in float32 on the input promoted to float32, the
+  result cast to bfloat16, the running statistics float32.
 - ``BatchNorm``: flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over
   the ``axes`` it reduces (``(0, 2, 3)`` for NCHW feature maps, ``(0, 1)``
   for sequence features ``[B, T, F]``), the one axis left being the
@@ -21,16 +36,107 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from oktopk_tpu_torch.ops import prng
 
+def resolve_dtype(dtype) -> Optional[torch.dtype]:
+    """A model's ``dtype`` argument as a layer's ``compute_dtype``: None
+    for float32 (no cast), else bfloat16, the one other compute dtype."""
+    if dtype in (None, torch.float32):
+        return None
+    if dtype != torch.bfloat16:
+        raise ValueError(f"compute dtype {dtype} is not float32 or "
+                         "bfloat16")
+    return dtype
 
-class BatchNorm(nn.Module):
+
+class Mixed:
+    """A layer with flax's ``dtype`` field (``compute_dtype``; None casts
+    nothing)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+
+def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
+    """Give every ``Mixed`` layer of ``model`` (and the model) the compute
+    dtype ``dtype`` (``resolve_dtype``), as a flax model hands its
+    ``dtype`` to each submodule."""
+    dt = resolve_dtype(dtype)
+    model.compute_dtype = dt
+    for m in model.modules():
+        if isinstance(m, Mixed):
+            m.compute_dtype = dt
+    return model
+
+
+def promote(dtype: Optional[torch.dtype], *xs):
+    """flax's ``promote_dtype(*xs, dtype=dtype)``: each tensor (None
+    kept) cast to ``dtype``; all as given when ``dtype`` is None."""
+    if dtype is None:
+        return xs
+    return tuple(None if x is None else x.to(dtype) for x in xs)
+
+
+class Conv2d(Mixed, nn.Conv2d):
+    """``nn.Conv2d`` with flax ``nn.Conv``'s ``dtype``."""
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        x, w, b = promote(self.compute_dtype, x, self.weight, self.bias)
+        y = self._conv_forward(x, w, None)
+        return y if b is None else y + b.view(1, -1, 1, 1)
+
+
+class Linear(Mixed, nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense``'s ``dtype``."""
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        x, w, b = promote(self.compute_dtype, x, self.weight, self.bias)
+        y = F.linear(x, w)
+        return y if b is None else y + b
+
+
+class _CastEmbed(torch.autograd.Function):
+    """The rows ``ids`` of ``table`` cast to ``dtype``, and its backward:
+    flax's bfloat16 scatter-add of the rows' gradients into the table,
+    summed in float32 and rounded to ``dtype`` once (CUDA's embedding
+    backward sums so; the CPU's would add in bfloat16, one rounding per
+    repeated id), then cast back to the table's float32."""
+
+    @staticmethod
+    def forward(ctx, ids, table, dtype):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], dtype
+        return F.embedding(ids, table.to(dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        grad = torch.ops.aten.embedding_dense_backward(
+            g.to(torch.float32), ids, ctx.rows, -1, False)
+        return None, grad.to(ctx.dtype).to(torch.float32), None
+
+
+class Embedding(Mixed, nn.Embedding):
+    """``nn.Embedding`` with flax ``nn.Embed``'s ``dtype``: the table is
+    cast, then the rows are taken (``_CastEmbed``)."""
+
+    def forward(self, ids):
+        if self.compute_dtype is None:
+            return super().forward(ids)
+        return _CastEmbed.apply(ids, self.weight, self.compute_dtype)
+
+
+class BatchNorm(Mixed, nn.Module):
     """flax ``nn.BatchNorm`` over the ``axes`` of its input; the features
     lie on the one axis not in ``axes``."""
 
@@ -46,6 +152,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x, train: bool = True, update_stats: bool = True):
+        dt = self.compute_dtype
+        if dt is not None:          # force_float32_reductions
+            x = x.to(torch.float32)
         if train:
             mean = x.mean(self.axes)
             mean2 = (x * x).mean(self.axes)
@@ -59,7 +168,8 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         shape = [1 if d in self.axes else -1 for d in range(x.dim())]
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y if dt is None else y.to(dt)
 
 
 class SiteKeys:
@@ -85,12 +195,15 @@ def site_hashes(sites) -> np.ndarray:
     return np.array([prng.site_hash(s) for s in sites], dtype=np.uint32)
 
 
-def _divisor(keep_prob: float, like: torch.Tensor) -> torch.Tensor:
-    """``keep_prob`` as a 0-d tensor on ``like``'s device: PyTorch divides
-    a CUDA tensor by a Python number as a multiply by its reciprocal,
-    which can differ from flax's division in the last bit. ``full`` fills
-    it on the device, without a copy from the host."""
-    return torch.full((), keep_prob, dtype=like.dtype, device=like.device)
+def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype on its device, a
+    divisor as JAX makes one (a Python number rounded to the operand's
+    dtype): PyTorch divides a CUDA tensor by a Python number as a
+    multiply by its reciprocal, and a bfloat16 tensor by the number in
+    float32, either of which can differ from flax's division in the last
+    bit. ``full`` fills it on the device, without a copy from the
+    host."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -101,7 +214,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         return x
     keep_prob = 1.0 - rate
     keep = prng.keep_mask(keys.next(), x.shape, keep_prob, x.device)
-    return torch.where(keep, x / _divisor(keep_prob, x),
+    return torch.where(keep, x / scalar_like(keep_prob, x),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -115,7 +228,7 @@ def attention_dropout(w: torch.Tensor, rate: float, train: bool,
     keep_prob = 1.0 - rate
     keep = prng.keep_mask(keys.next(), (1, 1) + tuple(w.shape[-2:]),
                           keep_prob, w.device)
-    return w * (keep.to(w.dtype) / _divisor(keep_prob, w))
+    return w * (keep.to(w.dtype) / scalar_like(keep_prob, w))
 
 
 def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:

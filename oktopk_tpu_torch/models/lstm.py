@@ -19,11 +19,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn as nn
 
-from oktopk_tpu_torch.models.layers import SiteKeys, dropout, site_hashes
+from oktopk_tpu_torch.models.layers import (Embedding, Linear, SiteKeys,
+                                            dropout, promote,
+                                            set_compute_dtype, site_hashes)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
-from oktopk_tpu_torch.models.rnn import LSTMCell, lstm
+from oktopk_tpu_torch.models.rnn import LSTMCell, lstm, lstm_written_out
 
 
 def dropout_sites(num_layers: int = 2):
@@ -35,23 +36,30 @@ class PTBLSTM(FlaxNamedModule):
     """tokens [B, T] -> logits [B, T, vocab_size]."""
 
     def __init__(self, vocab_size: int = 10000, hidden_size: int = 1500,
-                 num_layers: int = 2, dropout_keep: float = 0.35):
+                 num_layers: int = 2, dropout_keep: float = 0.35,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.rate = 1.0 - dropout_keep
         self.num_layers = num_layers
-        self.Embed_0 = nn.Embedding(vocab_size, hidden_size)
+        self.Embed_0 = Embedding(vocab_size, hidden_size)
         for i in range(num_layers):
             self.add_module(f"OptimizedLSTMCell_{i}",
                             LSTMCell(hidden_size, hidden_size))
-        self.Dense_0 = nn.Linear(hidden_size, vocab_size)
+        self.Dense_0 = Linear(hidden_size, vocab_size)
         self.site_hashes = site_hashes(dropout_sites(num_layers))
+        set_compute_dtype(self, dtype)
 
     def forward(self, tokens, train: bool = True, rng=None):
         keys = (SiteKeys(rng, self.site_hashes)
                 if train and self.rate > 0.0 else None)
         x = dropout(self.Embed_0(tokens.long()), self.rate, train, keys)
         for i in range(self.num_layers):
-            x = lstm(x, (self.get_submodule(f"OptimizedLSTMCell_{i}"),))
+            cell = self.get_submodule(f"OptimizedLSTMCell_{i}")
+            if self.compute_dtype is None:
+                x = lstm(x, (cell,))
+            else:                   # flax's cell, its carry in bfloat16
+                (x,) = promote(self.compute_dtype, x)
+                x = lstm_written_out(x, cell)
             x = dropout(x, self.rate, train, keys)
         return self.Dense_0(x).to(torch.float32)
 

@@ -9,22 +9,24 @@ The head flattens NHWC. Input NHWC [B, 28, 28, 1], NCHW inside.
 from __future__ import annotations
 
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import flatten_nhwc
+from oktopk_tpu_torch.models.layers import (Conv2d, Linear, flatten_nhwc,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
 class MnistNet(FlaxNamedModule):
     """images NHWC [B, 28, 28, 1] -> logits [B, num_classes]."""
 
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(1, 32, 5, 1, 2)
-        self.Conv_1 = nn.Conv2d(32, 64, 5, 1, 2)
-        self.Dense_0 = nn.Linear(64 * 7 * 7, 512)
-        self.Dense_1 = nn.Linear(512, num_classes)
+        self.Conv_0 = Conv2d(1, 32, 5, 1, 2)
+        self.Conv_1 = Conv2d(32, 64, 5, 1, 2)
+        self.Dense_0 = Linear(64 * 7 * 7, 512)
+        self.Dense_1 = Linear(512, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = x_nhwc.permute(0, 3, 1, 2)

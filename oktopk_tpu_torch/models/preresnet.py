@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import BatchNorm
+from oktopk_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
@@ -27,12 +28,12 @@ class PreActBlock(nn.Module):
         self.project = cin != filters or strides != 1
         i = 0
         if self.project:
-            self.Conv_0 = nn.Conv2d(cin, filters, 1, strides, bias=False)
+            self.Conv_0 = Conv2d(cin, filters, 1, strides, bias=False)
             i = 1
-        self.add_module(f"Conv_{i}", nn.Conv2d(cin, filters, 3, strides, 1,
+        self.add_module(f"Conv_{i}", Conv2d(cin, filters, 3, strides, 1,
                                                bias=False))
         self.BatchNorm_1 = BatchNorm(filters)
-        self.add_module(f"Conv_{i + 1}", nn.Conv2d(filters, filters, 3, 1,
+        self.add_module(f"Conv_{i + 1}", Conv2d(filters, filters, 3, 1,
                                                    1, bias=False))
         self.first = i
 
@@ -49,12 +50,13 @@ class PreActBlock(nn.Module):
 class PreResNet(FlaxNamedModule):
     """images NHWC [B, 32, 32, 3] -> logits [B, num_classes]."""
 
-    def __init__(self, depth: int = 110, num_classes: int = 10):
+    def __init__(self, depth: int = 110, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if (depth - 2) % 6:
             raise ValueError(f"depth {depth} is not 6n + 2")
         n = (depth - 2) // 6
-        self.Conv_0 = nn.Conv2d(3, 16, 3, 1, 1, bias=False)
+        self.Conv_0 = Conv2d(3, 16, 3, 1, 1, bias=False)
         self.num_blocks, c = 3 * n, 16
         for stage, filters in enumerate((16, 32, 64)):
             for block in range(n):
@@ -63,7 +65,8 @@ class PreResNet(FlaxNamedModule):
                                 PreActBlock(c, filters, strides))
                 c = filters
         self.BatchNorm_0 = BatchNorm(c)
-        self.Dense_0 = nn.Linear(c, num_classes)
+        self.Dense_0 = Linear(c, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = self.Conv_0(x_nhwc.permute(0, 3, 1, 2))

@@ -16,21 +16,22 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import BatchNorm
+from oktopk_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, filters: int, strides: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(cin, filters, 3, strides, 1, bias=False)
+        self.Conv_0 = Conv2d(cin, filters, 3, strides, 1, bias=False)
         self.BatchNorm_0 = BatchNorm(filters)
-        self.Conv_1 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False)
+        self.Conv_1 = Conv2d(filters, filters, 3, 1, 1, bias=False)
         self.BatchNorm_1 = BatchNorm(filters)
         # flax compares shapes; with even sizes that is this test
         self.project = cin != filters or strides != 1
         if self.project:
-            self.Conv_2 = nn.Conv2d(cin, filters, 1, strides, bias=False)
+            self.Conv_2 = Conv2d(cin, filters, 1, strides, bias=False)
             self.BatchNorm_2 = BatchNorm(filters)
 
     def forward(self, x, train: bool = True, update_stats: bool = True):
@@ -45,12 +46,13 @@ class BasicBlock(nn.Module):
 class CifarResNet(FlaxNamedModule):
     """images NHWC [B, 32, 32, 3] -> logits [B, num_classes]."""
 
-    def __init__(self, depth: int = 20, num_classes: int = 10):
+    def __init__(self, depth: int = 20, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if (depth - 2) % 6:
             raise ValueError(f"depth {depth} is not 6n + 2")
         n = (depth - 2) // 6
-        self.Conv_0 = nn.Conv2d(3, 16, 3, 1, 1, bias=False)
+        self.Conv_0 = Conv2d(3, 16, 3, 1, 1, bias=False)
         self.BatchNorm_0 = BatchNorm(16)
         self.num_blocks, c = 3 * n, 16
         for stage, filters in enumerate((16, 32, 64)):
@@ -59,7 +61,8 @@ class CifarResNet(FlaxNamedModule):
                 self.add_module(f"BasicBlock_{stage * n + block}",
                                 BasicBlock(c, filters, strides))
                 c = filters
-        self.Dense_0 = nn.Linear(c, num_classes)
+        self.Dense_0 = Linear(c, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = x_nhwc.permute(0, 3, 1, 2)

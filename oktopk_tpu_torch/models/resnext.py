@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import BatchNorm
+from oktopk_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
+                                            set_compute_dtype)
 from oktopk_tpu_torch.models.layout import FlaxNamedModule
 
 
@@ -25,16 +26,16 @@ class ResNeXtBlock(nn.Module):
                  base_width: int = 64, strides: int = 1):
         super().__init__()
         width = cardinality * base_width * filters // 256
-        self.Conv_0 = nn.Conv2d(cin, width, 1, bias=False)
+        self.Conv_0 = Conv2d(cin, width, 1, bias=False)
         self.BatchNorm_0 = BatchNorm(width)
-        self.Conv_1 = nn.Conv2d(width, width, 3, strides, 1,
+        self.Conv_1 = Conv2d(width, width, 3, strides, 1,
                                 groups=cardinality, bias=False)
         self.BatchNorm_1 = BatchNorm(width)
-        self.Conv_2 = nn.Conv2d(width, filters, 1, bias=False)
+        self.Conv_2 = Conv2d(width, filters, 1, bias=False)
         self.BatchNorm_2 = BatchNorm(filters)
         self.project = cin != filters or strides != 1
         if self.project:
-            self.Conv_3 = nn.Conv2d(cin, filters, 1, strides, bias=False)
+            self.Conv_3 = Conv2d(cin, filters, 1, strides, bias=False)
             self.BatchNorm_3 = BatchNorm(filters)
 
     def forward(self, x, train: bool = True, update_stats: bool = True):
@@ -51,12 +52,13 @@ class ResNeXt(FlaxNamedModule):
     """images NHWC [B, 32, 32, 3] -> logits [B, num_classes]."""
 
     def __init__(self, depth: int = 29, cardinality: int = 8,
-                 base_width: int = 64, num_classes: int = 10):
+                 base_width: int = 64, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if (depth - 2) % 9:
             raise ValueError(f"depth {depth} is not 9n + 2")
         n = (depth - 2) // 9
-        self.Conv_0 = nn.Conv2d(3, 64, 3, 1, 1, bias=False)
+        self.Conv_0 = Conv2d(3, 64, 3, 1, 1, bias=False)
         self.BatchNorm_0 = BatchNorm(64)
         self.num_blocks, c = 3 * n, 64
         for stage, filters in enumerate((256, 512, 1024)):
@@ -67,7 +69,8 @@ class ResNeXt(FlaxNamedModule):
                     ResNeXtBlock(c, filters, cardinality, base_width,
                                  strides))
                 c = filters
-        self.Dense_0 = nn.Linear(c, num_classes)
+        self.Dense_0 = Linear(c, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = x_nhwc.permute(0, 3, 1, 2)

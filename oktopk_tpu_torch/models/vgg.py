@@ -20,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.models.layers import BatchNorm, flatten_nhwc
+from oktopk_tpu_torch.models.layers import (BatchNorm, Conv2d, Linear,
+                                            flatten_nhwc, set_compute_dtype)
 
 CFG = {
     "vgg11": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
@@ -37,7 +38,8 @@ class VGG(nn.Module):
     """CIFAR VGG from ``CFG``; input NHWC [B, 32, 32, 3] as the JAX model
     takes it, logits [B, num_classes]."""
 
-    def __init__(self, name_cfg: str = "vgg16", num_classes: int = 10):
+    def __init__(self, name_cfg: str = "vgg16", num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.name_cfg = name_cfg
         convs, bns = [], []
@@ -46,12 +48,13 @@ class VGG(nn.Module):
             if v == "M":
                 hw //= 2
             else:
-                convs.append(nn.Conv2d(c, v, 3, padding=1, bias=True))
+                convs.append(Conv2d(c, v, 3, padding=1, bias=True))
                 bns.append(BatchNorm(v))
                 c = v
         self.convs = nn.ModuleList(convs)
         self.bns = nn.ModuleList(bns)
-        self.dense = nn.Linear(c * hw * hw, num_classes)
+        self.dense = Linear(c * hw * hw, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x_nhwc, train: bool = True, update_stats: bool = True):
         x = x_nhwc.permute(0, 3, 1, 2)

@@ -5,7 +5,9 @@ Counterpart of ``oktopk_tpu/train/main_bert.py:22-182`` and
 ``_bert_algo_cfg`` (:290-299): the same flags and defaults (bs 8 per
 worker, seq 128 (32 for ``bert_tiny``), BertAdam lr 2e-4 with a 1%
 warmup-linear schedule over ``--num-minibatches``, oktopk at density
-0.01 on the bf16 wire, no dense warmup), plus ``--num-workers``,
+0.01 on the bf16 wire, no dense warmup; ``--compute-dtype
+bfloat16`` computes the model in bfloat16 over float32 master weights),
+plus ``--num-workers``,
 ``--device`` and ``--backend``. The data is ``make_dataset("wikipedia",
 ...)`` on ``--data-dir`` (default ``./data``): the sentence-per-line
 corpus under ``wikipedia`` and its ``vocab.txt``, else the synthetic
@@ -34,6 +36,8 @@ Examples:
         --handle-preemption
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
         --num-workers 4 --num-minibatches 2048 --resume ckpts
+    python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
+        --num-workers 4 --compute-dtype bfloat16 --num-minibatches 100
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ def parse_args(argv=None):
                    choices=list_algorithms())
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="only float32 is ported")
+                   help="the model's computation dtype; parameters, "
+                        "gradients, the collective and BertAdam stay "
+                        "float32")
     p.add_argument("--wire-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--density", type=float, default=0.01)

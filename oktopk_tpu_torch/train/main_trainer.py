@@ -4,7 +4,8 @@ AN4 (CTC) and the PTB LSTM.
 
 Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 :25-50, :130-135 that the port serves, under the same names
-(``--compressor`` takes every registry name but ``hierarchical``), the
+(``--compressor`` takes every registry name but ``hierarchical``;
+``--compute-dtype float32|bfloat16``), the
 checkpoint and preemption flags of :148-169 (``--ckpt-dir``,
 ``--ckpt-every``, ``--ckpt-async``, ``--ckpt-keep``, ``--ckpt-force``,
 ``--resume``, ``--handle-preemption``), plus ``--num-workers``,
@@ -47,6 +48,8 @@ Examples:
         --compressor topkA --nsteps-update 2 --grad-clip 5.0
     python -m oktopk_tpu_torch.train.main_trainer --dnn resnet50 \\
         --dataset imagenet --batch-size 32 --num-workers 4 --density 0.02
+    python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
+        --num-workers 4 --compute-dtype bfloat16 --max-iters 20
     python -m oktopk_tpu_torch.train.main_trainer --dnn resnet20 \\
         --dataset cifar10 --data-dir /path/to/data --num-workers 4
     python -m oktopk_tpu_torch.train.main_trainer --dnn lstman4 \\
@@ -96,6 +99,11 @@ def parse_args(argv=None):
                    help="if set, run exactly this many iterations")
     p.add_argument("--nsteps-update", type=int, default=1,
                    help="local microbatches accumulated per allreduce")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the model's computation dtype; parameters, "
+                        "gradients, the collective and the optimizer stay "
+                        "float32")
     p.add_argument("--wire-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num-buckets", type=int, default=1)
@@ -167,7 +175,8 @@ def build_trainer(args):
         nesterov=args.nesterov, max_epochs=args.max_epochs,
         nsteps_update=args.nsteps_update, compressor=args.compressor,
         density=args.density, seed=args.seed, num_workers=workers,
-        grad_clip=args.grad_clip, num_buckets=args.num_buckets)
+        grad_clip=args.grad_clip, num_buckets=args.num_buckets,
+        compute_dtype=args.compute_dtype)
     algo_cfg = OkTopkConfig(wire_dtype=args.wire_dtype)
     if args.warmup_steps is not None:
         algo_cfg = algo_cfg.replace(warmup_steps=args.warmup_steps)

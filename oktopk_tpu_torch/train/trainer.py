@@ -76,14 +76,25 @@ dropout key, from which each dropout site takes flax's key
 microbatch) alone, not on P, and a rank derives its own workers' keys
 without the others'.
 
+``cfg.compute_dtype`` is flax's ``dtype`` (the JAX Trainer's :77-81):
+"bfloat16" gives the model ``dtype=torch.bfloat16``, whose layers cast
+their inputs and float32 parameters to bfloat16 at every call
+(``models/layers.py``). The parameters, their gradients, the flat
+buffer, the sparse collective and the optimizer state stay float32
+(checked: ``master_dtypes``); the logits, and so every loss, are
+float32.
+
 On the card TF32 is switched off for cuDNN convolutions and matmuls
 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` set False), so the float32
-model computes in float32 as the reference does, and cuDNN is made
-deterministic (``torch.backends.cudnn.deterministic`` True,
-``benchmark`` False), so a run repeats as XLA's does; all four switches
-are process-wide. cuBLAS repeats only with ``CUBLAS_WORKSPACE_CONFIG``
-set before the CUDA context exists (``main_trainer.main`` sets it).
+model computes in float32 as the reference does; cuBLAS may not reduce
+a bfloat16 product's split-K partial sums in bfloat16
+(``allow_bf16_reduced_precision_reduction`` False: XLA accumulates in
+float32); and cuDNN is made deterministic
+(``torch.backends.cudnn.deterministic`` True, ``benchmark`` False), so
+a run repeats as XLA's does; all five switches are process-wide.
+cuBLAS repeats only with ``CUBLAS_WORKSPACE_CONFIG`` set before the
+CUDA context exists (``main_trainer.main`` sets it).
 """
 
 from __future__ import annotations
@@ -158,7 +169,9 @@ class Trainer:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+            matmul = torch.backends.cuda.matmul
+            matmul.allow_tf32 = False
+            matmul.allow_bf16_reduced_precision_reduction = False
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
         self.cfg = cfg
@@ -170,7 +183,10 @@ class Trainer:
                              f"cfg.num_workers={P}")
         W = self.comm.local_workers
         self.distributed = W < P
-        model = create_model(cfg.dnn, **(model_kwargs or {}))
+        mk = dict(model_kwargs or {})
+        if cfg.compute_dtype != "float32":
+            mk.setdefault("dtype", getattr(torch, cfg.compute_dtype))
+        model = create_model(cfg.dnn, **mk)
         gen = torch.Generator().manual_seed(cfg.seed)
         if hasattr(model, "init_weights"):
             model.init_weights(gen)
@@ -219,6 +235,10 @@ class Trainer:
         self.last_step = 0
         self.last_hypotheses = []      # eval_step's, DeepSpeech only
         self.stats = list(self.model.buffers())
+        bad = {k: d for k, d in self.master_dtypes().items()
+               if not d <= {torch.float32}}
+        if bad:
+            raise TypeError(f"master state not float32: {bad}")
         if self.distributed:
             changed = self.comm.replicate_(self.params).reshape(1, 1)
             if int(self.comm.psum(changed)[0, 0]):
@@ -241,7 +261,22 @@ class Trainer:
 
     def _write_flat_grad(self, w: int) -> None:
         for view, p in zip(self._jax_views(self.flat[w]), self.params):
+            if p.grad.dtype != torch.float32:    # copy_ would cast it
+                raise TypeError(f"gradient of dtype {p.grad.dtype}")
             view.copy_(p.grad)
+
+    def master_dtypes(self) -> Dict[str, set]:
+        """The dtypes of the float32 master state: ``params``, ``grads``
+        (those present), ``flat`` (the [W, n] gradient buffer) and
+        ``optimizer`` (its float tensors: SGD's momentum, BertAdam's
+        moments)."""
+        opt = [getattr(self.optimizer, k, None) for k in ("m", "v")]
+        opt += list(getattr(self.optimizer, "momentum_buf", None) or [])
+        return {"params": {p.dtype for p in self.params},
+                "grads": {p.grad.dtype for p in self.params
+                          if p.grad is not None},
+                "flat": {self.flat.dtype},
+                "optimizer": {t.dtype for t in opt if t is not None}}
 
     def microbatch_keys(self, step_key) -> np.ndarray:
         """[W, nsteps_update, 2] uint32: the dropout key of each of this

@@ -114,8 +114,12 @@ def test_config_fields_match(name):
 
 
 def test_config_rejects_bfloat16():
-    with pytest.raises(NotImplementedError):
-        torch_bert.BertConfig.tiny(dtype=torch.bfloat16)
+    """bfloat16 is a compute dtype now (``tests/test_torch_bf16.py``);
+    the config rejects the dtypes the port has no path for."""
+    assert torch_bert.BertConfig.tiny(dtype=torch.bfloat16).dtype \
+        == torch.bfloat16
+    with pytest.raises(ValueError):
+        torch_bert.BertConfig.tiny(dtype=torch.float16)
 
 
 @pytest.mark.parametrize("which", ["tiny", "narrow12"])

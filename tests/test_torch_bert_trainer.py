@@ -137,7 +137,7 @@ def test_main_bert_flags_and_algo_cfg():
 
 @pytest.mark.parametrize("flags", [
     ["--pipeline-stages", "2"], ["--seq-shards", "2"],
-    ["--expert-shards", "2"], ["--compute-dtype", "bfloat16"]])
+    ["--expert-shards", "2"]])
 def test_main_bert_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_bert.main(["--model", "bert_tiny", "--device", "cpu",

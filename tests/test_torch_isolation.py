@@ -1,7 +1,8 @@
 """The port stands alone: neither ``oktopk_tpu_torch/`` (its launch
 layer and process-group comm included) nor ``chip_smoke.py`` (nor the
-port's profiling and A/B scripts, ``psum_ab.py`` among them, nor the
-worker module that the process-group tests spawn) imports ``jax``,
+port's profiling and A/B scripts, ``psum_ab.py`` and
+``bf16_card_yardstick.py`` among them, nor the worker module that the
+process-group tests spawn) imports ``jax``,
 ``flax``, ``optax``, ``msgpack`` or ``oktopk_tpu``,
 and importing every module of the package leaves ``jax`` out of
 ``sys.modules``."""
@@ -24,6 +25,7 @@ def _sources():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "port_profile.py",
         ROOT / "scripts" / "compaction_ab.py",
         ROOT / "scripts" / "psum_ab.py",
+        ROOT / "scripts" / "bf16_card_yardstick.py",
         ROOT / "tests" / "torch_dist_child.py"]
     assert len(files) > 20
     for mod in ("launch.py", "comm/process_group.py", "comm/fabric.py",

@@ -241,10 +241,12 @@ class TestConfig:
         assert tf == {k: jf[k] for k in tf}
 
     def test_train_config_serves_float32_only(self):
-        assert tcfg.TrainConfig(compute_dtype="float32").compute_dtype \
-            == "float32"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcfg.TrainConfig(compute_dtype="bfloat16")
+        """The master state is float32 only: the compute dtype is the
+        JAX command lines' float32 or bfloat16, no other."""
+        for dt in ("float32", "bfloat16"):
+            assert tcfg.TrainConfig(compute_dtype=dt).compute_dtype == dt
+        with pytest.raises(ValueError, match="compute_dtype"):
+            tcfg.TrainConfig(compute_dtype="float16")
 
     @pytest.mark.parametrize("kw", [
         dict(n=14728266, num_workers=4, density=0.02),
