@@ -55,6 +55,23 @@ and prints one JSON line per phase:
 8. step_options — one more full-width oktopk run with two microbatches
               per worker, a gradient clip that binds, momentum correction
               and the ``eps_vs_dense`` metric;
+37. obs_trainer — (after step_options) the run journal on the main path:
+              ``main_trainer`` in this process, VGG-16 at full width, P =
+              4, batch 16 a worker, d = 0.02, bf16 wire, 8 steps with
+              ``--obs --obs-quality --obs-quality-every 4 --phase-timers
+              --trace-at 5 --trace-steps 2 --log-every 4``, then the same
+              8 steps without ``--obs``: the journal validates (one header
+              naming the card), 8 ``step`` events with wire bytes, quality
+              counts summing to 8 with a rollup each, one oktopk
+              ``volume_report`` with a budget, ``rank0.log`` and
+              ``scalars.csv`` written, the Chrome trace naming K1's and
+              the compaction's kernels, both launched (``launches_by_path``
+              ``vgg16 obs``); losses and volumes bit-identical with and
+              without the journal; a regression detector on the run
+              without it flags a planted 3x step (what it flags on the
+              real steps is printed); step medians and spreads with and
+              without, the flush's time, device memory, the card; its own
+              budget, ``OBS_BUDGET_S``;
 9. bert_kernels — (after ``edges``) the fused select kernel and the
               compaction's two oktopk forms at BERT-base's flat size n =
               110,106,428 and its k at d = 0.01, on rows of [4, n] buffers:
@@ -1165,6 +1182,200 @@ def phase_step_options(dev):
           "worker_grad_norms_after_clip": [float(v) for v in norms],
           **summary})
     return summary["launches"]
+
+
+# the run journal on the main path: VGG-16 through oktopk at
+# full width, P = 4 stacked, batch 16 a worker, d = 0.02, bf16 wire
+OBS_STEPS = 8
+OBS_BUDGET_S = 60.0          # the phase's own budget (both runs)
+OBS_ARGV = ["--dnn", "vgg16", "--dataset", "cifar10", "--batch-size", "16",
+            "--num-workers", "4", "--density", "0.02", "--wire-dtype",
+            "bfloat16", "--warmup-steps", "1", "--lr", "0.01", "--seed",
+            str(SEED), "--max-iters", str(OBS_STEPS), "--log-every", "4"]
+OBS_FLAGS = ["--obs", "--obs-quality", "--obs-quality-every", "4",
+             "--phase-timers", "--trace-at", "5", "--trace-steps", "2"]
+OBS_TRACED = (5, 6)          # the steps inside the trace window
+
+
+def obs_cli_run(dev, argv, logdir: str) -> dict:
+    """``main_trainer.main(argv)`` in this process, every Trainer step
+    timed on the host clock (the card synchronised after it) and its
+    metrics kept, every quality flush timed, and the peak device memory
+    above what was allocated before the run; the launch counters set to 0
+    just before the run and read just after."""
+    import gc
+
+    import torch
+    from oktopk_tpu_torch.train import main_trainer
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    recs, flush_ms = [], []
+    step, flush = Trainer.train_step, Trainer._flush_quality
+
+    def timed_step(self, batch):
+        t0 = time.perf_counter()
+        m = step(self, batch)
+        torch.cuda.synchronize(dev)
+        recs.append(({k: float(v) for k, v in m.items()},
+                     (time.perf_counter() - t0) * 1e3))
+        return m
+
+    def timed_flush(self, at):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        flush(self, at)
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+
+    Trainer.train_step, Trainer._flush_quality = timed_step, timed_flush
+    try:
+        gc.collect()        # an earlier run's Trainer (a reference cycle)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = main_trainer.main(argv + ["--device", str(dev), "--logdir",
+                                       logdir])
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    finally:
+        Trainer.train_step, Trainer._flush_quality = step, flush
+    if rc != 0 or len(recs) != OBS_STEPS:
+        raise AssertionError(f"obs_trainer: main_trainer exit {rc}, "
+                             f"{len(recs)} steps")
+    cfg, _ = main_trainer.configs(main_trainer.parse_args(argv), 4)
+    return {"metrics": [m for m, _ in recs], "ms": [t for _, t in recs],
+            "flush_ms": flush_ms, "seconds": secs, "launches": launches,
+            "peak_gb": peak_gb,
+            "rundir": os.path.join(logdir, cfg.experiment_slug())}
+
+
+def spread(ms) -> dict:
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+
+
+def trace_kernels(path: str) -> set:
+    """The kernel names of a Chrome trace (its ``kernel`` events)."""
+    with open(path) as f:
+        trace = json.load(f)
+    return {e.get("name", "").split("(")[0] for e in trace["traceEvents"]
+            if e.get("cat") == "kernel"}
+
+
+def phase_obs_trainer(dev) -> dict:
+    """``main_trainer`` on the main path with the run journal, the quality
+    taps, the phase timers and a trace window, then the same steps
+    without ``--obs``: the journal, the run directory, the trace and the
+    launches checked; losses and volumes bit-identical on and off; a
+    regression detector on the off run's median. Returns the launches of
+    the journalled run."""
+    import shutil
+    import tempfile
+
+    import torch
+    from oktopk_tpu_torch.autotune.journal import read_journal
+    from oktopk_tpu_torch.obs.events import validate_journal
+    from oktopk_tpu_torch.obs.journal import EventBus
+    from oktopk_tpu_torch.obs.regress import RegressionDetector
+    from oktopk_tpu_torch.utils.profiling import device_memory_stats
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="oktopk_obs_")
+    try:
+        on = obs_cli_run(dev, OBS_ARGV + OBS_FLAGS,
+                         os.path.join(root, "on"))
+        mem = device_memory_stats(dev)
+        off = obs_cli_run(dev, OBS_ARGV, os.path.join(root, "off"))
+        rundir = on["rundir"]
+        journal = read_journal(os.path.join(rundir, "run_journal.jsonl"))
+        problems = validate_journal(journal)
+        kinds = [e["event"] for e in journal]
+        header = journal[0]
+        if problems or kinds.count("header") != 1 or \
+                header.get("device_kind") != torch.cuda.get_device_name(0):
+            raise AssertionError(f"obs_trainer: journal {problems[:5]}, "
+                                 f"header {header}")
+        steps = [e for e in journal if e["event"] == "step"]
+        if len(steps) != OBS_STEPS or not all(
+                e["wire_bytes"] > 0 for e in steps):
+            raise AssertionError(f"obs_trainer: step events {steps}")
+        quality = [e for e in journal if e["event"] == "quality"]
+        rollups = [e for e in journal if e["event"] == "quality_rollup"]
+        if sum(e["count"] for e in quality) != OBS_STEPS or \
+                len(rollups) != len(quality):
+            raise AssertionError(f"obs_trainer: {len(quality)} quality "
+                                 f"events, {len(rollups)} rollups")
+        volume = [e for e in journal if e["event"] == "volume_report"]
+        if len(volume) != 1 or volume[0]["algo"] != "oktopk" or \
+                not volume[0]["budget_bytes"] > 0:
+            raise AssertionError(f"obs_trainer: volume reports {volume}")
+        for f in ("rank0.log", "scalars.csv"):
+            if not os.path.isfile(os.path.join(rundir, f)):
+                raise AssertionError(f"obs_trainer: no {f} in {rundir}")
+        trace = os.path.join(rundir, "trace", "trace_steps%d-%d.json"
+                             % OBS_TRACED)
+        traced = trace_kernels(trace)
+        for kern in ("fs_sweep", "cp_compact"):
+            if kern not in traced:
+                raise AssertionError(f"obs_trainer: {kern} not in the "
+                                     f"trace ({sorted(traced)[:20]})")
+        assert_launched(on["launches"], SPARSE_KERNELS, "obs_trainer")
+        for key in ("loss", "comm_volume", "wire_bytes"):
+            a = [m[key] for m in on["metrics"]]
+            b = [m[key] for m in off["metrics"]]
+            if a != b:
+                raise AssertionError(f"obs_trainer: {key} with the journal "
+                                     f"{a}, without {b}")
+        if [e["loss"] for e in steps] != [m["loss"] for m in on["metrics"]]:
+            raise AssertionError("obs_trainer: journalled losses differ "
+                                 "from the steps'")
+        # the steady oktopk steps (after the dense step and the first,
+        # exact, oktopk step) outside the trace window, both runs
+        steady = [i for i in range(2, OBS_STEPS)
+                  if i + 1 not in OBS_TRACED]
+        on_ms = [on["ms"][i] for i in steady]
+        off_ms = [off["ms"][i] for i in steady]
+        base = statistics.median(off_ms)
+        planted = RegressionDetector(base, warmup_windows=0, bus=EventBus())
+        if planted.observe(1, 3.0 * base) is None:
+            raise AssertionError("obs_trainer: a planted 3x step was not "
+                                 "flagged")
+        real = RegressionDetector(base, warmup_windows=0)
+        for i in steady:
+            real.observe(i + 1, on["ms"][i])
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        secs = time.perf_counter() - t_phase
+        out = {"phase": "obs_trainer", "card": smi,
+               "steps": OBS_STEPS, "steady_steps": [i + 1 for i in steady],
+               "step_ms_obs": spread(on_ms), "step_ms_no_obs": spread(off_ms),
+               "step_ms_obs_all": on["ms"], "step_ms_no_obs_all": off["ms"],
+               "flush_ms": on["flush_ms"], "quality_events": len(quality),
+               "rollups": len(rollups),
+               "breaches": sorted({b for r in rollups
+                                   for b in r["breaches"]}),
+               "conformance_ratio": volume[0]["conformance_ratio"],
+               "device_memory": mem, "peak_gb_obs": on["peak_gb"],
+               "peak_gb_no_obs": off["peak_gb"],
+               "journal_events": len(journal),
+               "trace_mb": os.path.getsize(trace) / 1e6,
+               "losses": [m["loss"] for m in on["metrics"]],
+               "bit_identical_on_off": True,
+               "regress_flags_on_real_steps": real.flagged,
+               "launches": on["launches"], "launches_off": off["launches"],
+               "run_seconds": {"obs": on["seconds"], "no_obs": off["seconds"]},
+               "seconds": secs}
+        emit(out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if secs > OBS_BUDGET_S:
+        raise AssertionError(f"obs_trainer took {secs:.1f} s, over its "
+                             f"{OBS_BUDGET_S:.0f} s budget")
+    return on["launches"]
 
 
 N_BERT = 110106428            # BERT-base's flat parameter count
@@ -4052,6 +4263,8 @@ def main() -> int:
     phase_bert_parity(dev)
     by_path = {"oktopk": phase_trainer(dev), **phase_baselines_trainer(dev),
                "oktopk step options": phase_step_options(dev)}
+    torch.cuda.empty_cache()
+    by_path["vgg16 obs"] = phase_obs_trainer(dev)
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
     phase_lstman4_parity(dev)

@@ -17,7 +17,7 @@ hand-written kernels and on the CPU through their plain versions. The
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -191,6 +191,8 @@ class TrainConfig:
     nsteps_update: int = 1          # local microbatches per allreduce
     compressor: str = "oktopk"
     density: float = 0.02
+    # the JAX command lines' --sigma-scale; no collective reads it
+    sigma_scale: float = 2.5
     seed: int = 0
     num_workers: int = 1
     # global-norm clip of each worker's local gradient, before the
@@ -207,6 +209,35 @@ class TrainConfig:
     # collective and the optimizer stay float32
     compute_dtype: str = "float32"
     num_buckets: int = 1
+
+    # ---- the run journal (obs/) ---------------------------------------
+    # an event bus and one JSONL run journal behind one environment
+    # header: per-step metrics, phase timings, quality flushes and the
+    # end-of-run volume reports (obs/journal.py)
+    obs: bool = False
+    # the journal's path; None keeps it in memory only
+    obs_journal: Optional[str] = None
+    # BENCH_r*.json key of the step-time regression baseline
+    # (obs/regress.py); None: no regression checks
+    obs_regress_key: Optional[str] = None
+    # a step above tolerance x baseline journals a regression event
+    obs_regress_tolerance: float = 1.5
+    # per-phase limits in ms; a host-phase summary above its limit
+    # journals a regression with key="phase:<name>"
+    obs_phase_limits: Optional[Dict[str, float]] = None
+    # the step's quality taps (obs/quality.py) into device-side rings,
+    # drained every obs_quality_every steps (= the ring's capacity) into
+    # quality events; obs/rollup.py rolls each up with breach detection
+    obs_quality: bool = False
+    obs_quality_every: int = 32
+    # churn-signature bins (a power of two)
+    obs_quality_sig_bins: int = 512
+    # the rollup's breach limits: mean residual growth, realised density
+    # over the target, mean churn and mean compression error
+    obs_quality_growth_limit: float = 1.5
+    obs_quality_collapse_ratio: float = 0.25
+    obs_quality_churn_limit: float = 0.9
+    obs_quality_comp_err_limit: float = 1.0
 
     def __post_init__(self):
         # the JAX command lines' choices for --compute-dtype

@@ -296,9 +296,11 @@ def train_state_to_jax(trainer, host: bool = True,
     params' tree, or None) or BertAdam's ``{step, m, v}``;
     ``sparse_state`` (one ``SparseState`` field dict, or ``{"0": ...,
     "1": ...}`` with ``num_buckets > 1``) and ``local_momentum`` (None
-    without momentum correction) with every worker's row; ``health``
-    and ``quality`` None (the port has neither the guard nor the quality
-    taps in its step).
+    without momentum correction) with every worker's row; ``quality``
+    the step's quality rings (``{ring, cursor, prev_res_norm,
+    prev_sig}`` with every worker's row, per bucket as
+    ``sparse_state``) when the taps are on, else None; ``health`` None
+    (the port has no guard yet).
 
     ``host`` copies every leaf to a fresh host array (the checkpoint);
     otherwise the leaves are the live tensors, viewed in the flax
@@ -307,6 +309,8 @@ def train_state_to_jax(trainer, host: bool = True,
     whole state, the other ranks' hold their own rows); without it each
     rank gives its own rows (enough for a restore template)."""
     from oktopk_tpu_torch.collectives.state import TENSOR_FIELDS
+    from oktopk_tpu_torch.obs.metrics_buffer import \
+        FIELDS as QUALITY_FIELDS
     from oktopk_tpu_torch.optim import BertAdam
     from oktopk_tpu_torch.train.checkpoint import host_tree
 
@@ -332,6 +336,9 @@ def train_state_to_jax(trainer, host: bool = True,
         for f in TENSOR_FIELDS} for st in gs.states]
     moms = (None if gs.momenta is None
             else [_rows(trainer, m, gather) for m in gs.momenta])
+    quals = (None if gs.qualities is None
+             else [{f: _rows(trainer, getattr(q, f), gather)
+                    for f in QUALITY_FIELDS} for q in gs.qualities])
     bucketed = trainer.cfg.num_buckets > 1
     state = {
         "params": params,
@@ -343,7 +350,9 @@ def train_state_to_jax(trainer, host: bool = True,
                            {str(i): m for i, m in enumerate(moms)}
                            if bucketed else moms[0]),
         "health": None,
-        "quality": None,
+        "quality": (None if quals is None else
+                    {str(i): q for i, q in enumerate(quals)}
+                    if bucketed else quals[0]),
     }
     return host_tree(state) if host else state
 
@@ -369,16 +378,22 @@ def _copy(dst: torch.Tensor, src, what: str) -> None:
 
 def load_train_state_from_jax(trainer, tree: dict,
                               parts=("params", "model_state", "opt_state",
-                                     "sparse_state", "local_momentum")
+                                     "sparse_state", "local_momentum",
+                                     "quality")
                               ) -> None:
     """Put a JAX ``DistTrainState`` state dict (``train_state_to_jax``'s
     layout, from either package's checkpoint) into the Trainer, in
     place. Each process takes its own workers' rows of the per-worker
     state. A leaf that is a tensor is the live state itself (a restore
     template's default) and is left as it is. ``parts`` names the fields
-    to load (``evaluate`` loads the model's alone)."""
+    to load (``evaluate`` loads the model's alone). The quality rings,
+    ring and cursor included, load when the Trainer has the taps on and
+    the tree carries them (a file saved without the taps leaves fresh
+    rings)."""
     from oktopk_tpu_torch.collectives.state import (TENSOR_FIELDS,
                                                     SparseState)
+    from oktopk_tpu_torch.obs.metrics_buffer import \
+        FIELDS as QUALITY_FIELDS
     from oktopk_tpu_torch.optim import BertAdam
 
     model, dev = trainer.model, trainer.device
@@ -427,6 +442,14 @@ def load_train_state_from_jax(trainer, tree: dict,
             if not isinstance(a, torch.Tensor):
                 _copy(gs.momenta[b], rows(a, "local_momentum"),
                       "local_momentum")
+    qt = tree.get("quality")
+    if "quality" in parts and gs.qualities is not None and qt is not None:
+        for b, q in enumerate(gs.qualities):
+            d = qt[str(b)] if bucketed else qt
+            for f in QUALITY_FIELDS:
+                if not isinstance(d[f], torch.Tensor):
+                    _copy(getattr(q, f), rows(d[f], f"quality/{f}").to(
+                        getattr(q, f).dtype), f"quality/{f}")
 
 
 def _load_opt(trainer, opt_state: dict, bert_adam_cls) -> None:

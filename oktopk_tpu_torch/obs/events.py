@@ -1,0 +1,308 @@
+"""Typed, schema-versioned run-journal events.
+
+Counterpart of ``oktopk_tpu/obs/events.py`` (``SCHEMA_VERSION`` :24,
+``EVENT_SCHEMAS`` :39, ``validate_event`` :266, ``validate_journal``
+:294), copied: the port imports nothing of ``oktopk_tpu``, and a journal
+either package writes must pass either package's validator, so the
+schemas are the same dict for dict (``tests/test_torch_obs.py``).
+
+The run journal (``obs/journal.py``) is one JSONL file per training run
+that carries every observability stream behind ONE environment header.
+This module is the schema authority and imports nothing of the rest of
+the package (``autotune/journal.py`` imports it for ``SCHEMA_VERSION``).
+Validation allows EXTRA fields and is strict about required fields and
+their types. The header's required ``jax`` key is None in the port's
+journals (``autotune/journal.py::environment_header``), which the schema
+allows.
+"""
+
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+SCHEMA_VERSION = 1
+
+_NUM = (int, float)
+_STR = (str,)
+_OPT_STR = (str, type(None))
+_BOOL = (bool,)
+_LIST = (list,)
+_DICT = (dict,)
+_OPT_LIST = (list, type(None))
+_OPT_DICT = (dict, type(None))
+
+# event -> {"required": {field: allowed types},
+#           "optional": {field: allowed types}}
+# Unknown extra fields are always allowed; required fields must be
+# present AND type-check; optional fields type-check when present.
+EVENT_SCHEMAS: Dict[str, Dict[str, Dict[str, tuple]]] = {
+    # one per journal, always first (autotune/journal.py
+    # environment_header + schema_version)
+    "header": {
+        "required": {"jax": _OPT_STR},
+        "optional": {"jaxlib": _OPT_STR, "device_kind": _OPT_STR,
+                     "platform": _OPT_STR, "world_size": _NUM,
+                     "schema_version": _NUM},
+    },
+    # per-step training metrics (trainer.py flush cadence; host-side
+    # floats, already device-meaned)
+    "step": {
+        "required": {"step": _NUM},
+        "optional": {"loss": _NUM, "grad_norm": _NUM,
+                     "grad_nonfinite": _NUM, "comm_volume": _NUM,
+                     "wire_bytes": _NUM, "local_k": _NUM,
+                     "global_k": _NUM, "eps_vs_dense": _NUM,
+                     "step_skipped": _NUM, "steps_skipped": _NUM,
+                     "bucket_anomalies": _NUM, "dt_ms": _NUM,
+                     "reduced_absmax": _NUM},
+    },
+    # autotuner fabric calibration (autotune/policy.py)
+    "calibration": {
+        "required": {"step": _NUM},
+        "optional": {"num_workers": _NUM, "alpha": _NUM, "beta": _NUM,
+                     "sizes": _LIST, "times_ms": _LIST,
+                     "residual": _NUM, "source": _STR},
+    },
+    # per-bucket autotune decision. "decision" is the event name the
+    # standalone DecisionJournal file keeps (pre-obs compatibility);
+    # "autotune_decision" is the same payload on the unified bus
+    # (journal.py _BUS_EVENT_REMAP).
+    # Plan-mode decisions (fabric-preset pricing, no trials) add
+    # "fabric" (preset name, e.g. "ici+dcn") and "num_pods"; their
+    # chosen/candidates dicts may carry "outer" and a per-level
+    # "levels" list for hierarchical candidates.
+    "decision": {
+        "required": {"step": _NUM, "bucket": _NUM, "chosen": _DICT,
+                     "reason": _STR},
+        "optional": {"n": _NUM, "num_workers": _NUM,
+                     "candidates": _LIST, "incumbent": _OPT_DICT,
+                     "fabric": _STR, "num_pods": _NUM},
+    },
+    "autotune_decision": {
+        "required": {"step": _NUM, "bucket": _NUM, "chosen": _DICT,
+                     "reason": _STR},
+        "optional": {"n": _NUM, "num_workers": _NUM,
+                     "candidates": _LIST, "incumbent": _OPT_DICT,
+                     "fabric": _STR, "num_pods": _NUM},
+    },
+    # resilience events (resilience/journal.py HealthJournal)
+    "guard_trip": {
+        "required": {"step": _NUM, "buckets": _LIST,
+                     "consecutive_skips": _NUM, "strikes": _LIST},
+        "optional": {},
+    },
+    "fault_seen": {
+        "required": {"step": _NUM, "kind": _STR},
+        "optional": {"buckets": _LIST, "counts": _OPT_LIST,
+                     "workers": _OPT_LIST},
+    },
+    "fallback": {
+        "required": {"step": _NUM, "bucket": _NUM, "algo": _STR,
+                     "strikes": _NUM},
+        "optional": {},
+    },
+    "restore": {
+        "required": {"step": _NUM, "ckpt": _STR,
+                     "last_good_step": _NUM},
+        "optional": {},
+    },
+    "restore_unavailable": {
+        "required": {"step": _NUM, "last_good_step": _NUM},
+        "optional": {},
+    },
+    # elastic resize (train/trainer.py resize_workers): which state
+    # carried across the world-size change vs was re-initialised, and
+    # what triggered it ("chip_loss" via the supervisor remesh action,
+    # "manual" for operator-driven resizes)
+    "remesh": {
+        "required": {"step": _NUM, "old_world": _NUM, "new_world": _NUM,
+                     "trigger": _STR},
+        "optional": {"dead_workers": _LIST, "carried": _LIST,
+                     "reinitialised": _LIST},
+    },
+    # forced autotune re-calibration (resilience/feedback.py via
+    # Trainer.force_retune); "signals" are the evidence steps — the
+    # regression/guard_trip events that voted. Followed in the journal
+    # by the calibration + autotune_decision events it caused.
+    "retune": {
+        "required": {"step": _NUM, "trigger": _STR},
+        "optional": {"signals": _LIST, "cleared": _STR},
+    },
+    # guard-aware density backoff level change (resilience/density.py)
+    "density_backoff": {
+        "required": {"step": _NUM, "direction": _STR, "level": _NUM,
+                     "scale": _NUM},
+        "optional": {"trigger": _STR},
+    },
+    # checkpoint written (resilience/supervisor.py note_checkpoint;
+    # qualified=False means skips were in flight so it is NOT a
+    # restore target)
+    "checkpoint": {
+        "required": {"step": _NUM, "path": _STR, "qualified": _BOOL},
+        "optional": {},
+    },
+    # durable state plane (train/durable.py): a checkpoint file was
+    # written AND verified against its manifest ("source" says whether
+    # the AsyncCheckpointer or a synchronous save published it)
+    "ckpt_saved": {
+        "required": {"step": _NUM, "path": _STR},
+        "optional": {"bytes": _NUM, "digest": _STR, "qualified": _BOOL,
+                     "duration_ms": _NUM, "source": _STR},
+    },
+    # a checkpoint file failed verification (digest/size mismatch, torn
+    # or failed write, undecodable legacy file) — restore skips it and
+    # falls back to the next-older candidate
+    "ckpt_verify_failed": {
+        "required": {"step": _NUM, "path": _STR, "reason": _STR},
+        "optional": {},
+    },
+    # a verified restore completed; fallback_depth counts the newer
+    # corrupt checkpoints skipped to reach this one, legacy flags a
+    # manifest-less file accepted unverified
+    "ckpt_restore": {
+        "required": {"step": _NUM, "path": _STR},
+        "optional": {"ckpt_step": _NUM, "fallback_depth": _NUM,
+                     "legacy": _BOOL},
+    },
+    # bounded profiler window closed (obs/tracing.py AnomalyTracer)
+    "trace_captured": {
+        "required": {"step": _NUM, "start_step": _NUM,
+                     "num_steps": _NUM, "trigger": _STR},
+        "optional": {"logdir": _OPT_STR},
+    },
+    # end-of-run per-bucket wire-volume conformance (trainer.py +
+    # obs/volume.py). Two-level runs emit one report per level plus a
+    # combined one, tagged "level": "intra" | "inter" | "total"
+    # (obs/volume.hierarchical_volume_report); flat reports omit it.
+    "volume_report": {
+        "required": {"step": _NUM, "bucket": _NUM, "algo": _STR},
+        "optional": {"n": _NUM, "density": _NUM, "steps": _NUM,
+                     "wire_bytes": _NUM, "mean_wire_bytes": _NUM,
+                     "budget_bytes": _NUM, "capacity_bytes": _NUM,
+                     "conformance_ratio": _NUM, "level": _STR},
+    },
+    # host phase-timer snapshot (utils/profiling.py PhaseTimers.summary)
+    "phase": {
+        "required": {"step": _NUM},
+        "optional": {"phases": _DICT},
+    },
+    # step-time regression vs the BENCH trajectory (obs/regress.py)
+    "regression": {
+        "required": {"step": _NUM, "ms": _NUM, "baseline_ms": _NUM,
+                     "ratio": _NUM},
+        "optional": {"key": _OPT_STR, "tolerance": _NUM},
+    },
+    # per-bucket signal-fidelity flush (obs/quality.py via the trainer):
+    # one event per bucket per flush window, carrying parallel per-step
+    # lists drained from the device-side metric ring. Non-finite values
+    # are sanitised to null at flush time (JSON has no NaN), so list
+    # entries are number-or-null.
+    "quality": {
+        "required": {"step": _NUM, "bucket": _NUM},
+        "optional": {"algo": _STR, "count": _NUM, "steps": _LIST,
+                     "comp_err": _LIST, "res_norm": _LIST,
+                     "res_growth": _LIST, "eff_density": _LIST,
+                     "thr_drift": _LIST, "churn": _LIST,
+                     "skipped": _LIST},
+    },
+    # windowed aggregate over one quality flush (obs/rollup.py
+    # RollupEngine) with breach detection — "breaches" names which
+    # fidelity invariants failed ("residual_growth", "density_collapse",
+    # "churn_spike", "comp_err"). Aggregate fields are omitted (not
+    # null) when every sample in the window was non-finite.
+    "quality_rollup": {
+        "required": {"step": _NUM, "bucket": _NUM, "breaches": _LIST},
+        "optional": {"algo": _STR, "window": _NUM, "skipped": _NUM,
+                     "comp_err_mean": _NUM, "comp_err_max": _NUM,
+                     "res_norm_mean": _NUM, "res_norm_last": _NUM,
+                     "res_growth_mean": _NUM, "res_growth_max": _NUM,
+                     "eff_density_mean": _NUM, "eff_density_min": _NUM,
+                     "thr_drift_mean": _NUM, "churn_mean": _NUM,
+                     "churn_max": _NUM, "target_density": _NUM},
+    },
+    # a detector could not build (or refused) its baseline — advisory,
+    # journalled instead of raising (obs/regress.py)
+    "baseline_warning": {
+        "required": {"step": _NUM, "key": _STR, "reason": _STR},
+        "optional": {"files": _NUM, "malformed": _LIST},
+    },
+    # step-anatomy attribution for one bucket (obs/anatomy.py): phases
+    # maps phase name -> {"ms", "count", "lane"}; model-level unbucketed
+    # phases (fwd_bwd, optimizer) land on bucket -1. "source" says how
+    # the trace was captured ("host_probe" for the CPU per-phase
+    # dispatch driver, "trace" for an in-jit device capture). Two-level
+    # collectives tag phases with a level lane (anat/bNNN/lvlN/phase);
+    # "levels" lists the distinct level indices seen in the capture.
+    "step_anatomy": {
+        "required": {"step": _NUM, "bucket": _NUM, "phases": _DICT},
+        "optional": {"total_ms": _NUM, "source": _STR,
+                     "schema_version": _NUM, "levels": _LIST},
+    },
+    # the overlap scorecard for one captured step (obs/anatomy.py):
+    # compute/comm lane unions, their intersection, overlap_ratio =
+    # overlap_ms / comm_ms, the measured span vs the ideal
+    # fully-overlapped lower bound max(compute, comm), and the
+    # critical-path split of the span across phases
+    "overlap_report": {
+        "required": {"step": _NUM, "compute_ms": _NUM, "comm_ms": _NUM,
+                     "overlap_ms": _NUM, "overlap_ratio": _NUM},
+        "optional": {"step_ms": _NUM, "ideal_ms": _NUM,
+                     "serialization_ms": _NUM, "critical_path": _DICT,
+                     "critical_phase": _OPT_STR, "num_buckets": _NUM,
+                     "events": _NUM, "source": _STR,
+                     "schema_version": _NUM},
+    },
+    # anatomy capture/analysis could not produce an attribution
+    # (missing profiler, empty or malformed trace, no contract-scoped
+    # events) — advisory, journalled instead of raising
+    "anatomy_warning": {
+        "required": {"step": _NUM, "reason": _STR},
+        "optional": {"path": _OPT_STR, "source": _STR},
+    },
+}
+
+
+def validate_event(entry: Any) -> List[str]:
+    """Problems with one journal entry (empty list = valid)."""
+    problems: List[str] = []
+    if not isinstance(entry, dict):
+        return [f"entry is {type(entry).__name__}, not dict"]
+    event = entry.get("event")
+    if not isinstance(event, str):
+        return ["missing or non-string 'event' field"]
+    schema = EVENT_SCHEMAS.get(event)
+    if schema is None:
+        return [f"unknown event {event!r} (schema v{SCHEMA_VERSION})"]
+    for field, types in schema["required"].items():
+        if field not in entry:
+            problems.append(f"{event}: missing required field {field!r}")
+        elif not isinstance(entry[field], types):
+            problems.append(
+                f"{event}: field {field!r} is "
+                f"{type(entry[field]).__name__}, expected one of "
+                f"{tuple(t.__name__ for t in types)}")
+    for field, types in schema["optional"].items():
+        if field in entry and not isinstance(entry[field], types):
+            problems.append(
+                f"{event}: field {field!r} is "
+                f"{type(entry[field]).__name__}, expected one of "
+                f"{tuple(t.__name__ for t in types)}")
+    return problems
+
+
+def validate_journal(entries: List[Dict[str, Any]]) -> List[str]:
+    """Problems with a whole journal: exactly one header, first, and
+    every entry valid. Empty list = conformant."""
+    problems: List[str] = []
+    if not entries:
+        return ["journal is empty"]
+    if entries[0].get("event") != "header":
+        problems.append("first entry is not an environment header")
+    n_headers = sum(1 for e in entries
+                    if isinstance(e, dict) and e.get("event") == "header")
+    if n_headers != 1:
+        problems.append(f"expected exactly 1 header, found {n_headers}")
+    for i, entry in enumerate(entries):
+        problems.extend(f"entry {i}: {p}" for p in validate_event(entry))
+    return problems

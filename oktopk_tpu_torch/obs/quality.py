@@ -54,20 +54,33 @@ class QualityConfig:
                 f"sig_bins must be a power of two >= 2, got {self.sig_bins}")
 
 
+# the positions are counted in this many contiguous chunks, each with its
+# own buckets, so that few atomic adds meet on one address
+_SIG_CHUNKS = 1024
+
+
 def winner_signature(reduced: torch.Tensor, sig_bins: int) -> torch.Tensor:
     """[W, n] -> [W, sig_bins] f32: 1 in every bucket that a selected
-    (nonzero) position hashes into. The hash is the JAX uint32 one,
-    ``(i * 2654435761) mod 2^32 >> (32 - log2 sig_bins)``, in int64; the
-    max-scatter does not depend on the order of its atomics, so the
-    signature is the same on every run."""
+    (nonzero) position hashes into (JAX's max-scatter of the 0/1 mask).
+    The hash is the JAX uint32 one, ``(i * 2654435761) mod 2^32 >> (32 -
+    log2 sig_bins)``, in int64. Each of ``_SIG_CHUNKS`` contiguous chunks
+    of positions counts its selected positions per bucket with atomic
+    adds; a bucket is 1 where its chunks' counts add to more than 0,
+    which no order of the adds changes. One max-scatter into the W x
+    sig_bins buckets contends on them: 13.6 ms a step at VGG-16's n, P =
+    4 (H100 80GB HBM3 at 700 W, ``scripts/port_profile.py --obs-ab``)."""
     W, n = reduced.shape
     shift = 32 - int(math.log2(sig_bins))
     i = torch.arange(n, dtype=torch.int64, device=reduced.device)
     h = ((i * _HASH_MULT) & 0xFFFFFFFF) >> shift
+    chunk = -(-n // _SIG_CHUNKS)
+    slot = torch.div(i, chunk, rounding_mode="floor") * sig_bins + h
     mask = (reduced != 0).to(torch.float32)
-    sig = torch.zeros((W, sig_bins), dtype=torch.float32,
-                      device=reduced.device)
-    return sig.scatter_reduce_(1, h.expand(W, n), mask, "amax")
+    counts = torch.zeros((W, _SIG_CHUNKS * sig_bins), dtype=torch.float32,
+                         device=reduced.device)
+    counts.scatter_add_(1, slot.expand(W, n), mask)
+    return (counts.view(W, _SIG_CHUNKS, sig_bins).sum(1) > 0).to(
+        torch.float32)
 
 
 def measure_bucket(reduced: torch.Tensor, dense: torch.Tensor, sp_new,

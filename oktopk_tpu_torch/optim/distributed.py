@@ -6,12 +6,25 @@ and ``bucket_sizes`` (:58-99), per-bucket ``SparseState``, and the
 per-bucket loop of ``build_sparse_grad_step`` (:154-243, :299-398): a
 compressor plan (one name, or one per bucket) with optional per-bucket
 densities, momentum correction (a per-bucket [W, n_b] local momentum
-folded into the gradient before compression) and ``profile_norm`` (the
-``eps_vs_dense`` metric). Microbatch accumulation and gradient clipping
-act on the local gradient before it gets here (``train/trainer.py``).
-Not ported yet (ROADMAP.md): the anomaly guard, fault plans and the
-step's quality taps (the tap is ``obs/quality.py``). A plan naming
-``hierarchical`` is refused: that step is two-level and this one flat.
+folded into the gradient before compression), ``profile_norm`` (the
+``eps_vs_dense`` metric), the ``grad_norm`` and ``grad_nonfinite``
+metrics of the reduced gradient, and the quality taps (:349-360,
+:464-478; the tap is ``obs/quality.py``). Microbatch accumulation and
+gradient clipping act on the local gradient before it gets here
+(``train/trainer.py``). Not ported yet (ROADMAP.md): the anomaly guard
+and fault plans. A plan naming ``hierarchical`` is refused: that step is
+two-level and this one flat.
+
+With ``quality`` (an ``obs.quality.QualityConfig``) each bucket owns a
+``QualityBuffer`` of the comm's W rows (``self.qualities``, allocated as
+``init_dist_state(quality=...)`` does, :102-151). Each step measures the
+bucket after the compressor, against the dense reference ``pmean(flat +
+residual)`` taken after the momentum fold, and commits the row after the
+step with ``skip`` False (there is no guard yet). The taps only read the
+step: the reduced gradient and every state are the same with them on or
+off. They stay on the device: the host drains the rings on its own
+cadence (``Trainer._flush_quality``), so between flushes they add no
+host sync.
 
 The flat gradient [W, n] is laid out in the JAX package's leaf order and
 layout (the trainer builds it), so that buckets, region boundaries and
@@ -32,6 +45,8 @@ from oktopk_tpu_torch.collectives.registry import (
 )
 from oktopk_tpu_torch.collectives.state import SparseState, init_state
 from oktopk_tpu_torch.config import OkTopkConfig
+from oktopk_tpu_torch.obs.metrics_buffer import init_buffer
+from oktopk_tpu_torch.obs.quality import commit, measure_bucket
 
 
 def _sizes(leaves) -> List[int]:
@@ -84,15 +99,16 @@ class SparseGradStep:
     ``compressor`` is one registry name for every bucket or one name per
     bucket; ``bucket_densities`` overrides the density per bucket.
     ``momentum_correction`` is the momentum factor folded in before
-    compression (0 = off). ``device`` is where the states live: CUDA
-    unless the caller asks for the CPU."""
+    compression (0 = off). ``quality`` (an ``obs.quality.QualityConfig``)
+    adds the quality taps and their rings, ``self.qualities``. ``device``
+    is where the states live: CUDA unless the caller asks for the CPU."""
 
     def __init__(self, cfg: OkTopkConfig, comm, leaves: Sequence,
                  compressor: Union[str, Sequence[str]] = "oktopk",
                  num_buckets: int = 1, warmup: bool = True, device=None,
                  bucket_densities: Optional[Sequence[float]] = None,
                  momentum_correction: float = 0.0,
-                 profile_norm: bool = False):
+                 profile_norm: bool = False, quality=None):
         device = resolve_device(device)
         self.cfg = cfg
         self.comm = comm
@@ -129,21 +145,38 @@ class SparseGradStep:
                                      device=device) for c in self.cfgs]
                         if self.momentum_correction else None)
         self.profile_norm = profile_norm
+        self.qualities = (
+            [init_buffer(quality.every, quality.sig_bins,
+                         comm.local_workers, device) for _ in self.cfgs]
+            if quality is not None else None)
+        # the skip flag of every commit, on the device once: a flag made
+        # from a Python bool at each step would be a copy to the card
+        self._no_skip = torch.zeros(comm.local_workers, dtype=torch.bool,
+                                    device=device)
 
     def __call__(self, flat: torch.Tensor):
         reduced = torch.empty(flat.shape[1], dtype=flat.dtype,
                               device=flat.device)
         vol = wbytes = lk = gk = 0.0
         eps_num = eps_den = 0.0
+        taps = []
         for bi, (s, e) in enumerate(self.ranges):
             g = flat if (s, e) == (0, flat.shape[1]) else flat[:, s:e]
             if self.momenta is not None:
                 g = self.momentum_correction * self.momenta[bi] + g
                 self.momenta[bi] = g
+            if self.qualities is not None:
+                # the dense reference of the tap: what each worker handed
+                # the compressor plus its residual, pmean'd
+                dense_q = self.comm.pmean(g + self.states[bi].residual)
             out, st = self.algos[bi](g, self.states[bi], self.cfgs[bi],
                                      self.comm)
             reduced[s:e] = out[0]
             self.states[bi] = st
+            if self.qualities is not None:
+                q = self.qualities[bi]
+                taps.append(measure_bucket(out, dense_q, st, q.prev_sig,
+                                           q.prev_res_norm))
             vol = vol + st.last_volume
             wbytes = wbytes + st.last_wire_bytes
             lk = lk + st.last_local_count.to(torch.float32)
@@ -156,7 +189,14 @@ class SparseGradStep:
         # replicated): one small all_gather across processes
         vol, wbytes, lk, gk = self.comm.all_gather(
             torch.stack([vol, wbytes, lk, gk], 1))[0, 0]
-        metrics = {"comm_volume": vol, "wire_bytes": wbytes,
+        if self.qualities is not None:
+            # committed after the step; no guard, so nothing is skipped
+            self.qualities = [commit(q, st.step, scalars, self._no_skip)
+                              for q, st, scalars in zip(
+                                  self.qualities, self.states, taps)]
+        metrics = {"grad_norm": torch.sqrt(torch.sum(reduced * reduced)),
+                   "grad_nonfinite": torch.sum(~torch.isfinite(reduced)),
+                   "comm_volume": vol, "wire_bytes": wbytes,
                    "local_k": lk, "global_k": gk}
         if self.profile_norm:
             metrics["eps_vs_dense"] = (torch.sqrt(eps_num)

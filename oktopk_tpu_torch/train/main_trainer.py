@@ -8,8 +8,11 @@ Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 ``--compute-dtype float32|bfloat16``), the
 checkpoint and preemption flags of :148-169 (``--ckpt-dir``,
 ``--ckpt-every``, ``--ckpt-async``, ``--ckpt-keep``, ``--ckpt-force``,
-``--resume``, ``--handle-preemption``), plus ``--num-workers``,
-``--device`` and ``--backend``. ``--dataset`` is
+``--resume``, ``--handle-preemption``), the run journal's of :95-139
+(``--obs``, ``--obs-journal``, ``--obs-quality``,
+``--obs-quality-every``, ``--obs-regress-key``, ``--sigma-scale``,
+``--logdir``, ``--trace-at``, ``--trace-steps``, ``--phase-timers``),
+plus ``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
 ``cifar10``, ``mnist`` or ``imagenet`` for the image models, ``an4``
 (``lstman4``, ``lstman4_tiny``) or ``ptb`` (``lstm``, ``lstm_tiny``).
 The batches come from ``data.make_dataset`` and the files under
@@ -40,7 +43,20 @@ worker per process over a ``torch.distributed`` group: ``--num-workers``
 is then the world size, the device ``cuda:{local_rank}`` unless
 ``--device`` names one, and the backend nccl on a card, gloo on the CPU,
 unless ``--backend`` names one (gloo on CUDA tensors only when named).
-Only rank 0 logs.
+
+The run writes under ``<logdir>/<slug>/`` (the slug is
+``TrainConfig.experiment_slug``), as the JAX command line does
+(:241-251, :300-315): every rank its log ``rank{i}.log`` (rank 0 also
+logs to the console, the others to their file alone); rank 0 the
+per-step metrics ``scalars.csv``, with ``--obs`` the run journal
+``run_journal.jsonl`` (or ``--obs-journal``; the other ranks keep theirs
+in memory), and with ``--trace-at S`` a ``torch.profiler`` Chrome trace
+of steps S to S + ``--trace-steps`` - 1 under ``trace/``.
+``--phase-timers`` splits each step into data wait and the step (the
+card synchronised) and logs the table every ``--log-every`` steps.
+``--obs-regress-key`` baselines the step time against the
+``BENCH_r*.json`` records at the repository root, which are the JAX
+package's measurements, not the card's.
 
 Examples:
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
@@ -55,6 +71,9 @@ Examples:
     python -m oktopk_tpu_torch.train.main_trainer --dnn lstman4 \\
         --dataset an4 --batch-size 2 --num-workers 4 --grad-clip 400 \\
         --lr 3e-4 --max-iters 20
+    python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
+        --num-workers 4 --max-iters 64 --obs --obs-quality \\
+        --phase-timers --trace-at 10 --logdir logs
     torchrun --standalone --nproc-per-node 4 \\
         -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 --max-iters 20
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
@@ -65,6 +84,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import sys
@@ -110,6 +130,9 @@ def parse_args(argv=None):
     p.add_argument("--compressor", default="oktopk",
                    choices=list_algorithms())
     p.add_argument("--density", type=float, default=0.02)
+    p.add_argument("--sigma-scale", type=float, default=2.5,
+                   help="the reference's sigma scale (no collective reads "
+                        "it)")
     p.add_argument("--grad-clip", type=float, default=None,
                    help="global-norm clip of each worker's local gradient")
     p.add_argument("--seed", type=int, default=0)
@@ -144,10 +167,62 @@ def parse_args(argv=None):
                    help="stop between steps on SIGINT/SIGTERM/SIGUSR2 "
                         "(SIGUSR1 also requeues), park the state and exit "
                         "with code 3; resume a parked state on start")
+    p.add_argument("--obs", action="store_true",
+                   help="the run journal (obs/): per-step metrics, phase "
+                        "timings, quality flushes and volume reports in "
+                        "one JSONL file")
+    p.add_argument("--obs-journal", default=None,
+                   help="run-journal path (default: "
+                        "<logdir>/<slug>/run_journal.jsonl, rank 0 only)")
+    p.add_argument("--obs-regress-key", default=None,
+                   help="BENCH_r*.json key (e.g. oktopk_ms; the JAX "
+                        "package's records) to baseline step-time "
+                        "regression checks against")
+    p.add_argument("--obs-quality", action="store_true",
+                   help="the step's quality taps: per-bucket compression "
+                        "error, residual growth, effective density, "
+                        "threshold drift and index churn in device-side "
+                        "rings, journalled every --obs-quality-every "
+                        "steps")
+    p.add_argument("--obs-quality-every", type=int, default=32,
+                   help="quality ring capacity and flush cadence (steps)")
+    p.add_argument("--logdir", default="./logs",
+                   help="run directory root: <logdir>/<slug>/ holds the "
+                        "rank logs, scalars.csv, the journal and traces")
+    p.add_argument("--trace-at", type=int, default=0,
+                   help="capture a torch.profiler Chrome trace from this "
+                        "step (0 = off)")
+    p.add_argument("--trace-steps", type=int, default=3)
+    p.add_argument("--phase-timers", action="store_true",
+                   help="log the data-wait vs step phase table every "
+                        "--log-every steps")
     args = p.parse_args(argv)
     if args.compressor == "hierarchical":
         p.error(TWO_LEVEL_ONLY)
     return args
+
+
+def configs(args, workers: int):
+    """(TrainConfig, OkTopkConfig) of the parsed flags for ``workers``
+    workers, as the JAX command line builds them (:199-236, :253-256)."""
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+
+    cfg = TrainConfig(
+        dnn=args.dnn, dataset=args.dataset, batch_size=args.batch_size,
+        lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
+        nesterov=args.nesterov, max_epochs=args.max_epochs,
+        nsteps_update=args.nsteps_update, compressor=args.compressor,
+        density=args.density, seed=args.seed, num_workers=workers,
+        grad_clip=args.grad_clip, num_buckets=args.num_buckets,
+        compute_dtype=args.compute_dtype, sigma_scale=args.sigma_scale,
+        obs=args.obs, obs_regress_key=args.obs_regress_key,
+        obs_quality=args.obs_quality,
+        obs_quality_every=args.obs_quality_every)
+    algo_cfg = OkTopkConfig(sigma_scale=args.sigma_scale,
+                            wire_dtype=args.wire_dtype)
+    if args.warmup_steps is not None:
+        algo_cfg = algo_cfg.replace(warmup_steps=args.warmup_steps)
+    return cfg, algo_cfg
 
 
 def build_trainer(args):
@@ -155,9 +230,9 @@ def build_trainer(args):
     group on a multi-process launch (``launch.maybe_initialize``) and puts
     the trainer on ``ProcessGroupComm`` there, else on its stacked
     workers; the batches are ``make_dataset``'s (``meta["synthetic"]``
-    True without the files)."""
+    True without the files). With ``--obs`` rank 0's journal is
+    ``--obs-journal``, else ``<logdir>/<slug>/run_journal.jsonl``."""
     from oktopk_tpu_torch import launch
-    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
     from oktopk_tpu_torch.data import make_dataset
     from oktopk_tpu_torch.train.trainer import Trainer, workload
 
@@ -169,22 +244,35 @@ def build_trainer(args):
                          f"--dataset {args.dataset}")
     penv, dev, comm, workers = launch.data_parallel(
         args.num_workers, args.device, args.backend)
-    cfg = TrainConfig(
-        dnn=args.dnn, dataset=args.dataset, batch_size=args.batch_size,
-        lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
-        nesterov=args.nesterov, max_epochs=args.max_epochs,
-        nsteps_update=args.nsteps_update, compressor=args.compressor,
-        density=args.density, seed=args.seed, num_workers=workers,
-        grad_clip=args.grad_clip, num_buckets=args.num_buckets,
-        compute_dtype=args.compute_dtype)
-    algo_cfg = OkTopkConfig(wire_dtype=args.wire_dtype)
-    if args.warmup_steps is not None:
-        algo_cfg = algo_cfg.replace(warmup_steps=args.warmup_steps)
+    cfg, algo_cfg = configs(args, workers)
+    if args.obs and penv.is_coordinator:
+        cfg = dataclasses.replace(cfg, obs_journal=(
+            args.obs_journal or os.path.join(run_dir(args, cfg),
+                                             "run_journal.jsonl")))
     trainer = Trainer(cfg, algo_cfg=algo_cfg, device=dev, comm=comm)
     global_bs = args.batch_size * workers * args.nsteps_update
     data, meta = make_dataset(args.dataset, args.dnn, global_bs,
                               path=args.data_dir, seed=args.seed)
     return trainer, data, penv, meta
+
+
+def run_dir(args, cfg) -> str:
+    """``<logdir>/<slug>``: the run's logs, scalars, journal and traces."""
+    return os.path.join(args.logdir, cfg.experiment_slug())
+
+
+def run_logger(rundir: str, rank: int):
+    """(logger, the handlers added to it): rank 0's logs to the console
+    and ``rank0.log``, any other rank's to its ``rank{i}.log`` alone
+    (``utils.logging.get_logger``). The caller removes the handlers when
+    the run ends."""
+    from oktopk_tpu_torch.utils.logging import get_logger
+
+    name = "oktopk_tpu_torch" if rank == 0 else f"oktopk_tpu_torch.rank{rank}"
+    before = list(logging.getLogger(name).handlers)
+    logger = get_logger(name, os.path.join(rundir, f"rank{rank}.log"),
+                        console=rank == 0)
+    return logger, [h for h in logger.handlers if h not in before]
 
 
 def iterations(args, workers: int,
@@ -206,6 +294,7 @@ def resume(trainer, args, logger) -> int:
     template = trainer.train_state(gather=False)
     if args.resume:
         tree, start = restore_checkpoint(args.resume, template,
+                                         bus=trainer.bus,
                                          force=args.ckpt_force)
         what = f"resumed from {args.resume}"
     else:
@@ -227,24 +316,35 @@ def main(argv=None) -> int:
     # exists (the Trainer makes cuDNN deterministic)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     trainer, data, penv, meta = build_trainer(args)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    rank0 = penv.is_coordinator
-    logger = logging.getLogger("oktopk_tpu_torch") if rank0 else None
-    cfg = trainer.cfg
-    if logger:
-        logger.info("experiment %s: %d workers, %s on %s",
-                    cfg.experiment_slug(), cfg.num_workers,
-                    f"{penv.num_processes} processes ({penv.source}, "
-                    f"{trainer.comm.backend})" if trainer.distributed
-                    else "one process", trainer.device)
-    if logger and meta["synthetic"]:
-        logger.warning("dataset %s not found on disk: using synthetic data",
-                       args.dataset)
+    rundir = run_dir(args, trainer.cfg)
+    logger, handlers = run_logger(rundir, penv.process_id)
+    try:
+        return _run(args, trainer, data, penv, meta, logger, rundir)
+    finally:
+        for h in handlers:
+            logger.removeHandler(h)
+            h.close()
+
+
+def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
     from oktopk_tpu_torch.train import preemption
     from oktopk_tpu_torch.train.checkpoint import save_checkpoint
     from oktopk_tpu_torch.train.durable import (AsyncCheckpointer,
                                                 apply_retention)
+    from oktopk_tpu_torch.utils.profiling import (MetricWriter, PhaseTimers,
+                                                  TraceWindow,
+                                                  device_memory_stats)
 
+    rank0 = penv.is_coordinator
+    cfg = trainer.cfg
+    logger.info("experiment %s: %d workers, %s on %s",
+                cfg.experiment_slug(), cfg.num_workers,
+                f"{penv.num_processes} processes ({penv.source}, "
+                f"{trainer.comm.backend})" if trainer.distributed
+                else "one process", trainer.device)
+    if meta["synthetic"]:
+        logger.warning("dataset %s not found on disk: using synthetic data",
+                       args.dataset)
     preempt = (preemption.PreemptionHandler() if args.handle_preemption
                else None)
     done = resume(trainer, args, logger)
@@ -254,21 +354,28 @@ def main(argv=None) -> int:
     saving = bool(args.ckpt_dir and args.ckpt_every)
     checkpointer = (AsyncCheckpointer(args.ckpt_dir, keep_last=args.ckpt_keep)
                     if rank0 and saving and args.ckpt_async else None)
+    writer = MetricWriter(rundir) if rank0 else None
+    timers = PhaseTimers(every=args.log_every) if args.phase_timers else None
+    trace = (TraceWindow(os.path.join(rundir, "trace"), args.trace_at,
+                         args.trace_steps)
+             if args.trace_at and rank0 else None)
     m = {}
     try:
         while done < total:
             chunk = min(total - done, per_epoch)
             start = done
             m = trainer.train(data, chunk, log_every=args.log_every,
-                              logger=logger, start_step=done,
+                              logger=logger, metric_writer=writer,
+                              timers=timers, trace=trace, start_step=done,
                               should_stop=(preempt.should_stop if preempt
                                            else None))
             done = trainer.last_step
             if done == start:       # stopped before the chunk's first step
                 break
-            if logger:
-                logger.info("epoch done @ iter %d: loss %.4f vol/step %.0f",
-                            done, m["loss"], m["comm_volume"])
+            mem = device_memory_stats(trainer.device)
+            logger.info("epoch done @ iter %d: loss %.4f vol/step %.0f "
+                        "hbm %.0fMiB", done, m["loss"], m["comm_volume"],
+                        mem.get("bytes_in_use", 0) / 2**20)
             if saving and done % args.ckpt_every == 0:
                 t0 = time.perf_counter()
                 state = trainer.train_state()       # every rank: gathers
@@ -285,23 +392,23 @@ def main(argv=None) -> int:
             if done < start + chunk:  # stopped (every rank agreed)
                 break
     finally:
+        if writer is not None:
+            writer.close()
+        if trace is not None:
+            trace.close()
         if checkpointer is not None and preempt is None:
             checkpointer.close(timeout=300.0)
-    if logger and m and done >= total:
+    if m and done >= total:
         logger.info("done: %d iterations, loss %r, vol/step %d", total,
                     m["loss"], int(m["comm_volume"]))
     if preempt is not None:
         if done < total:               # another rank may have been signalled
             preempt.request_stop()
         return preemption.epilogue(
-            trainer.train_state, done, preempt, logger or _quiet(),
+            trainer.train_state, done, preempt, logger,
             rank=penv.process_id, completed=done >= total,
             checkpointer=checkpointer)
     return 0
-
-
-def _quiet() -> logging.Logger:
-    return logging.getLogger("oktopk_tpu_torch.quiet")
 
 
 if __name__ == "__main__":

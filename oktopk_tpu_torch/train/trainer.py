@@ -6,9 +6,24 @@ Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 (init, ``train_step``, ``train`` with ``should_stop`` and ``last_step``
 (:635-671), ``eval_step`` (:874-919), the step options
 ``nsteps_update``, ``grad_clip``, momentum correction and
-``profile_norm``, and the workload dispatch of :44-53, :98-107, :558-624
-for the CNN zoo, BERT pretraining, the PTB LSTM and DeepSpeech on AN4);
-the obs, resilience and autotune planes are not ported yet (ROADMAP.md).
+``profile_norm``, the workload dispatch of :44-53, :98-107, :558-624
+for the CNN zoo, BERT pretraining, the PTB LSTM and DeepSpeech on AN4,
+and the run journal with its quality taps, below). Not ported yet
+(ROADMAP.md): the anomaly guard and its supervisor, fault plans, the
+autotuner and its feedback loop, step anatomy and anomaly tracing.
+
+With ``cfg.obs`` the Trainer runs the JAX Trainer's run journal
+(:121-170, less the anomaly tracer): an ``EventBus`` and a
+``RunJournal`` (``cfg.obs_journal``, in memory when None), then, with
+``cfg.obs_quality``, the step's quality taps (``SparseGradStep``'s
+rings) and a ``RollupEngine`` built after the journal, so each
+``quality_rollup`` lands directly after its ``quality`` event; with
+``cfg.obs_regress_key`` a ``RegressionDetector``. ``train`` journals a
+``step`` event per step on the log cadence from a pending list (one
+device-to-host copy a flush, no per-step sync), a ``phase`` event from
+its ``PhaseTimers``, the quality flush every ``cfg.obs_quality_every``
+steps (``_flush_quality``: one copy of the rings to the host), and at
+the end the tail flush and one ``volume_report`` per bucket.
 
 The train state goes in and out as the JAX package's ``DistTrainState``
 state dict (``train_state`` / ``load_train_state``, over
@@ -117,6 +132,12 @@ from oktopk_tpu_torch.convert import (from_jax_params,
 from oktopk_tpu_torch.models import create_model
 from oktopk_tpu_torch.models.deepspeech import CONV_TIME_STRIDE
 from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
+from oktopk_tpu_torch.obs import volume as obs_volume
+from oktopk_tpu_torch.obs.journal import EventBus, RunJournal
+from oktopk_tpu_torch.obs.metrics_buffer import rows_since
+from oktopk_tpu_torch.obs.quality import QualityConfig, quality_event
+from oktopk_tpu_torch.obs.regress import RegressionDetector
+from oktopk_tpu_torch.obs.rollup import RollupEngine
 from oktopk_tpu_torch.ops import prng
 from oktopk_tpu_torch.optim import SGD, BertAdam
 from oktopk_tpu_torch.optim.distributed import SparseGradStep, flat_size
@@ -225,10 +246,41 @@ class Trainer:
                                  weight_decay=cfg.weight_decay,
                                  nesterov=cfg.nesterov)
             self.optimizer.init(self.params)
+        # ---- the run journal (obs/) ----------------------------------
+        self.bus = None
+        self.run_journal = None
+        self.regress = None
+        self.rollup = None
+        self._quality_cfg = None
+        self.quality_flushes = 0   # host drains of the quality rings
+        self._q_cursors = {}       # bucket -> last drained ring cursor
+        if cfg.obs:
+            self.bus = EventBus()
+            self.run_journal = RunJournal(cfg.obs_journal, bus=self.bus)
+            if cfg.obs_quality:
+                # journal first, rollup engine second: the engine's
+                # nested emit then lands each quality_rollup directly
+                # after its quality event in the file
+                self._quality_cfg = QualityConfig(
+                    every=cfg.obs_quality_every,
+                    sig_bins=cfg.obs_quality_sig_bins)
+                self.rollup = RollupEngine(
+                    self.bus,
+                    growth_limit=cfg.obs_quality_growth_limit,
+                    collapse_ratio=cfg.obs_quality_collapse_ratio,
+                    churn_limit=cfg.obs_quality_churn_limit,
+                    comp_err_limit=cfg.obs_quality_comp_err_limit,
+                    on_breach=self._on_quality_breach)
+            if cfg.obs_regress_key:
+                self.regress = RegressionDetector.from_bench_records(
+                    key=cfg.obs_regress_key, bus=self.bus,
+                    tolerance=cfg.obs_regress_tolerance,
+                    phase_limits=cfg.obs_phase_limits)
         self.grad_step = SparseGradStep(
             self.algo_cfg, self.comm, self.params, cfg.compressor,
             cfg.num_buckets, warmup=warmup, device=self.device,
-            momentum_correction=mc, profile_norm=profile_norm)
+            momentum_correction=mc, profile_norm=profile_norm,
+            quality=self._quality_cfg)
         self.flat = torch.empty((W, n), dtype=torch.float32,
                                 device=self.device)
         self._rng = prng.prng_key(cfg.seed + 1)
@@ -380,15 +432,42 @@ class Trainer:
         return {**means, **metrics}
 
     def train(self, data_iter: Iterable, num_iters: int, log_every: int = 50,
-              logger: Optional[logging.Logger] = None,
-              start_step: int = 0, should_stop=None) -> Dict[str, float]:
-        """Run ``num_iters`` steps; returns the last step's metrics on the
-        host (empty when no step ran). ``should_stop`` is polled before
-        each step, and a True stops the loop between steps (the JAX
-        Trainer's preemption hook); across processes the ranks agree on
-        it (one small psum a step), so all stop at the same step.
-        ``last_step`` is the last step run."""
+              logger: Optional[logging.Logger] = None, metric_writer=None,
+              timers=None, trace=None, start_step: int = 0,
+              should_stop=None) -> Dict[str, float]:
+        """Run ``num_iters`` steps (the JAX Trainer's loop, :635-754);
+        returns the last step's metrics on the host (empty when no step
+        ran). ``should_stop`` is polled before each step, and a True stops
+        the loop between steps (the JAX Trainer's preemption hook); across
+        processes the ranks agree on it (one small psum a step), so all
+        stop at the same step. ``last_step`` is the last step run.
+
+        ``metric_writer`` (``utils.profiling.MetricWriter``) records every
+        step's metrics and the bus journals them as ``step`` events, both
+        from a pending list drained on the log cadence (one copy to the
+        host a drain); ``timers`` (``PhaseTimers``) splits data wait from
+        the step, the card synchronised inside the ``step`` phase, and its
+        summary is journalled as a ``phase`` event on the log cadence;
+        ``trace`` (``TraceWindow``) captures a bounded profiler window."""
         metrics = {}
+        pending = []    # (step, device metrics), drained on the log cadence
+        nf_window = []  # per-step nonfinite counts (device scalars)
+
+        def flush_pending():
+            if not pending:
+                return
+            names = list(pending[0][1])
+            host = torch.stack([torch.stack([m[k].to(torch.float64)
+                                             for k in names])
+                                for _, m in pending]).cpu().tolist()
+            for (s, _), vals in zip(pending, host):
+                row = dict(zip(names, vals))
+                if metric_writer is not None:
+                    metric_writer.write(s, row)
+                if self.bus is not None:
+                    self.bus.emit("step", step=s, **row)
+            pending.clear()
+
         t0 = time.time()
         self.last_step = start_step
         for i in range(num_iters):
@@ -396,14 +475,128 @@ class Trainer:
                 break
             step = start_step + i + 1
             self.last_step = step
-            metrics = self.train_step(next(data_iter))
-            if (i + 1) % log_every == 0 and logger is not None:
+            if trace is not None:
+                trace.on_step(step)
+            if timers is not None:
+                with timers.phase("data"):
+                    batch = next(data_iter)
+                with timers.phase("step"):
+                    metrics = self.train_step(batch)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+            else:
+                metrics = self.train_step(next(data_iter))
+            if (self._quality_cfg is not None
+                    and step % self._quality_cfg.every == 0):
+                # the rings are drained on their own cadence only
+                self._flush_quality(step)
+            if metric_writer is not None or self.bus is not None:
+                pending.append((step, metrics))
+            if "grad_nonfinite" in metrics:
+                nf_window.append(metrics["grad_nonfinite"])
+            if (i + 1) % log_every == 0:
+                flush_pending()
                 dt = (time.time() - t0) / log_every
-                logger.info("iter %d loss %.4f vol %.0f %.3fs/it", step,
-                            float(metrics["loss"]),
-                            float(metrics["comm_volume"]), dt)
+                if self.regress is not None:
+                    self.regress.observe(step, dt * 1e3)
+                if logger is not None:
+                    logger.info("iter %d loss %.4f vol %.0f %.3fs/it", step,
+                                float(metrics["loss"]),
+                                float(metrics["comm_volume"]), dt)
+                    nf = int(torch.stack(nf_window).sum()) if nf_window \
+                        else 0
+                    if nf:
+                        logger.warning(
+                            "window ending iter %d: %d nonfinite gradient "
+                            "elements", step, nf)
+                nf_window.clear()
+                if timers is not None and self.bus is not None:
+                    phase_summary = timers.summary()
+                    self.bus.emit("phase", step=step, phases=phase_summary)
+                    if self.regress is not None:
+                        self.regress.observe_phases(step, phase_summary)
                 t0 = time.time()
+            if timers is not None and logger is not None:
+                timers.maybe_log(step, logger)
+        flush_pending()
+        if self._quality_cfg is not None:
+            # the tail of the run, a partial window
+            self._flush_quality(self.last_step)
+        if self.bus is not None:
+            self._emit_volume_report()
         return {k: float(v) for k, v in metrics.items()}
+
+    # ---- the run journal ------------------------------------------------
+
+    def _bucket_plan(self):
+        """Per-bucket (algo name, density) names for the reports (the
+        JAX Trainer's, :755; the port has no autotune plans or dense
+        fallbacks yet, so every bucket runs ``cfg.compressor`` at
+        ``cfg.density``)."""
+        nb = max(1, self.cfg.num_buckets)
+        return [self.cfg.compressor] * nb, [self.cfg.density] * nb
+
+    def _flush_quality(self, step: int) -> None:
+        """Drain the quality rings to the journal (the JAX Trainer's,
+        :285): every bucket's ring and cursor, every worker's rows (an
+        all_gather across processes, so each rank journals the same),
+        in one copy to the host; each bucket's new rows become a
+        ``quality`` event, which the rollup engine at once rolls up."""
+        if self._quality_cfg is None or self.bus is None:
+            return
+        names, densities = self._bucket_plan()
+        if self.rollup is not None:
+            self.rollup.target_densities = [float(d) for d in densities]
+        qs = self.grad_step.qualities
+        W = self.comm.local_workers
+        # the int32 cursor rides bit for bit as a float32 column
+        packed = torch.cat([t for q in qs for t in (
+            q.ring.reshape(W, -1), q.cursor.view(torch.float32)[:, None])],
+            1)
+        host = self.comm.all_gather(packed)[0].cpu().numpy()
+        off = 0
+        for b, q in enumerate(qs):
+            size = q.ring[0].numel()
+            ring = host[:, off:off + size].reshape(
+                (host.shape[0],) + tuple(q.ring.shape[1:]))
+            cursor = int(host[0, off + size:off + size + 1].view(np.int32)[0])
+            off += size + 1
+            prev = self._q_cursors.get(b, 0)
+            if cursor == prev:
+                continue
+            rows = rows_since(ring, cursor, prev)
+            self._q_cursors[b] = cursor
+            algo = names[b] if b < len(names) else self.cfg.compressor
+            self.bus.emit("quality", **quality_event(step, b, algo, rows))
+        self.quality_flushes += 1
+
+    def _on_quality_breach(self, step: int, bucket: int, breaches) -> None:
+        """The rollup engine's breach hook (the JAX Trainer's, :316). JAX
+        routes fidelity breaches to its density-backoff controller
+        (``resilience/density.py``), which comes with ROADMAP item 17b;
+        without one it returns, as JAX's does with resilience off. The
+        breach stays in the journal, in the rollup's ``breaches``."""
+        return None
+
+    def _emit_volume_report(self) -> None:
+        """One ``volume_report`` event per bucket (the JAX Trainer's,
+        :775): worker 0's mean wire bytes per step over the whole run
+        (dense warmup steps and exact recomputes included) against the
+        algorithm's analytic budget (``obs/volume.py``)."""
+        names, densities = self._bucket_plan()
+        for b, (nm, dens) in enumerate(zip(names, densities)):
+            sp = self.grad_step.states[b]
+            # worker 0's row, on every rank
+            steps_done, wb = self.comm.all_gather(torch.stack(
+                [sp.step.to(torch.float64),
+                 sp.wire_bytes.to(torch.float64)], 1))[0, 0].tolist()
+            steps_done = int(steps_done)
+            cfg_b = self.algo_cfg.replace(n=int(sp.residual.shape[-1]),
+                                          density=float(dens))
+            rep = obs_volume.volume_report(
+                nm, cfg_b, wb / max(1, steps_done), bucket=b,
+                step=self.last_step, steps=steps_done)
+            self.bus.emit("volume_report", **rep)
 
     def _agree(self, stop: bool) -> bool:
         """``stop`` of any process (across processes; else as given)."""

@@ -29,12 +29,18 @@ separated, default oktopk); each gets its ``phases`` and ``kernels``
 lines. ``--cudnn-ab`` instead times the model's oktopk step with cuDNN
 deterministic (the Trainer's setting) and not, in turns (on, off, off,
 on; ``--steps`` steps each, after the warmup and first sparse step):
-the ``cudnn_ab`` line. Needs a CUDA device. Example:
+the ``cudnn_ab`` line. ``--obs-ab`` times VGG-16's oktopk step with
+the quality taps (``TrainConfig.obs`` and ``obs_quality``) and without,
+two trainers in turns (taps, none, none, taps; ``--steps`` steps each,
+after the warmup and first sparse step), then profiles ``--steps``
+steady steps of each: the ``obs_ab`` line and a ``kernels`` line each
+(``oktopk+taps``, ``oktopk``). Needs a CUDA device. Example:
 
     python3 scripts/port_profile.py --steps 4 --compressors oktopk,topkA
     python3 scripts/port_profile.py --model bert_base --steps 3
     python3 scripts/port_profile.py --model lstman4 --steps 4
     python3 scripts/port_profile.py --cudnn-ab --steps 6
+    python3 scripts/port_profile.py --obs-ab --steps 6
 """
 
 from __future__ import annotations
@@ -57,8 +63,9 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def build_trainer(args, compressor):
-    """(trainer, batches, warmup steps) for ``args.model``."""
+def build_trainer(args, compressor, obs: bool = False):
+    """(trainer, batches, warmup steps) for ``args.model``; ``obs`` turns
+    the quality taps on (VGG-16)."""
     import numpy as np
     import torch
     from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
@@ -86,7 +93,8 @@ def build_trainer(args, compressor):
         return trainer, [next(data) for _ in range(steps)], 1
     cfg = TrainConfig(dnn="vgg16", batch_size=args.batch // args.workers,
                       lr=0.1, density=args.density, num_workers=args.workers,
-                      compressor=compressor, seed=0)
+                      compressor=compressor, seed=0, obs=obs,
+                      obs_quality=obs)
     algo = OkTopkConfig(warmup_steps=1, local_recompute_every=1,
                         global_recompute_every=args.global_every,
                         threshold_method=args.threshold_method)
@@ -207,6 +215,33 @@ def cudnn_ab(args):
         for det, r in rows.items()}})
 
 
+def obs_ab(args):
+    """VGG-16's oktopk step with the quality taps and without, in turns;
+    then a profiled steady window of each."""
+    import torch
+    steps = args.steps
+    args.steps = 3 * steps      # warmup, first, 2 x steps, steps profiled
+    runs = {}
+    for taps in (True, False):
+        trainer, batches, warm = build_trainer(args, "oktopk", obs=taps)
+        clock = PhaseClock(trainer)
+        for b in batches[:warm + 1]:     # warmup and first sparse steps
+            clock.run(trainer, b)
+        runs[taps] = (trainer, clock, iter(batches[warm + 1:]), [])
+    for taps in (True, False, False, True):
+        trainer, clock, data, rows = runs[taps]
+        rows += [clock.run(trainer, next(data)) for _ in range(steps)]
+    emit({"obs_ab": {
+        "taps" if taps else "no_taps": {
+            "per_step": r, "median": {k: statistics.median(x[k] for x in r)
+                                      for k in r[0]}}
+        for taps, (_, _, _, r) in runs.items()}})
+    for taps, (trainer, _, data, _) in runs.items():
+        profile_window(trainer, list(data), args,
+                       "oktopk+taps" if taps else "oktopk", "steady")
+    torch.cuda.empty_cache()
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="vgg16",
@@ -226,6 +261,9 @@ def main():
     p.add_argument("--cudnn-ab", action="store_true",
                    help="time the oktopk step with cuDNN deterministic "
                         "and not, in turns")
+    p.add_argument("--obs-ab", action="store_true",
+                   help="time VGG-16's oktopk step with the quality taps "
+                        "and without, in turns")
     args = p.parse_args()
     bert = args.model.startswith("bert")
     if args.batch is None:
@@ -249,6 +287,9 @@ def main():
     emit({"card": smi, "torch": torch.__version__, **vars(args)})
     if args.cudnn_ab:
         cudnn_ab(args)
+        return 0
+    if args.obs_ab:
+        obs_ab(args)
         return 0
 
     results = {}

@@ -41,7 +41,10 @@ def _sources():
                 "native/loader.py", "utils/decoder.py", "train/msgpack.py",
                 "train/durable.py", "train/checkpoint.py",
                 "train/preemption.py", "train/evaluate.py",
-                "train/glue.py"):
+                "train/glue.py", "obs/events.py", "obs/journal.py",
+                "obs/rollup.py", "obs/export.py", "obs/regress.py",
+                "autotune/journal.py", "utils/logging.py",
+                "utils/profiling.py"):
         assert PKG / mod in files
     return files
 

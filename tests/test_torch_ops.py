@@ -237,7 +237,13 @@ class TestConfig:
         field with the same default, the BERT ones included."""
         jf = {f.name: f.default for f in dataclasses.fields(jcfg.TrainConfig)}
         tf = {f.name: f.default for f in dataclasses.fields(tcfg.TrainConfig)}
-        assert {"warmup_proportion", "total_steps", "compute_dtype"} <= set(tf)
+        assert {"warmup_proportion", "total_steps", "compute_dtype",
+                "sigma_scale", "obs", "obs_journal", "obs_regress_key",
+                "obs_regress_tolerance", "obs_phase_limits", "obs_quality",
+                "obs_quality_every", "obs_quality_sig_bins",
+                "obs_quality_growth_limit", "obs_quality_collapse_ratio",
+                "obs_quality_churn_limit",
+                "obs_quality_comp_err_limit"} <= set(tf)
         assert tf == {k: jf[k] for k in tf}
 
     def test_train_config_serves_float32_only(self):
