@@ -261,6 +261,35 @@ directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
               the stacked Trainer's file bit for bit, and a four-rank
               restore giving each rank its row back; host time of the
               gather and of one stop poll (the ranks' agreement).
+38. resilience — (after ``obs_trainer``) the numeric-health guard on
+              the main path: full-width VGG-16 through
+              ``main_trainer.build_trainer --resilience``, P = 4, global
+              batch 64, d = 0.02, bf16 wire, two buckets, every recompute
+              cadence 1 and no warmup (the CPU tests' cadences): a
+              ``nan_grad`` on worker 1 at attempted step 2 skips that step
+              alone, the parameters, SGD momentum and step, BatchNorm
+              buffers and both buckets' residuals and thresholds
+              bit-identical across it, the counters advanced, the losses
+              bit-equal to a never-firing control's shifted by one
+              (``launches_by_path`` ``vgg16 resilience``); a
+              ``wire_bitflip`` from worker 2 on bucket 1 skips
+              [0,1,1,1,0,0,0], three ``guard_trip`` then a ``fallback``,
+              bucket 1 dense and bucket 0's kernels launched on; a
+              ``scale_grad`` pressure then a clean streak journal a
+              backoff then an advance, every residual kept across both
+              re-plans; worker 3's chip lost at step 3 remeshes to three
+              workers (global batch 48), the parameters bit-identical,
+              ``health`` and ``supervisor`` carried; the CPU tests' plans
+              on mnistnet card against CPU, the same decisions; the
+              guarded step against the unguarded one in turns (host
+              clock), and one profiled step of each (device ms,
+              launches); its own budget, ``RES_BUDGET_S``;
+39. vgg16_bucket_kernels — (after ``resnet50_kernels``) K1 and the
+              compaction's two oktopk forms at VGG-16's two bucket sizes
+              (``--num-buckets 2``, the resilience path): n = 7,379,978
+              and 7,348,288 (``vgg16_b0_sweep``, ``vgg16_b0_pack_a``,
+              ``vgg16_b0_select_b``, and ``vgg16_b1_*``), bit-equal and
+              timed as above.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -1378,6 +1407,372 @@ def phase_obs_trainer(dev) -> dict:
     return on["launches"]
 
 
+def vgg16_bucket_sizes():
+    """The flat sizes of VGG-16's two buckets (``bucket_partition`` over
+    the leaves in JAX order; bucket 0 holds the last layers)."""
+    import torch
+    from oktopk_tpu_torch.models import create_model
+    from oktopk_tpu_torch.optim.distributed import (bucket_partition,
+                                                    bucket_sizes)
+    with torch.device("meta"):
+        leaves = [p for _, p, _ in create_model("vgg16").jax_leaves()]
+    return bucket_sizes(leaves, bucket_partition(leaves, 2))
+
+
+RES_BUDGET_S = 60.0           # the resilience phase's own budget
+RES_ARGV = ["--dnn", "vgg16", "--dataset", "cifar10", "--batch-size", "16",
+            "--num-workers", "4", "--density", "0.02", "--wire-dtype",
+            "bfloat16", "--num-buckets", "2", "--lr", "0.01", "--seed",
+            str(SEED)]
+# the CPU tests' cadences (tests/test_resilience.py::_trainer): no dense
+# warmup, every threshold, region and global select recomputed each step
+RES_ALGO = dict(warmup_steps=0, local_recompute_every=1,
+                global_recompute_every=1, repartition_every=1)
+RES_N = N_VGG16
+RES_K = 2                     # the NaN's attempted step
+RES_NEVER = 10**9
+
+
+def res_trainer(dev, plan=None, flags=(), **cfg):
+    """VGG-16 through ``main_trainer.build_trainer`` with ``flags`` (add
+    ``--resilience`` for the guard), the cadence overrides and ``plan``:
+    (trainer, batch iterator)."""
+    from oktopk_tpu_torch.train import main_trainer
+    args = main_trainer.parse_args(RES_ARGV + ["--device", str(dev)]
+                                   + list(flags))
+    trainer, data, _, _ = main_trainer.build_trainer(
+        args, config_overrides=dict(resilience_cooldown=0, **cfg),
+        algo_overrides=RES_ALGO, fault_plan=plan)
+    if trainer.algo_cfg.n != RES_N or len(trainer.grad_step.states) != 2:
+        raise AssertionError("resilience: not VGG-16 over two buckets")
+    return trainer, data
+
+
+def res_snapshot(trainer) -> dict:
+    """Copies of what a skipped step must leave as it was, by name."""
+    gs = trainer.grad_step
+    return {"params": [p.detach().clone() for p in trainer.params],
+            "momentum": [b.clone() for b in trainer.optimizer.momentum_buf],
+            "sgd_step": [trainer.optimizer.step.clone()],
+            "batchnorm": [b.clone() for b in trainer.stats],
+            "residual": [s.residual.clone() for s in gs.states],
+            "local_threshold": [s.local_threshold.clone()
+                                for s in gs.states],
+            "global_threshold": [s.global_threshold.clone()
+                                 for s in gs.states]}
+
+
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (NaNs and signed zeros too)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def res_decisions(trainer, steps, batches) -> dict:
+    """``steps`` steps on ``batches``, each supervised: the per-step
+    skip flags, anomaly flags, strikes after each check, the dense
+    fallbacks and the health journal's (event, step) pairs."""
+    skips, flags, strikes = [], [], []
+    for i in range(steps):
+        m = trainer.train_step(batches[i])
+        trainer.supervise(i + 1, m)
+        skips.append(int(m["step_skipped"]))
+        flags.append(m["bucket_anomalies"].tolist())
+        strikes.append(list(trainer.supervisor.strikes))
+    return {"skips": skips, "anomalies": flags, "strikes": strikes,
+            "forced_dense": list(trainer.supervisor.forced_dense),
+            "journal": [(e["event"], e.get("step"))
+                        for e in trainer.supervisor.journal.entries]}
+
+
+def res_mnist_decisions(device) -> dict:
+    """The CPU tests' plans on mnistnet with their ``_trainer`` config
+    (P = 4 stacked, a global batch of 8, d = 0.05, every cadence 1,
+    tests/test_torch_resilience.py): the guarded NaN run and the wire
+    bit-flip run, on ``device``."""
+    import numpy as np
+    from oktopk_tpu_torch.collectives import wire
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.resilience import FaultPlan, FaultSpec
+    from oktopk_tpu_torch.resilience.faults import make_wire_hook
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    def trainer(plan=None, nb=1):
+        cfg = TrainConfig(dnn="mnistnet", dataset="mnist", batch_size=8,
+                          lr=0.05, compressor="oktopk", density=0.05,
+                          num_buckets=nb, num_workers=4, resilience=True,
+                          resilience_cooldown=0, resilience_strikes=3)
+        return Trainer(cfg, algo_cfg=OkTopkConfig(**RES_ALGO), warmup=False,
+                       device=device, fault_plan=plan)
+
+    rng = np.random.RandomState(9)
+    batches = [synthetic_batch("mnistnet", 8, rng) for _ in range(7)]
+    nan = res_decisions(trainer(FaultPlan((FaultSpec(
+        "nan_grad", step=RES_K, worker=1, count=3),))), 5, batches)
+    tr = trainer(nb=2)
+    prev = wire.install_wire_fault(make_wire_hook(FaultPlan((FaultSpec(
+        "wire_bitflip", step=1, duration=20, worker=2, bucket=1),)),
+        tr.comm))
+    try:
+        bitflip = res_decisions(tr, 7, batches)
+    finally:
+        wire.install_wire_fault(prev)
+    return {"nan_grad": nan, "wire_bitflip": bitflip}
+
+
+def phase_resilience(dev) -> dict:
+    """The numeric-health guard, the supervisor, the density backoff and
+    a chip loss on VGG-16 at full width (P = 4 stacked, global batch 64,
+    d = 0.02, bf16 wire, two buckets, through ``main_trainer``), then the
+    CPU tests' plans on mnistnet card against CPU, then the guarded step's
+    cost. Returns the launches of the guarded NaN run (the path ``vgg16
+    resilience``)."""
+    import torch
+    from oktopk_tpu_torch.collectives import wire
+    from oktopk_tpu_torch.resilience import FaultPlan, FaultSpec
+    from oktopk_tpu_torch.resilience.faults import make_wire_hook
+
+    t_phase = time.perf_counter()
+    out = {"phase": "resilience", "model": "vgg16", "n": RES_N,
+           "workers": 4, "global_batch": 64, "num_buckets": 2}
+
+    # 1. a NaN on worker 1 at attempted step k: that step skips, leaving
+    # every state bit-identical, against a never-firing control run
+    def nan_plan(step):
+        return FaultPlan((FaultSpec("nan_grad", step=step, worker=1,
+                                    count=3),))
+
+    tr, data = res_trainer(dev, nan_plan(RES_K), ["--resilience"])
+    batches = [next(data) for _ in range(5)]
+    torch.cuda.synchronize()
+    zero_counts()
+    recs = []
+    for i, b in enumerate(batches):
+        if i == RES_K:
+            before = res_snapshot(tr)
+            counters = ([int(s.step[0]) for s in tr.grad_step.states],
+                        int(tr.grad_step.health.step))
+        m = tr.train_step(b)
+        tr.supervise(i + 1, m)
+        recs.append({k: float(v.to(torch.float64).mean())
+                     for k, v in m.items()})
+        if i == RES_K:
+            after = res_snapshot(tr)
+            moved = [k for k in before if not all(
+                same_bits(x, y) for x, y in zip(before[k], after[k]))]
+            ahead = ([int(s.step[0]) for s in tr.grad_step.states],
+                     int(tr.grad_step.health.step))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    skips = [int(r["step_skipped"]) for r in recs]
+    if skips != [1 if i == RES_K else 0 for i in range(5)] or moved:
+        raise AssertionError(f"resilience: skips {skips}, states moved "
+                             f"across the skip: {moved}")
+    if ahead != ([c + 1 for c in counters[0]], counters[1] + 1) or int(
+            tr.grad_step.health.steps_skipped) != 1:
+        raise AssertionError(f"resilience: counters {counters} -> {ahead}")
+    assert_launched(launches, SPARSE_KERNELS, "resilience")
+    ctl, _ = res_trainer(dev, nan_plan(RES_NEVER), ["--resilience"])
+    ctl_losses = [float(ctl.train_step(b)["loss"])
+                  for i, b in enumerate(batches) if i != RES_K]
+    losses = [r["loss"] for i, r in enumerate(recs) if i != RES_K]
+    if losses != ctl_losses:
+        raise AssertionError(f"resilience: losses {losses} against the "
+                             f"never-firing control's {ctl_losses}")
+    out["nan_grad"] = {"skips": skips, "losses": [r["loss"] for r in recs],
+                       "control_losses": ctl_losses,
+                       "bit_identical": sorted(before),
+                       "counters": [counters, ahead],
+                       "launches": launches,
+                       "seconds": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    del tr, ctl, before, after
+
+    # 2. a bit-flipped payload from worker 2 on bucket 1: three strikes,
+    # bucket 1 falls back to dense, bucket 0's kernels go on
+    tr, data = res_trainer(dev, flags=["--resilience",
+                                       "--resilience-strikes", "3"])
+    prev = wire.install_wire_fault(make_wire_hook(FaultPlan((FaultSpec(
+        "wire_bitflip", step=1, duration=20, worker=2, bucket=1),)),
+        tr.comm))
+    per_step = []
+    try:
+        skips = []
+        for i in range(7):
+            b = next(data)
+            torch.cuda.synchronize()
+            zero_counts()
+            m = tr.train_step(b)
+            torch.cuda.synchronize()
+            per_step.append(read_counts())
+            tr.supervise(i + 1, m)
+            skips.append(int(m["step_skipped"]))
+    finally:
+        wire.install_wire_fault(prev)
+    events = [e["event"] for e in tr.supervisor.journal.entries
+              if e["event"] != "header"]
+    # both buckets launch each sparse kernel equally often a step until
+    # bucket 1 falls back (after step 4's supervision); then bucket 0
+    # alone launches them: exactly half as often
+    full = per_step[0]
+    if (skips != [0, 1, 1, 1, 0, 0, 0]
+            or tr.supervisor.forced_dense != [1]
+            or tr.grad_step.names != ["oktopk", "dense"]
+            or events != ["guard_trip"] * 3 + ["fallback"]
+            or not all(full[k] > 0 and full[k] % 2 == 0
+                       for k in SPARSE_KERNELS)
+            or any(c[k] != full[k] for c in per_step[:4]
+                   for k in SPARSE_KERNELS)
+            or any(2 * c[k] != full[k] for c in per_step[4:]
+                   for k in SPARSE_KERNELS)):
+        raise AssertionError(
+            f"resilience: bit-flip skips {skips}, fallbacks "
+            f"{tr.supervisor.forced_dense}, plan {tr.grad_step.names}, "
+            f"journal {events}, launches per step {per_step}")
+    out["wire_bitflip"] = {"skips": skips, "forced_dense": [1],
+                           "journal": events,
+                           "launches_per_step": per_step,
+                           "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    del tr
+
+    # 3. guard pressure backs the density off, a clean streak re-advances
+    # it; the re-plans keep every residual
+    tr, data = res_trainer(
+        dev, FaultPlan((FaultSpec("scale_grad", step=1, duration=2,
+                                  scale=1e8),)),
+        ["--resilience", "--resilience-density-backoff",
+         "--resilience-abs-limit", "1e3", "--resilience-near-ratio", "0.5",
+         "--resilience-backoff-steps", "2",
+         "--resilience-backoff-max-level", "1",
+         "--resilience-clean-streak", "2", "--resilience-strikes", "99"],
+        resilience_divergence_limit=99)
+    replans, skips = [], []
+    for i in range(6):
+        m = tr.train_step(next(data))
+        skips.append(int(m["step_skipped"]))
+        res = [s.residual.clone() for s in tr.grad_step.states]
+        scale = tr._density_scale
+        tr.supervise(i + 1, m)
+        if tr._density_scale != scale:
+            replans.append({"step": i + 1, "scale": tr._density_scale,
+                            "densities": [c.density
+                                          for c in tr.grad_step.cfgs],
+                            "residuals_kept": all(
+                                same_bits(a, s.residual) for a, s in zip(
+                                    res, tr.grad_step.states))})
+    changes = [(e["step"], e["direction"])
+               for e in tr.supervisor.journal.entries
+               if e["event"] == "density_backoff"]
+    if ([d for _, d in changes] != ["backoff", "advance"]
+            or not all(r["residuals_kept"] for r in replans)
+            or skips != [0, 1, 1, 0, 0, 0]):
+        raise AssertionError(f"resilience: backoff {changes}, re-plans "
+                             f"{replans}, skips {skips}")
+    out["density_backoff"] = {"skips": skips, "changes": changes,
+                              "replans": replans,
+                              "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    del tr
+
+    # 4. worker 3's chip dies at step 3: remesh to three workers
+    tr, data = res_trainer(dev, FaultPlan((FaultSpec("chip_loss", step=3,
+                                                     worker=3),)),
+                           ["--resilience"])
+    losses = []
+    for step in range(1, 6):
+        b = next(data)
+        if step > 3:            # three workers' share of the batch
+            b = {k: v[:len(v) * 3 // 4] for k, v in b.items()}
+        m = tr.train_step(b)
+        losses.append(float(m["loss"]))
+        if step == 3:
+            pre = [p.detach().clone() for p in tr.params]
+        tr.supervise(step, m)
+        if step == 3:
+            kept = all(same_bits(a, p) for a, p in zip(pre, tr.params))
+    remesh = [e for e in tr.supervisor.journal.entries
+              if e["event"] == "remesh"]
+    if (not kept or tr.comm.size != 3 or len(remesh) != 1
+            or remesh[0]["new_world"] != 3
+            or not {"health", "supervisor"} <= set(remesh[0]["carried"])
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"resilience: remesh {remesh}, params kept "
+                             f"{kept}, losses {losses}")
+    out["chip_loss"] = {"losses": losses, "remesh": remesh[0],
+                        "params_bit_identical": kept,
+                        "seconds": time.perf_counter() - t0}
+    del tr, pre
+
+    # 5. the CPU tests' plans on mnistnet: card against CPU
+    t0 = time.perf_counter()
+    card = res_mnist_decisions(dev)
+    cpu = res_mnist_decisions("cpu")
+    if card != cpu:
+        raise AssertionError(f"resilience: mnistnet decisions on the card "
+                             f"{card}, on the CPU {cpu}")
+    out["mnistnet_card_vs_cpu"] = {"equal": True, "decisions": card,
+                                   "seconds": time.perf_counter() - t0}
+
+    # 6. the guarded step against the unguarded one, in turns, then one
+    # profiled steady step of each
+    t_cost = time.perf_counter()
+    on, data_on = res_trainer(dev, flags=["--resilience"])
+    off, data_off = res_trainer(dev)
+    ms = {"guarded": [], "unguarded": []}
+    order = [("guarded", on, data_on), ("unguarded", off, data_off)]
+    for i in range(8):
+        for name, t, d in (order if i % 2 == 0 else order[::-1]):
+            b = next(d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step(b)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    prof = {}
+    for name, t, d in order:
+        b = next(d)
+        counts, by_op = profile_window(lambda: t.train_step(b), 1)
+        prof[name] = (counts, by_op)
+    (c_on, d_on), (c_off, d_off) = prof["guarded"], prof["unguarded"]
+    added = {k: c_on.get(k, 0) - c_off.get(k, 0)
+             for k in set(c_on) | set(c_off)
+             if c_on.get(k, 0) != c_off.get(k, 0)}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    steady = slice(2, None)    # after each trainer's first two steps
+    out["cost"] = {
+        "card": smi, "steady_steps": len(ms["guarded"][steady]),
+        "step_ms_guarded": spread(ms["guarded"][steady]),
+        "step_ms_unguarded": spread(ms["unguarded"][steady]),
+        "step_ms_guarded_all": ms["guarded"],
+        "step_ms_unguarded_all": ms["unguarded"],
+        "device_ms_guarded": sum(d_on.values()),
+        "device_ms_unguarded": sum(d_off.values()),
+        "launches_guarded": sum(c_on.values()),
+        "launches_unguarded": sum(c_off.values()),
+        "added_launches_by_op": dict(sorted(
+            added.items(), key=lambda kv: -abs(kv[1]))[:12]),
+        "seconds": time.perf_counter() - t_cost}
+    del on, off
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    emit(out)
+    if secs > RES_BUDGET_S:
+        raise AssertionError(f"resilience took {secs:.1f} s, over its "
+                             f"{RES_BUDGET_S:.0f} s budget")
+    return launches
+
+
 N_BERT = 110106428            # BERT-base's flat parameter count
 N_LSTMAN4 = 54791168          # DeepSpeech (lstman4, 5 x 800)'s
 
@@ -1554,9 +1949,9 @@ def phase_bert_parity(dev):
         trainers[str(where)] = tr
 
         def step(flat, inner=tr.grad_step, key=str(where)):
-            reduced, metrics = inner(flat)
+            reduced, metrics, skip = inner(flat)
             selected[key] = (reduced != 0).cpu()
-            return reduced, metrics
+            return reduced, metrics, skip
 
         tr.grad_step = step
     steps = []
@@ -4137,7 +4532,8 @@ def kernel_line(timings, errs, by_path, edge_err, big, tf_timings):
     larger model's forms at its n (``big``: {path: (n, timings, errs)}):
     BERT-base's at n = 110,106,428 (``bert_sweep``, ``bert_pack_a``,
     ``bert_select_b``) and DeepSpeech's at n = 54,791,168
-    (``lstman4_sweep``, ...). ``ms``, ``plain_ms`` and ``library_ms`` are call
+    (``lstman4_sweep``, ...), VGG-16's two buckets' (``vgg16_b0_sweep``,
+    ...). ``ms``, ``plain_ms`` and ``library_ms`` are call
     times, CUDA events around one call; the ``*device_ms`` keys are the
     device times of the same calls under the profiler. ``launches`` counts
     the main path's run (oktopk on VGG-16; a larger model's forms: that
@@ -4257,6 +4653,11 @@ def main() -> int:
     big["resnet50"] = ("resnet50", N_RESNET50) + phase_big_kernels(
         dev, "resnet50_kernels", "resnet50", N_RESNET50, 0.02, 2.326,
         SEED + 7)
+    # the resilience path's two buckets of VGG-16 (``--num-buckets 2``)
+    for b, n_b in enumerate(vgg16_bucket_sizes()):
+        big[f"vgg16_b{b}"] = ("vgg16 resilience", n_b) + phase_big_kernels(
+            dev, "vgg16_bucket_kernels", f"vgg16_b{b}", n_b, 0.02, 2.326,
+            SEED + 8 + b)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
     phase_hier_allreduce(dev)
@@ -4265,6 +4666,8 @@ def main() -> int:
                "oktopk step options": phase_step_options(dev)}
     torch.cuda.empty_cache()
     by_path["vgg16 obs"] = phase_obs_trainer(dev)
+    torch.cuda.empty_cache()
+    by_path["vgg16 resilience"] = phase_resilience(dev)
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
     phase_lstman4_parity(dev)

@@ -23,6 +23,13 @@ TENSOR_FIELDS = (
     "wire_bytes_inter", "last_wire_bytes_inter", "last_local_count",
     "last_global_count")
 
+# the fields a step that the anomaly guard skips still advances: it
+# consumed its batch and its wire (oktopk_tpu/optim/distributed.py
+# :433-441); the guard rolls every other field back
+SKIP_ADVANCES = (
+    "step", "volume_elems", "last_volume", "wire_bytes", "last_wire_bytes",
+    "last_local_count", "last_global_count", "host_step")
+
 
 @dataclasses.dataclass
 class SparseState:

@@ -19,9 +19,10 @@ from oktopk_tpu_torch.ops.residual import (
     update_residual_at_winners,
 )
 
-# Fault-injection seam: a transform applied to every value buffer as it
-# crosses an exchange, called as hook(buffer, cfg, step). None (the
-# default) applies nothing; no fault plan is ported yet (ROADMAP.md).
+# Fault-injection seam: a transform applied to every value buffer [W, ...]
+# as it crosses an exchange, called as hook(buffer, cfg, step), ``step``
+# the bucket's host step counter. None (the default) applies nothing;
+# ``resilience/faults.py::make_wire_hook`` builds a fault plan's hook.
 _WIRE_FAULT: Optional[Callable] = None
 
 

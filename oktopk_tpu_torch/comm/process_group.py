@@ -180,6 +180,16 @@ class ProcessGroupComm:
                 off += t.numel()
         return changed
 
+    def broadcast_object(self, obj):
+        """The group's rank 0's ``obj`` (a picklable host value), on every
+        rank: a host-side decision that rank 0 alone can make, such as
+        which checkpoint file a restore loads."""
+        box = [obj]
+        src = 0 if self.group is None else dist.get_global_rank(self.group,
+                                                                0)
+        dist.broadcast_object_list(box, src=src, group=self.group)
+        return box[0]
+
 
 class HierarchicalProcessComm:
     """Two levels of one worker per process: ``num_pods`` pods of

@@ -210,6 +210,39 @@ class TrainConfig:
     compute_dtype: str = "float32"
     num_buckets: int = 1
 
+    # ---- the numeric-health guard and its escalation (resilience/) ----
+    # the step's anomaly guard: nonfinite local gradients or
+    # nonfinite/absurd reduced values trip a psum-agreed skip that rolls
+    # back the optimizer, the BatchNorm statistics and every compressor
+    # state; the Trainer runs the supervisor (strikes -> per-bucket dense
+    # fallback -> restore from the last good checkpoint)
+    resilience: bool = False
+    # reduced-gradient magnitude that counts as an anomaly while finite
+    resilience_abs_limit: float = 1e18
+    # guard trips on a bucket before it falls back to dense
+    resilience_strikes: int = 3
+    # consecutive skipped steps before a restore
+    resilience_divergence_limit: int = 8
+    # steps between two escalations
+    resilience_cooldown: int = 4
+    # supervisor cadence in steps (each check reads the flags: a sync)
+    resilience_check_every: int = 1
+    # the health journal's path; None keeps it in memory
+    resilience_journal: Optional[str] = None
+    # the fault -> autotune feedback loop (ROADMAP item 17c: the Trainer
+    # refuses it until the autotuner is ported)
+    resilience_feedback: bool = False
+    resilience_feedback_window: int = 32
+    resilience_feedback_signals: int = 3
+    resilience_feedback_cooldown: int = 64
+    # guard-aware density backoff (resilience/density.py)
+    resilience_density_backoff: bool = False
+    resilience_near_ratio: float = 0.1
+    resilience_backoff_steps: int = 3
+    resilience_backoff_factor: float = 0.5
+    resilience_backoff_max_level: int = 3
+    resilience_clean_streak: int = 8
+
     # ---- the run journal (obs/) ---------------------------------------
     # an event bus and one JSONL run journal behind one environment
     # header: per-step metrics, phase timings, quality flushes and the

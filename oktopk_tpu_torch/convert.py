@@ -299,8 +299,10 @@ def train_state_to_jax(trainer, host: bool = True,
     without momentum correction) with every worker's row; ``quality``
     the step's quality rings (``{ring, cursor, prev_res_norm,
     prev_sig}`` with every worker's row, per bucket as
-    ``sparse_state``) when the taps are on, else None; ``health`` None
-    (the port has no guard yet).
+    ``sparse_state``) when the taps are on, else None; ``health`` the
+    step's ``HealthState`` (``{step, steps_skipped, last_anomaly_step,
+    bucket_trips}``, replicated: no worker rows) when it carries the
+    anomaly guard or a fault plan, else None.
 
     ``host`` copies every leaf to a fresh host array (the checkpoint);
     otherwise the leaves are the live tensors, viewed in the flax
@@ -312,6 +314,7 @@ def train_state_to_jax(trainer, host: bool = True,
     from oktopk_tpu_torch.obs.metrics_buffer import \
         FIELDS as QUALITY_FIELDS
     from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.resilience.guard import HEALTH_FIELDS
     from oktopk_tpu_torch.train.checkpoint import host_tree
 
     model = trainer.model
@@ -328,8 +331,7 @@ def train_state_to_jax(trainer, host: bool = True,
             (path, to_jax_layout(b, layout))
             for (path, _, layout), b in zip(trainer.leaves,
                                             opt.momentum_buf)))
-        opt_state = {"step": np.asarray(opt.step, np.int32),
-                     "momentum_buf": buf}
+        opt_state = {"step": opt.step, "momentum_buf": buf}
     gs = trainer.grad_step
     sparse = [{f: _rows(trainer, getattr(st, f).to(
         torch.int32 if f in _INT32_FIELDS else torch.float32), gather)
@@ -349,7 +351,8 @@ def train_state_to_jax(trainer, host: bool = True,
         "local_momentum": (None if moms is None else
                            {str(i): m for i, m in enumerate(moms)}
                            if bucketed else moms[0]),
-        "health": None,
+        "health": (None if gs.health is None else
+                   {f: getattr(gs.health, f) for f in HEALTH_FIELDS}),
         "quality": (None if quals is None else
                     {str(i): q for i, q in enumerate(quals)}
                     if bucketed else quals[0]),
@@ -379,7 +382,7 @@ def _copy(dst: torch.Tensor, src, what: str) -> None:
 def load_train_state_from_jax(trainer, tree: dict,
                               parts=("params", "model_state", "opt_state",
                                      "sparse_state", "local_momentum",
-                                     "quality")
+                                     "quality", "health")
                               ) -> None:
     """Put a JAX ``DistTrainState`` state dict (``train_state_to_jax``'s
     layout, from either package's checkpoint) into the Trainer, in
@@ -389,9 +392,13 @@ def load_train_state_from_jax(trainer, tree: dict,
     to load (``evaluate`` loads the model's alone). The quality rings,
     ring and cursor included, load when the Trainer has the taps on and
     the tree carries them (a file saved without the taps leaves fresh
-    rings)."""
+    rings). The health counters load when the Trainer's step carries
+    them and the tree has them, the host mirror of the attempted-step
+    clock with them (a restore rewinds it, as JAX's does)."""
     from oktopk_tpu_torch.collectives.state import (TENSOR_FIELDS,
                                                     SparseState)
+    from oktopk_tpu_torch.resilience.guard import (HEALTH_FIELDS,
+                                                   HealthState)
     from oktopk_tpu_torch.obs.metrics_buffer import \
         FIELDS as QUALITY_FIELDS
     from oktopk_tpu_torch.optim import BertAdam
@@ -442,6 +449,19 @@ def load_train_state_from_jax(trainer, tree: dict,
             if not isinstance(a, torch.Tensor):
                 _copy(gs.momenta[b], rows(a, "local_momentum"),
                       "local_momentum")
+    ht = tree.get("health")
+    if ("health" in parts and gs.health is not None and ht is not None
+            and not isinstance(ht["step"], torch.Tensor)):
+        kw = {f: _as_tensor(ht[f]).to(device=dev, dtype=torch.int32)
+              for f in HEALTH_FIELDS}
+        if kw["bucket_trips"].shape != gs.health.bucket_trips.shape:
+            raise ValueError(
+                f"health/bucket_trips: checkpoint "
+                f"{tuple(kw['bucket_trips'].shape)} vs "
+                f"{tuple(gs.health.bucket_trips.shape)}")
+        gs.health = HealthState(**{f: kw[f].reshape(
+            getattr(gs.health, f).shape) for f in HEALTH_FIELDS},
+            host_step=int(kw["step"]))
     qt = tree.get("quality")
     if "quality" in parts and gs.qualities is not None and qt is not None:
         for b, q in enumerate(gs.qualities):
@@ -466,7 +486,9 @@ def _load_opt(trainer, opt_state: dict, bert_adam_cls) -> None:
                 _copy(flat[s:e].view(shp), _get(opt_state[name], path),
                       f"opt_state/{name}/{path}")
         return
-    opt.step = int(np.asarray(opt_state["step"]))
+    if not isinstance(opt_state["step"], torch.Tensor):
+        opt.step = _as_tensor(opt_state["step"]).to(
+            device=trainer.device, dtype=torch.int32).reshape(())
     if opt.momentum_buf is not None:
         for (path, _, layout), buf in zip(trainer.leaves, opt.momentum_buf):
             a = _get(opt_state["momentum_buf"], path)

@@ -9,8 +9,9 @@ Counterpart of ``oktopk_tpu/optim/sgd.py:29-61`` (the reference's custom
     p  += -lr * d_p
 
 Parameters are updated in place (the JAX form returns new arrays).
-``step`` counts the updates, as ``SGDState.step`` does (a host int; the
-checkpoint writes it as the JAX state's int32).
+``step`` counts the updates, as ``SGDState.step`` does: an int32 counter
+on the parameters' device, so the anomaly guard can roll it back with
+``torch.where`` on its device flag, without a sync.
 """
 
 from __future__ import annotations
@@ -28,12 +29,13 @@ class SGD:
         self.weight_decay = weight_decay
         self.nesterov = nesterov
         self.momentum_buf: List[torch.Tensor] | None = None
-        self.step = 0
+        self.step: torch.Tensor | None = None
 
     def init(self, params: Sequence[torch.Tensor]) -> None:
         self.momentum_buf = ([torch.zeros_like(p) for p in params]
                              if self.momentum else None)
-        self.step = 0
+        self.step = torch.zeros((), dtype=torch.int32,
+                                device=params[0].device)
 
     @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor],
@@ -50,4 +52,4 @@ class SGD:
             else:
                 d = g
             p.add_(-self.lr * d)
-        self.step += 1
+        self.step = self.step + 1

@@ -1,0 +1,121 @@
+"""JSONL health journal — the resilience observability surface.
+
+Counterpart of ``oktopk_tpu/resilience/journal.py``, event for event.
+Same shape (and writer) as the autotuner's decision journal
+(``autotune/journal.py``): line-delimited JSON, append-only, one
+environment header record first (the port's names its torch, CUDA and
+card, with ``"jax": null``). Events (all carry ``event`` and ``step``):
+
+  {"event": "fault_seen", "step": 12, "kind": "planned" | "observed",
+   "buckets": [1], "counts": [0, 3]}
+
+  {"event": "guard_trip", "step": 12, "buckets": [1],
+   "consecutive_skips": 1, "strikes": [0, 3]}
+
+  {"event": "fallback", "step": 14, "bucket": 1, "algo": "dense",
+   "strikes": 3}
+
+  {"event": "restore", "step": 30, "ckpt": ".../ckpt-24.msgpack",
+   "last_good_step": 24}
+
+  {"event": "restore_unavailable", "step": 30, "last_good_step": -1}
+
+  {"event": "remesh", "step": 40, "old_world": 8, "new_world": 7,
+   "trigger": "chip_loss", "dead_workers": [5],
+   "carried": ["params", ...], "reinitialised": ["sparse_state", ...]}
+
+  {"event": "density_backoff", "step": 52, "direction": "backoff",
+   "level": 1, "scale": 0.5, "trigger": "guard_skip"}
+
+  {"event": "ckpt_saved", "step": 60, "path": ".../ckpt-60.msgpack",
+   "bytes": 123456, "digest": "crc32:0a1b2c3d", "qualified": true,
+   "source": "async"}
+
+  {"event": "ckpt_verify_failed", "step": 66, "path": "...",
+   "reason": "digest_mismatch"}
+
+  {"event": "ckpt_restore", "step": 66, "path": ".../ckpt-54.msgpack",
+   "ckpt_step": 54, "fallback_depth": 1, "legacy": false}
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from oktopk_tpu_torch.autotune.journal import DecisionJournal
+
+
+class HealthJournal(DecisionJournal):
+    """Append-only JSONL health log (``path=None`` = in-memory only)."""
+
+    def guard_trip(self, step: int, buckets: Sequence[int],
+                   consecutive_skips: int, strikes: Sequence[int]):
+        return self.record("guard_trip", step=int(step),
+                           buckets=[int(b) for b in buckets],
+                           consecutive_skips=int(consecutive_skips),
+                           strikes=[int(s) for s in strikes])
+
+    def fault_seen(self, step: int, kind: str,
+                   buckets: Sequence[int] = (),
+                   counts: Optional[Sequence[int]] = None,
+                   workers: Optional[Sequence[int]] = None):
+        fields = dict(step=int(step), kind=kind,
+                      buckets=[int(b) for b in buckets],
+                      counts=(None if counts is None
+                              else [int(c) for c in counts]))
+        if workers is not None:
+            fields["workers"] = [int(w) for w in workers]
+        return self.record("fault_seen", **fields)
+
+    def fallback(self, step: int, bucket: int, algo: str, strikes: int):
+        return self.record("fallback", step=int(step), bucket=int(bucket),
+                           algo=algo, strikes=int(strikes))
+
+    def restore(self, step: int, ckpt: Optional[str],
+                last_good_step: int):
+        if ckpt is None:
+            return self.record("restore_unavailable", step=int(step),
+                               last_good_step=int(last_good_step))
+        return self.record("restore", step=int(step), ckpt=ckpt,
+                           last_good_step=int(last_good_step))
+
+    def remesh(self, step: int, old_world: int, new_world: int,
+               trigger: str, dead_workers: Sequence[int] = (),
+               carried: Sequence[str] = (),
+               reinitialised: Sequence[str] = ()):
+        return self.record("remesh", step=int(step),
+                           old_world=int(old_world),
+                           new_world=int(new_world), trigger=str(trigger),
+                           dead_workers=[int(w) for w in dead_workers],
+                           carried=list(carried),
+                           reinitialised=list(reinitialised))
+
+    def density_backoff(self, step: int, direction: str, level: int,
+                        scale: float, trigger: str = ""):
+        return self.record("density_backoff", step=int(step),
+                           direction=str(direction), level=int(level),
+                           scale=float(scale), trigger=str(trigger))
+
+    # ---- durable state plane (train/durable.py) ----------------------
+
+    def ckpt_saved(self, step: int, path: str, nbytes: int = 0,
+                   digest: str = "", qualified: bool = True,
+                   duration_ms: Optional[float] = None,
+                   source: str = "sync"):
+        fields = dict(step=int(step), path=str(path), bytes=int(nbytes),
+                      digest=str(digest), qualified=bool(qualified),
+                      source=str(source))
+        if duration_ms is not None:
+            fields["duration_ms"] = float(duration_ms)
+        return self.record("ckpt_saved", **fields)
+
+    def ckpt_verify_failed(self, step: int, path: str, reason: str):
+        return self.record("ckpt_verify_failed", step=int(step),
+                           path=str(path), reason=str(reason))
+
+    def ckpt_restore(self, step: int, path: str, ckpt_step: int = 0,
+                     fallback_depth: int = 0, legacy: bool = False):
+        return self.record("ckpt_restore", step=int(step), path=str(path),
+                           ckpt_step=int(ckpt_step),
+                           fallback_depth=int(fallback_depth),
+                           legacy=bool(legacy))

@@ -58,6 +58,11 @@ def host_tree(tree: Any) -> Any:
     return tree
 
 
+def checkpoint_path(ckpt_dir: str, step: int, prefix: str = "ckpt") -> str:
+    """Where :func:`save_checkpoint` writes the checkpoint of ``step``."""
+    return os.path.join(ckpt_dir, f"{prefix}-{int(step)}.msgpack")
+
+
 def save_checkpoint(ckpt_dir: str, state: Any, step: int,
                     prefix: str = "ckpt",
                     extra: Optional[dict] = None,
@@ -70,7 +75,7 @@ def save_checkpoint(ckpt_dir: str, state: Any, step: int,
     manifest; ``qualified=False`` marks a checkpoint that retention may
     collect first."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"{prefix}-{int(step)}.msgpack")
+    path = checkpoint_path(ckpt_dir, step, prefix)
     payload = {"step": int(step), "state": host_tree(state)}
     if extra:
         payload["extra"] = json.dumps(extra)

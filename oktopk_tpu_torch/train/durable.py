@@ -547,8 +547,9 @@ class AsyncCheckpointer:
     # ---- producer side ------------------------------------------------
 
     def path_for(self, step: int) -> str:
-        return os.path.join(self.ckpt_dir,
-                            f"{self.prefix}-{int(step)}.msgpack")
+        from oktopk_tpu_torch.train.checkpoint import checkpoint_path
+
+        return checkpoint_path(self.ckpt_dir, step, self.prefix)
 
     def save(self, state: Any, step: int, extra: Optional[dict] = None,
              qualified: bool = True) -> str:

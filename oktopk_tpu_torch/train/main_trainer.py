@@ -12,7 +12,13 @@ checkpoint and preemption flags of :148-169 (``--ckpt-dir``,
 (``--obs``, ``--obs-journal``, ``--obs-quality``,
 ``--obs-quality-every``, ``--obs-regress-key``, ``--sigma-scale``,
 ``--logdir``, ``--trace-at``, ``--trace-steps``, ``--phase-timers``),
-plus ``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
+the resilience flags of :63-105 (``--resilience``,
+``--resilience-strikes``, ``--resilience-abs-limit``,
+``--resilience-journal``, ``--resilience-density-backoff`` and its
+five knobs; ``--resilience-feedback*`` parse, and the Trainer refuses
+``--resilience-feedback``: the loop needs the autotuner, ROADMAP item
+17c), plus
+``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
 ``cifar10``, ``mnist`` or ``imagenet`` for the image models, ``an4``
 (``lstman4``, ``lstman4_tiny``) or ``ptb`` (``lstm``, ``lstm_tiny``).
 The batches come from ``data.make_dataset`` and the files under
@@ -28,7 +34,10 @@ The loop is the JAX command line's (:320-387): chunks of at most an
 epoch; after a chunk that ends on a multiple of ``--ckpt-every``, a
 checkpoint in the JAX package's format (``train/checkpoint.py``; written
 by rank 0, the state gathered from every rank first), on a background
-thread with ``--ckpt-async`` and pruned to the newest ``--ckpt-keep``.
+thread with ``--ckpt-async`` and pruned to the newest ``--ckpt-keep``;
+with ``--resilience`` each checkpoint carries the supervisor's state
+(``extra``), is marked qualified or not, and is registered as a restore
+target (JAX :272-285, :350-367, :380).
 ``--resume DIR`` restores the newest verified checkpoint (the step
 counter, parameters, optimizer and sparse state; the data iterator and
 the dropout key chain start again from ``--seed``, as in the JAX
@@ -79,6 +88,9 @@ Examples:
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
         --num-workers 4 --max-iters 100 --ckpt-dir ckpts --ckpt-every 50 \\
         --handle-preemption
+    python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
+        --num-workers 4 --max-iters 100 --resilience \\
+        --resilience-density-backoff --ckpt-dir ckpts --ckpt-every 50
 """
 
 from __future__ import annotations
@@ -186,6 +198,41 @@ def parse_args(argv=None):
                         "steps")
     p.add_argument("--obs-quality-every", type=int, default=32,
                    help="quality ring capacity and flush cadence (steps)")
+    p.add_argument("--resilience", action="store_true",
+                   help="the numeric-health guard and supervisor "
+                        "(resilience/): a psum-agreed skip of anomalous "
+                        "steps with every state rolled back, per-bucket "
+                        "dense fallback after repeated strikes, restore "
+                        "from the last good checkpoint on divergence")
+    p.add_argument("--resilience-strikes", type=int, default=3,
+                   help="guard trips on a bucket before it falls back "
+                        "to the dense collective")
+    p.add_argument("--resilience-abs-limit", type=float, default=1e18,
+                   help="reduced-gradient magnitude treated as anomalous "
+                        "even while finite (wire bit-flips land ~1e38)")
+    p.add_argument("--resilience-journal", default=None,
+                   help="JSONL health-journal path (rank 0 writes it)")
+    p.add_argument("--resilience-feedback", action="store_true",
+                   help="the fault->autotune feedback loop (not ported: "
+                        "the Trainer refuses it, ROADMAP item 17c)")
+    p.add_argument("--resilience-feedback-window", type=int, default=32)
+    p.add_argument("--resilience-feedback-signals", type=int, default=3)
+    p.add_argument("--resilience-feedback-cooldown", type=int, default=64)
+    p.add_argument("--resilience-density-backoff", action="store_true",
+                   help="guard-aware density backoff: repeated "
+                        "near-abs-limit/guard-skip steps back the "
+                        "effective density off (bounded, hysteretic, "
+                        "journalled)")
+    p.add_argument("--resilience-near-ratio", type=float, default=0.1,
+                   help="fraction of abs-limit counted as guard pressure")
+    p.add_argument("--resilience-backoff-steps", type=int, default=3,
+                   help="pressured steps before one backoff level")
+    p.add_argument("--resilience-backoff-factor", type=float, default=0.5,
+                   help="density multiplier per backoff level")
+    p.add_argument("--resilience-backoff-max-level", type=int, default=3,
+                   help="deepest backoff level")
+    p.add_argument("--resilience-clean-streak", type=int, default=8,
+                   help="clean steps before re-advancing one level")
     p.add_argument("--logdir", default="./logs",
                    help="run directory root: <logdir>/<slug>/ holds the "
                         "rank logs, scalars.csv, the journal and traces")
@@ -217,7 +264,21 @@ def configs(args, workers: int):
         compute_dtype=args.compute_dtype, sigma_scale=args.sigma_scale,
         obs=args.obs, obs_regress_key=args.obs_regress_key,
         obs_quality=args.obs_quality,
-        obs_quality_every=args.obs_quality_every)
+        obs_quality_every=args.obs_quality_every,
+        resilience=args.resilience,
+        resilience_strikes=args.resilience_strikes,
+        resilience_abs_limit=args.resilience_abs_limit,
+        resilience_journal=args.resilience_journal,
+        resilience_feedback=args.resilience_feedback,
+        resilience_feedback_window=args.resilience_feedback_window,
+        resilience_feedback_signals=args.resilience_feedback_signals,
+        resilience_feedback_cooldown=args.resilience_feedback_cooldown,
+        resilience_density_backoff=args.resilience_density_backoff,
+        resilience_near_ratio=args.resilience_near_ratio,
+        resilience_backoff_steps=args.resilience_backoff_steps,
+        resilience_backoff_factor=args.resilience_backoff_factor,
+        resilience_backoff_max_level=args.resilience_backoff_max_level,
+        resilience_clean_streak=args.resilience_clean_streak)
     algo_cfg = OkTopkConfig(sigma_scale=args.sigma_scale,
                             wire_dtype=args.wire_dtype)
     if args.warmup_steps is not None:
@@ -225,13 +286,18 @@ def configs(args, workers: int):
     return cfg, algo_cfg
 
 
-def build_trainer(args):
+def build_trainer(args, config_overrides=None, algo_overrides=None,
+                  fault_plan=None):
     """(Trainer, batch iterator, ProcessEnv, data meta): joins the process
     group on a multi-process launch (``launch.maybe_initialize``) and puts
     the trainer on ``ProcessGroupComm`` there, else on its stacked
     workers; the batches are ``make_dataset``'s (``meta["synthetic"]``
     True without the files). With ``--obs`` rank 0's journal is
-    ``--obs-journal``, else ``<logdir>/<slug>/run_journal.jsonl``."""
+    ``--obs-journal``, else ``<logdir>/<slug>/run_journal.jsonl``; the
+    health journal (``--resilience-journal``) is rank 0's alone too.
+    ``config_overrides`` / ``algo_overrides`` replace fields of the
+    ``TrainConfig`` / ``OkTopkConfig`` the flags give (a drill's
+    cadences), and ``fault_plan`` goes to the Trainer."""
     from oktopk_tpu_torch import launch
     from oktopk_tpu_torch.data import make_dataset
     from oktopk_tpu_torch.train.trainer import Trainer, workload
@@ -245,11 +311,16 @@ def build_trainer(args):
     penv, dev, comm, workers = launch.data_parallel(
         args.num_workers, args.device, args.backend)
     cfg, algo_cfg = configs(args, workers)
+    cfg = dataclasses.replace(cfg, **(config_overrides or {}))
+    algo_cfg = algo_cfg.replace(**(algo_overrides or {}))
     if args.obs and penv.is_coordinator:
         cfg = dataclasses.replace(cfg, obs_journal=(
             args.obs_journal or os.path.join(run_dir(args, cfg),
                                              "run_journal.jsonl")))
-    trainer = Trainer(cfg, algo_cfg=algo_cfg, device=dev, comm=comm)
+    if not penv.is_coordinator:
+        cfg = dataclasses.replace(cfg, resilience_journal=None)
+    trainer = Trainer(cfg, algo_cfg=algo_cfg, device=dev, comm=comm,
+                      fault_plan=fault_plan)
     global_bs = args.batch_size * workers * args.nsteps_update
     data, meta = make_dataset(args.dataset, args.dnn, global_bs,
                               path=args.data_dir, seed=args.seed)
@@ -287,9 +358,11 @@ def iterations(args, workers: int,
 def resume(trainer, args, logger) -> int:
     """The step to start from: ``--resume``'s newest verified checkpoint,
     else (with ``--handle-preemption``) a parked state, else 0; the
-    state goes into the trainer."""
+    state goes into the trainer, and the supervisor re-arms from the
+    same file's ``extra`` (its strikes and dense fallbacks)."""
     from oktopk_tpu_torch.train.checkpoint import restore_checkpoint
-    from oktopk_tpu_torch.train.preemption import load_interrupted_state
+    from oktopk_tpu_torch.train.preemption import (interrupted_state_path,
+                                                   load_interrupted_state)
 
     template = trainer.train_state(gather=False)
     if args.resume:
@@ -297,6 +370,7 @@ def resume(trainer, args, logger) -> int:
                                          bus=trainer.bus,
                                          force=args.ckpt_force)
         what = f"resumed from {args.resume}"
+        source = args.resume
     else:
         parked = (load_interrupted_state(template)
                   if args.handle_preemption else None)
@@ -304,7 +378,9 @@ def resume(trainer, args, logger) -> int:
             return 0
         tree, start = parked
         what = "resumed interrupted state"
+        source = interrupted_state_path() + ".d"
     trainer.load_train_state(tree)
+    trainer.restore_supervisor(source)
     if logger:
         logger.info("%s at iter %d", what, start)
     return start
@@ -326,11 +402,41 @@ def main(argv=None) -> int:
             h.close()
 
 
+def save_and_register(trainer, args, step: int, rank0: bool,
+                      checkpointer=None, logger=None) -> str:
+    """Save the train state at ``step`` under ``args.ckpt_dir`` (through
+    ``checkpointer`` when given, else written here with ``--ckpt-keep``'s
+    retention) with the supervisor's ``extra`` and ``qualified`` bit, and
+    register it as a restore candidate. Every rank calls it: the export
+    gathers every rank's rows and rank 0 writes them, and every rank
+    registers the same file (its path is the directory's and the step's),
+    so every rank's supervisor holds the same restore target."""
+    from oktopk_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                   save_checkpoint)
+    from oktopk_tpu_torch.train.durable import apply_retention
+
+    t0 = time.perf_counter()
+    state = trainer.train_state()       # every rank: gathers
+    extra = trainer.supervisor_extra()
+    qualified = trainer.checkpoint_qualified
+    path = checkpoint_path(args.ckpt_dir, step)
+    if checkpointer is not None:
+        checkpointer.save(state, step, extra=extra, qualified=qualified)
+    elif rank0:
+        save_checkpoint(args.ckpt_dir, state, step, extra=extra,
+                        qualified=qualified)
+        if args.ckpt_keep:
+            apply_retention(args.ckpt_dir, keep_last=args.ckpt_keep)
+        if logger is not None:
+            logger.info("checkpoint %s: %d B in %.3f s", path,
+                        os.path.getsize(path), time.perf_counter() - t0)
+    trainer.note_checkpoint(path, step)
+    return path
+
+
 def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
     from oktopk_tpu_torch.train import preemption
-    from oktopk_tpu_torch.train.checkpoint import save_checkpoint
-    from oktopk_tpu_torch.train.durable import (AsyncCheckpointer,
-                                                apply_retention)
+    from oktopk_tpu_torch.train.durable import AsyncCheckpointer
     from oktopk_tpu_torch.utils.profiling import (MetricWriter, PhaseTimers,
                                                   TraceWindow,
                                                   device_memory_stats)
@@ -352,8 +458,12 @@ def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
     per_epoch = max(1, meta["num_examples"] // global_bs)
     total = iterations(args, cfg.num_workers, meta["num_examples"])
     saving = bool(args.ckpt_dir and args.ckpt_every)
-    checkpointer = (AsyncCheckpointer(args.ckpt_dir, keep_last=args.ckpt_keep)
-                    if rank0 and saving and args.ckpt_async else None)
+    checkpointer = None
+    if rank0 and saving and args.ckpt_async:
+        checkpointer = AsyncCheckpointer(
+            args.ckpt_dir, keep_last=args.ckpt_keep, bus=trainer.bus,
+            journal=(trainer.supervisor.journal if trainer.supervisor
+                     else None), on_failure=trainer.note_ckpt_failure)
     writer = MetricWriter(rundir) if rank0 else None
     timers = PhaseTimers(every=args.log_every) if args.phase_timers else None
     trace = (TraceWindow(os.path.join(rundir, "trace"), args.trace_at,
@@ -377,18 +487,8 @@ def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
                         "hbm %.0fMiB", done, m["loss"], m["comm_volume"],
                         mem.get("bytes_in_use", 0) / 2**20)
             if saving and done % args.ckpt_every == 0:
-                t0 = time.perf_counter()
-                state = trainer.train_state()       # every rank: gathers
-                if checkpointer is not None:
-                    checkpointer.save(state, done)
-                elif rank0:
-                    path = save_checkpoint(args.ckpt_dir, state, done)
-                    if args.ckpt_keep:
-                        apply_retention(args.ckpt_dir,
-                                        keep_last=args.ckpt_keep)
-                    logger.info("checkpoint %s: %d B in %.3f s", path,
-                                os.path.getsize(path),
-                                time.perf_counter() - t0)
+                save_and_register(trainer, args, done, rank0, checkpointer,
+                                  logger)
             if done < start + chunk:  # stopped (every rank agreed)
                 break
     finally:
@@ -407,7 +507,7 @@ def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
         return preemption.epilogue(
             trainer.train_state, done, preempt, logger,
             rank=penv.process_id, completed=done >= total,
-            checkpointer=checkpointer)
+            extra=trainer.supervisor_extra(), checkpointer=checkpointer)
     return 0
 
 

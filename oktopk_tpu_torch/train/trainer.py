@@ -8,9 +8,10 @@ Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``nsteps_update``, ``grad_clip``, momentum correction and
 ``profile_norm``, the workload dispatch of :44-53, :98-107, :558-624
 for the CNN zoo, BERT pretraining, the PTB LSTM and DeepSpeech on AN4,
-and the run journal with its quality taps, below). Not ported yet
-(ROADMAP.md): the anomaly guard and its supervisor, fault plans, the
-autotuner and its feedback loop, step anatomy and anomaly tracing.
+the run journal with its quality taps, and the resilience surface,
+below). Not ported yet (ROADMAP.md): the autotuner and its feedback loop
+(``cfg.resilience_feedback`` raises, item 17c), step anatomy and anomaly
+tracing.
 
 With ``cfg.obs`` the Trainer runs the JAX Trainer's run journal
 (:121-170, less the anomaly tracer): an ``EventBus`` and a
@@ -110,10 +111,32 @@ float32); and cuDNN is made deterministic
 a run repeats as XLA's does; all five switches are process-wide.
 cuBLAS repeats only with ``CUBLAS_WORKSPACE_CONFIG`` set before the
 CUDA context exists (``main_trainer.main`` sets it).
+
+With ``cfg.resilience`` the Trainer runs the JAX Trainer's resilience
+surface (:172-217, :429-557, :801-870): the step's anomaly guard
+(``SparseGradStep(guard=...)``), a ``Supervisor`` whose
+``HealthJournal`` rides the run's bus, with
+``cfg.resilience_density_backoff`` a ``DensityBackoff``, and
+``fault_plan`` (a ``resilience.FaultPlan``) announced as ``fault_seen``
+``planned:<kind>`` events and injected by the step. A skipped step
+leaves the parameters, the optimizer state and the BatchNorm
+statistics bit-identical: ``train_step`` snapshots them (the statistics
+before worker 0's forward, which updates them) and restores them with
+``torch.where`` on the step's device flag, so the guard adds no host
+sync; the host reads the flags only in ``supervise``, every
+``cfg.resilience_check_every`` steps, before the quality flush as in
+JAX's loop (:691-703). A dense fallback or a density backoff level
+re-plans the step (``SparseGradStep.replan``: residuals, momenta, rings
+and health kept); a restore goes through ``train/durable.py``'s
+``verified_restore``; a chip loss shrinks the stacked comm
+(``resize_workers``). Checkpoints carry the health counters
+(``convert.py``) and the supervisor's state (``supervisor_extra``,
+``restore_supervisor``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import time
@@ -141,6 +164,10 @@ from oktopk_tpu_torch.obs.rollup import RollupEngine
 from oktopk_tpu_torch.ops import prng
 from oktopk_tpu_torch.optim import SGD, BertAdam
 from oktopk_tpu_torch.optim.distributed import SparseGradStep, flat_size
+from oktopk_tpu_torch.resilience import (DensityBackoff, GuardConfig,
+                                         HealthJournal, Supervisor)
+from oktopk_tpu_torch.resilience.faults import dead_workers
+from oktopk_tpu_torch.resilience.supervisor import plan_with_fallbacks
 from oktopk_tpu_torch.train import losses
 
 BATCH_KEYS = {
@@ -171,6 +198,25 @@ def ctc_frame_len(spect_lengths: torch.Tensor) -> torch.Tensor:
     return (spect_lengths + s - 1) // s
 
 
+def _host_metrics(metrics, keys) -> Dict[str, np.ndarray]:
+    """``metrics[k]`` of the ``keys`` present, as host arrays: device
+    tensors in one copy (float64 holds int32 and float32 exactly),
+    anything else as given."""
+    keys = [k for k in keys if k in metrics]
+    dev = [k for k in keys if isinstance(metrics[k], torch.Tensor)]
+    out = {k: np.asarray(metrics[k]) for k in keys if k not in dev}
+    if dev:
+        flat = torch.cat([metrics[k].reshape(-1).to(torch.float64)
+                          for k in dev]).cpu().numpy()
+        off = 0
+        for k in dev:
+            t = metrics[k]
+            out[k] = flat[off:off + t.numel()].reshape(tuple(t.shape)).astype(
+                torch.empty((), dtype=t.dtype).numpy().dtype)
+            off += t.numel()
+    return out
+
+
 def _lecun_normal_(p: torch.Tensor, fan_in: int, gen: torch.Generator):
     with torch.no_grad():
         w = torch.randn(p.shape, generator=gen) * math.sqrt(1.0 / fan_in)
@@ -186,7 +232,7 @@ class Trainer:
                  algo_cfg: Optional[OkTopkConfig] = None, device=None,
                  warmup: bool = True,
                  model_kwargs: Optional[Dict[str, Any]] = None,
-                 profile_norm: bool = False, comm=None):
+                 profile_norm: bool = False, comm=None, fault_plan=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -276,11 +322,41 @@ class Trainer:
                     key=cfg.obs_regress_key, bus=self.bus,
                     tolerance=cfg.obs_regress_tolerance,
                     phase_limits=cfg.obs_phase_limits)
-        self.grad_step = SparseGradStep(
-            self.algo_cfg, self.comm, self.params, cfg.compressor,
-            cfg.num_buckets, warmup=warmup, device=self.device,
-            momentum_correction=mc, profile_norm=profile_norm,
-            quality=self._quality_cfg)
+        # ---- the numeric-health guard and supervisor (resilience/) ----
+        if cfg.resilience_feedback:
+            raise NotImplementedError(
+                "resilience_feedback needs the autotuner, which is not "
+                "ported yet (ROADMAP.md item 17c)")
+        self._fault_plan = fault_plan
+        self._guard = None
+        self.supervisor = None
+        if cfg.resilience:
+            self._guard = GuardConfig(abs_limit=cfg.resilience_abs_limit)
+            self.supervisor = Supervisor(
+                num_buckets=cfg.num_buckets,
+                max_strikes=cfg.resilience_strikes,
+                divergence_limit=cfg.resilience_divergence_limit,
+                cooldown_steps=cfg.resilience_cooldown,
+                journal=HealthJournal(cfg.resilience_journal,
+                                      bus=self.bus))
+            if fault_plan is not None:
+                # a drill: the planned schedule up front, so the journal
+                # tells drills from real corruption
+                for f in fault_plan.faults:
+                    self.supervisor.journal.fault_seen(
+                        f.step, f"planned:{f.kind}", buckets=[f.bucket])
+        self.density_backoff = None
+        if cfg.resilience and cfg.resilience_density_backoff:
+            self.density_backoff = DensityBackoff(
+                abs_limit=cfg.resilience_abs_limit,
+                near_ratio=cfg.resilience_near_ratio,
+                backoff_steps=cfg.resilience_backoff_steps,
+                factor=cfg.resilience_backoff_factor,
+                max_level=cfg.resilience_backoff_max_level,
+                clean_streak=cfg.resilience_clean_streak)
+        self._density_scale = 1.0  # the density backoff's multiplier
+        self._warmup, self._mc, self._profile_norm = warmup, mc, profile_norm
+        self.grad_step = self._new_grad_step()
         self.flat = torch.empty((W, n), dtype=torch.float32,
                                 device=self.device)
         self._rng = prng.prng_key(cfg.seed + 1)
@@ -296,6 +372,44 @@ class Trainer:
             if int(self.comm.psum(changed)[0, 0]):
                 raise RuntimeError("initial parameters differ from rank "
                                    "0's; every rank must use the same seed")
+
+    def _new_grad_step(self) -> SparseGradStep:
+        """The step over the current comm, fresh per-worker state."""
+        return SparseGradStep(
+            self.algo_cfg, self.comm, self.params, self.cfg.compressor,
+            self.cfg.num_buckets, warmup=self._warmup, device=self.device,
+            momentum_correction=self._mc, profile_norm=self._profile_norm,
+            quality=self._quality_cfg, guard=self._guard,
+            fault_plan=self._fault_plan)
+
+    @property
+    def _forced_dense(self):
+        return self.supervisor.forced_dense if self.supervisor else ()
+
+    def _replan(self) -> None:
+        """The JAX Trainer's ``_build_step`` (:235-282) as a re-plan of
+        the step: the density backoff's scale on the schedule (capacity
+        sizing pinned to ``cfg.density``) or on the per-bucket
+        densities, and the supervisor's dense fallbacks, at density 1.0.
+        The step keeps every state."""
+        nb = max(1, self.cfg.num_buckets)
+        compressor = self.cfg.compressor
+        densities = None
+        acfg = self.algo_cfg
+        if self._density_scale < 1.0:
+            if acfg.density_schedule:
+                acfg = acfg.replace(density_schedule=tuple(
+                    (s, d * self._density_scale)
+                    for s, d in acfg.density_schedule))
+            else:
+                densities = [self.cfg.density * self._density_scale] * nb
+        if self._forced_dense:
+            compressor = plan_with_fallbacks([compressor] * nb,
+                                             self._forced_dense)
+            if densities is not None:
+                densities = [1.0 if b in self._forced_dense else d
+                             for b, d in enumerate(densities)]
+        self.grad_step.replan(compressor, densities, acfg)
 
     def load_jax_variables(self, params_np, batch_stats_np=None) -> None:
         """Take the flax model's weights (``convert.from_jax_params``)."""
@@ -367,6 +481,35 @@ class Trainer:
         logits = self.model(mb["image"], train=True, update_stats=(w == 0))
         return losses.softmax_cross_entropy(logits, mb["label"]), {}
 
+    def _opt_snapshot(self) -> Dict[str, Any]:
+        """The optimizer state a skipped step must leave as it was: the
+        tensors it replaces (BertAdam's m, v, step; SGD's step) by
+        reference, the ones it updates in place (SGD's momentum) as
+        copies."""
+        opt = self.optimizer
+        if isinstance(opt, BertAdam):
+            return {"step": opt.step, "m": opt.m, "v": opt.v}
+        return {"step": opt.step,
+                "momentum_buf": [b.clone() for b in opt.momentum_buf or []]}
+
+    @torch.no_grad()
+    def _roll_back(self, skip: torch.Tensor, params, opt_old, stats) -> None:
+        """On a skipped step (``skip``, a 0-d device flag) put the
+        parameters, the optimizer state and the BatchNorm statistics
+        back, bit for bit; otherwise leave them. No host sync."""
+        for p, old in zip(self.params, params):
+            p.copy_(torch.where(skip, old, p))
+        for b, old in zip(self.stats, stats):
+            b.copy_(torch.where(skip, old, b))
+        opt = self.optimizer
+        opt.step = torch.where(skip, opt_old["step"], opt.step)
+        if isinstance(opt, BertAdam):
+            opt.m = torch.where(skip, opt_old["m"], opt.m)
+            opt.v = torch.where(skip, opt_old["v"], opt.v)
+            return
+        for b, old in zip(opt.momentum_buf or [], opt_old["momentum_buf"]):
+            b.copy_(torch.where(skip, old, b))
+
     @torch.no_grad()
     def _apply_update(self, reduced: torch.Tensor) -> None:
         if self.workload != "bert":
@@ -395,6 +538,9 @@ class Trainer:
         lo, hi = first * ns * b, (first + W) * ns * b
         data = {k: torch.as_tensor(batch[k][lo:hi]).to(self.device)
                 for k in keys}
+        # worker 0's forward updates the BatchNorm statistics
+        stats_old = ([b.clone() for b in self.stats]
+                     if self._guard is not None else None)
         pair = prng.split(self._rng)
         self._rng = pair[0]
         mb_keys = self.microbatch_keys(pair[1])
@@ -419,8 +565,13 @@ class Trainer:
                                         keepdim=True))
             self.flat.mul_(torch.clamp(self.cfg.grad_clip / (norm + 1e-12),
                                        max=1.0))
-        reduced, metrics = self.grad_step(self.flat)
+        reduced, metrics, skip = self.grad_step(self.flat)
+        if skip is not None:
+            params_old = [p.detach().clone() for p in self.params]
+            opt_old = self._opt_snapshot()
         self._apply_update(reduced)
+        if skip is not None:
+            self._roll_back(skip, params_old, opt_old, stats_old)
         for p in self.params:
             p.grad = None
         if self.distributed and self.stats:
@@ -457,7 +608,8 @@ class Trainer:
             if not pending:
                 return
             names = list(pending[0][1])
-            host = torch.stack([torch.stack([m[k].to(torch.float64)
+            # a per-bucket metric is journalled as its mean, as JAX does
+            host = torch.stack([torch.stack([m[k].to(torch.float64).mean()
                                              for k in names])
                                 for _, m in pending]).cpu().tolist()
             for (s, _), vals in zip(pending, host):
@@ -486,6 +638,11 @@ class Trainer:
                         torch.cuda.synchronize(self.device)
             else:
                 metrics = self.train_step(next(data_iter))
+            if (self.supervisor is not None
+                    and step % max(1, self.cfg.resilience_check_every) == 0):
+                # the host reads the guard's flags on this cadence only;
+                # an escalation may re-plan the step or restore state
+                self.supervise(step, metrics)
             if (self._quality_cfg is not None
                     and step % self._quality_cfg.every == 0):
                 # the rings are drained on their own cadence only
@@ -524,17 +681,19 @@ class Trainer:
             self._flush_quality(self.last_step)
         if self.bus is not None:
             self._emit_volume_report()
-        return {k: float(v) for k, v in metrics.items()}
+        return {k: float(v.to(torch.float64).mean())
+                for k, v in metrics.items()}
 
     # ---- the run journal ------------------------------------------------
 
     def _bucket_plan(self):
-        """Per-bucket (algo name, density) names for the reports (the
-        JAX Trainer's, :755; the port has no autotune plans or dense
-        fallbacks yet, so every bucket runs ``cfg.compressor`` at
-        ``cfg.density``)."""
-        nb = max(1, self.cfg.num_buckets)
-        return [self.cfg.compressor] * nb, [self.cfg.density] * nb
+        """Per-bucket (algo name, density) for the reports (the JAX
+        Trainer's, :757, less the autotune plans), read off the step as
+        ``_replan`` left it; a dense fallback reports density 1.0."""
+        gs = self.grad_step
+        densities = [1.0 if b in self._forced_dense else c.density
+                     for b, c in enumerate(gs.cfgs)]
+        return list(gs.names), densities
 
     def _flush_quality(self, step: int) -> None:
         """Drain the quality rings to the journal (the JAX Trainer's,
@@ -571,12 +730,22 @@ class Trainer:
         self.quality_flushes += 1
 
     def _on_quality_breach(self, step: int, bucket: int, breaches) -> None:
-        """The rollup engine's breach hook (the JAX Trainer's, :316). JAX
-        routes fidelity breaches to its density-backoff controller
-        (``resilience/density.py``), which comes with ROADMAP item 17b;
-        without one it returns, as JAX's does with resilience off. The
-        breach stays in the journal, in the rollup's ``breaches``."""
-        return None
+        """The rollup engine's breach hook (the JAX Trainer's, :311-333):
+        sustained FIDELITY breaches go to the density backoff, which
+        advances its level back up (guard pressure pushes density down,
+        compression-quality pressure pulls it back up); without a
+        backoff it returns, the breach staying in the rollup's
+        ``breaches``."""
+        if self.density_backoff is None:
+            return
+        change = None
+        for kind in breaches:
+            change = self.density_backoff.note_quality_breach(
+                int(step), str(kind)) or change
+        if change is not None:
+            self._density_scale = float(change["scale"])
+            self.supervisor.journal.density_backoff(int(step), **change)
+            self._replan()
 
     def _emit_volume_report(self) -> None:
         """One ``volume_report`` event per bucket (the JAX Trainer's,
@@ -597,6 +766,212 @@ class Trainer:
                 nm, cfg_b, wb / max(1, steps_done), bucket=b,
                 step=self.last_step, steps=steps_done)
             self.bus.emit("volume_report", **rep)
+
+    # ---- resilience supervision ---------------------------------------
+
+    def supervise(self, step: int, metrics) -> None:
+        """Feed one step's guard metrics to the supervisor and execute
+        what it escalates to (the JAX Trainer's, :429-457): a dense
+        fallback re-plans the step, a restore reloads the last good
+        checkpoint, a chip loss (the plan's dead workers, polled here)
+        shrinks the comm; then the density backoff digests the step's
+        guard pressure. The flags come to the host in one copy."""
+        if self.supervisor is None:
+            return
+        if self._fault_plan is not None:
+            dead = dead_workers(self._fault_plan, step)
+            if dead:
+                for act in self.supervisor.note_chip_loss(step, dead):
+                    self._execute_action(act, step)
+        host = _host_metrics(metrics, ("step_skipped", "bucket_anomalies",
+                                       "reduced_absmax"))
+        for act in self.supervisor.observe(step, {
+                k: host[k] for k in ("step_skipped", "bucket_anomalies")
+                if k in host}):
+            self._execute_action(act, step)
+        if self.density_backoff is not None and "reduced_absmax" in host:
+            change = self.density_backoff.observe(
+                step, absmax=float(host["reduced_absmax"]),
+                skipped=int(host.get("step_skipped", 0)))
+            if change is not None:
+                self._density_scale = float(change["scale"])
+                self.supervisor.journal.density_backoff(step, **change)
+                self._replan()
+
+    def _execute_action(self, act, step: int) -> None:
+        """Execute one supervisor escalation (the JAX Trainer's,
+        :459-487)."""
+        if act.kind == "fallback":
+            # forced_dense already updated by the supervisor
+            self._replan()
+        elif act.kind == "restore":
+            self._execute_restore(step, act.ckpt)
+        elif act.kind == "remesh":
+            self._execute_remesh(step, act.workers)
+
+    def _execute_restore(self, step: int, ckpt) -> None:
+        """Reload the last good checkpoint ``ckpt``. The candidates are
+        walked newest -> oldest past corrupt files, each rejected one
+        journalled before the ``restore`` record, so the journal names
+        the file actually loaded.
+
+        Across processes the registration and the walk are rank 0's,
+        handed to every rank: an async write failure reaches rank 0's
+        supervisor alone (its writer runs there), and a write that
+        publishes during the walk could be seen by some ranks and not
+        others. Every other rank then loads the file rank 0 chose."""
+        from oktopk_tpu_torch.train.durable import verified_restore
+        sup = self.supervisor
+        journal = sup.journal
+        lead = not self.distributed or self.comm.first_worker == 0
+        if self.distributed:
+            reg = self.comm.broadcast_object(
+                (sup.last_good_ckpt, sup.last_good_step,
+                 sup.ckpt_write_failures))
+            if ckpt and reg[0] is None:
+                # rank 0 journalled the unavailable restore in observe
+                journal.restore(step, None, reg[1])
+            (sup.last_good_ckpt, sup.last_good_step,
+             sup.ckpt_write_failures) = reg
+            ckpt = reg[0]
+        if not ckpt:
+            return
+        template = self.train_state(gather=False)
+        used = tree = None
+        missing = FileNotFoundError(
+            f"no restorable checkpoint at or before {ckpt!r}")
+        if lead:
+            try:
+                tree, ckpt_step, used, _, _ = verified_restore(
+                    ckpt, template, journal=journal, bus=self.bus,
+                    step=step)
+            except FileNotFoundError as e:
+                missing = e
+        if self.distributed:
+            used = self.comm.broadcast_object(used)
+            if used is not None and not lead:
+                tree, ckpt_step, got, _, _ = verified_restore(
+                    used, template, bus=self.bus, step=step)
+                if got != used:
+                    raise RuntimeError(f"rank 0 restored {used}, this "
+                                       f"rank could only read {got}")
+        if used is None:
+            # every candidate corrupt: journal it and fail loudly rather
+            # than keep training a diverged model
+            journal.restore(step, None, -1)
+            raise missing
+        self.load_train_state(tree)
+        journal.restore(step, used, ckpt_step)
+
+    def _execute_remesh(self, step: int, workers) -> None:
+        """Drop the dead workers and resize onto the survivors (the JAX
+        Trainer's, :489-503): on the stacked comm a ``StackedComm`` of
+        P - |dead| workers."""
+        dead = sorted({int(w) for w in workers})
+        if not isinstance(self.comm, StackedComm):
+            raise NotImplementedError(
+                "a chip loss remeshes the stacked comm only: a dead "
+                "process cannot be dropped from a live process group")
+        P = self.comm.size - len(dead)
+        if P < 1:
+            raise RuntimeError(
+                f"chip_loss at step {step} left no surviving workers")
+        self.resize_workers(StackedComm(P), trigger="chip_loss",
+                            dead_workers=dead, step=step)
+
+    def resize_workers(self, new_comm, trigger: str = "manual",
+                       dead_workers=(), step: Optional[int] = None) -> None:
+        """Re-build the step for a new world size, keeping the model and
+        optimizer state (the JAX Trainer's, :801-870). Carried: the
+        parameters, the BatchNorm statistics, the optimizer state, the
+        health clock and the supervisor; re-initialised: the sparse
+        states, the local momenta and the quality rings (per-worker
+        state of the old topology). Journalled as a ``remesh`` event
+        naming both lists. Stacked comms only: JAX's remesh is its
+        single controller's, and a dead process cannot be dropped from a
+        live ``ProcessGroupComm``."""
+        if not (isinstance(new_comm, StackedComm)
+                and isinstance(self.comm, StackedComm)):
+            raise NotImplementedError(
+                "resize_workers needs stacked comms: a process group "
+                "cannot drop a dead rank")
+        old_world = int(self.cfg.num_workers)
+        P = new_comm.size
+        old_health = self.grad_step.health
+        self.comm = new_comm
+        self.cfg = dataclasses.replace(self.cfg, num_workers=P)
+        self.algo_cfg = self.algo_cfg.replace(num_workers=P)
+        self.grad_step = self._new_grad_step()
+        self._replan()
+        self.flat = torch.empty((P, self.algo_cfg.n), dtype=torch.float32,
+                                device=self.device)
+        carried = ["params", "model_state", "opt_state"]
+        reinit = ["sparse_state", "local_momentum"]
+        if self._quality_cfg is not None:
+            # fresh rings: the drained-cursor bookkeeping restarts too
+            self._q_cursors = {}
+            reinit.append("quality")
+        if old_health is not None:
+            # the fault plans' and the supervisor's clock stays monotonic
+            self.grad_step.health = old_health
+            carried.append("health")
+        if self.supervisor is not None:
+            carried.append("supervisor")
+        ev = dict(step=int(step if step is not None else self.last_step),
+                  old_world=old_world, new_world=P, trigger=str(trigger),
+                  dead_workers=[int(w) for w in dead_workers],
+                  carried=carried, reinitialised=reinit)
+        if self.supervisor is not None:
+            self.supervisor.journal.remesh(**ev)
+        elif self.bus is not None:
+            self.bus.emit("remesh", **ev)
+
+    def note_checkpoint(self, path: str, step: int) -> None:
+        """Register a saved checkpoint as a restore candidate: through
+        the supervisor's journal with resilience on, straight onto the
+        bus otherwise."""
+        if self.supervisor is not None:
+            self.supervisor.note_checkpoint(path, step)
+        elif self.bus is not None:
+            self.bus.emit("checkpoint", step=int(step), path=path,
+                          qualified=True)
+
+    @property
+    def checkpoint_qualified(self) -> bool:
+        """Whether a checkpoint taken now would be a restore target (no
+        skips in flight): the manifest's ``qualified`` bit."""
+        if self.supervisor is None:
+            return True
+        return self.supervisor.consecutive_skips == 0
+
+    def note_ckpt_failure(self, step: int, path: str, error) -> None:
+        """``durable.AsyncCheckpointer``'s ``on_failure`` hook: a failed
+        write goes to the supervisor (or the bus). Across processes the
+        writer, and so this hook, runs on rank 0 alone; a restore takes
+        rank 0's registration to every rank (``_execute_restore``)."""
+        if self.supervisor is not None:
+            self.supervisor.note_ckpt_write_failure(step, path, error)
+        elif self.bus is not None:
+            self.bus.emit("ckpt_verify_failed", step=int(step), path=path,
+                          reason=f"write_failed: {error}")
+
+    def supervisor_extra(self):
+        """A checkpoint's ``extra`` payload: the supervisor's strikes,
+        fallbacks and last-good marker (None without resilience)."""
+        if self.supervisor is None:
+            return None
+        return {"supervisor": self.supervisor.to_state()}
+
+    def restore_supervisor(self, ckpt_dir_or_file: str) -> None:
+        """Re-arm the supervisor from a checkpoint's ``extra`` payload
+        (either package's) and re-apply its dense fallbacks."""
+        if self.supervisor is None:
+            return
+        from oktopk_tpu_torch.train.checkpoint import load_extra
+        extra = load_extra(ckpt_dir_or_file) or {}
+        self.supervisor.load_state(extra.get("supervisor") or {})
+        if self.supervisor.forced_dense:
+            self._replan()
 
     def _agree(self, stop: bool) -> bool:
         """``stop`` of any process (across processes; else as given)."""

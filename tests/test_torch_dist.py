@@ -26,6 +26,12 @@ module, and each test reads what its part wrote:
 - a narrow-VGG run that rank 1 alone asks to stop: every rank stops at
   that step and its epilogue returns 3, and rank 0's parked state is
   the stacked Trainer's parked file bit for bit;
+- three guarded narrow-VGG steps with a ``nan_grad`` on rank 2 at step
+  1: every rank skips that step alone, bit-equal to the stacked Trainer;
+- a guarded narrow-VGG run whose consecutive skips restore the
+  checkpoint every rank registered, then find the next restore
+  unavailable after a write failure that rank 0 alone saw: bit-equal to
+  the stacked Trainer on every rank;
 - two ``bert_tiny`` Trainer steps with dropout 0.1, each rank deriving
   its own worker's keys: bit-equal to the stacked Trainer on every rank,
   and the keys and masks JAX's for that worker (the JAX Trainer's key
@@ -152,6 +158,9 @@ def dist(tmp_path_factory, mesh4):
                     ckpt=stacked_ckpt)
                 stacked_preempt = child.run_preempt(
                     None, weights, str(d / "parked_stacked"))
+                stacked_guarded = child.run_guarded(None, weights)
+                stacked_restore = child.run_restore(
+                    None, weights, str(d / "restore_stacked"))
                 stacked_bert = child.run_bert_trainer(None)
                 stacked_resnet = child.run_resnet(None)
             finally:
@@ -172,6 +181,8 @@ def dist(tmp_path_factory, mesh4):
             "stacked_trainer": stacked_trainer,
             "stacked_ckpt": stacked_ckpt, "dir": d,
             "stacked_preempt": stacked_preempt,
+            "stacked_guarded": stacked_guarded,
+            "stacked_restore": stacked_restore,
             "stacked_bert": stacked_bert, "stacked_resnet": stacked_resnet,
             "jax_trainer": (jax_metrics, jax_final)}
 
@@ -311,6 +322,46 @@ def test_trainer_matches_stacked(dist):
                 bits(gm[k], wm[k], f"rank {r} step {s}: {k}")
         for k in want_sd:
             bits(got_sd[k], want_sd[k], f"rank {r}: {k}")
+
+
+def test_guard_skips_on_every_rank(dist):
+    """A NaN in rank 2's gradient at step 1: every rank skips that step
+    (the anomaly counts are psum'd), the health clock advances on each,
+    and the parameters and BatchNorm statistics are bit-equal to the
+    stacked Trainer's."""
+    want_skips, want_health, want_sd = dist["stacked_guarded"]
+    assert want_skips == [0, 1, 0] and want_health == (3, 1, 3)
+    for r, res in enumerate(dist["ranks"]):
+        skips, health, sd = res["guarded"]
+        assert (skips, health) == (want_skips, want_health), r
+        for k in want_sd:
+            bits(sd[k], want_sd[k], f"rank {r}: {k}")
+
+
+def test_divergence_restore_on_every_rank(dist):
+    """A divergence restore across processes: every rank registers the
+    checkpoint that ``main_trainer.save_and_register`` wrote, every rank
+    reloads it when two consecutive steps skip (the health clock too, so
+    the planned NaNs replay), and a write failure that reaches rank 0
+    alone makes the next restore unavailable on every rank. The skips,
+    the journal's checkpoint and restore records, the supervisor's
+    checkpoint fields and the final parameters and BatchNorm statistics
+    are the stacked Trainer's, bit for bit."""
+    want_skips, want_restored, want_events, want_sup, want_sd = \
+        dist["stacked_restore"]
+    assert want_skips == [0, 0, 1, 1, 1, 1, 0, 1, 1] and want_restored
+    assert want_events == [
+        ("checkpoint", 2, "ckpt-2.msgpack"),
+        ("restore", 4, "ckpt-2.msgpack"),
+        ("checkpoint", 7, "ckpt-7.msgpack"),
+        ("restore_unavailable", 9, "")]
+    assert want_sup == ("", -1, 1, 2)
+    for r, res in enumerate(dist["ranks"]):
+        skips, restored, events, sup, sd = res["restore"]
+        assert (skips, restored, events, sup) == (
+            want_skips, want_restored, want_events, want_sup), r
+        for k in want_sd:
+            bits(sd[k], want_sd[k], f"rank {r}: {k}")
 
 
 def test_bert_with_dropout_matches_stacked(dist):

@@ -1,10 +1,10 @@
 """The port stands alone: neither ``oktopk_tpu_torch/`` (its launch
-layer and process-group comm included) nor ``chip_smoke.py`` (nor the
-port's profiling and A/B scripts, ``psum_ab.py`` and
-``bf16_card_yardstick.py`` among them, nor the worker module that the
-process-group tests spawn) imports ``jax``,
-``flax``, ``optax``, ``msgpack`` or ``oktopk_tpu``,
-and importing every module of the package leaves ``jax`` out of
+layer, process-group comm and resilience layer included) nor
+``chip_smoke.py`` (nor the port's profiling, A/B and drill scripts,
+``psum_ab.py``, ``bf16_card_yardstick.py`` and ``port_chaos_drill.py``
+among them, nor the worker module that the process-group tests spawn)
+imports ``jax``, ``flax``, ``optax``, ``msgpack`` or ``oktopk_tpu``, and
+importing every module of the package leaves ``jax`` out of
 ``sys.modules``."""
 
 import ast
@@ -26,6 +26,7 @@ def _sources():
         ROOT / "scripts" / "compaction_ab.py",
         ROOT / "scripts" / "psum_ab.py",
         ROOT / "scripts" / "bf16_card_yardstick.py",
+        ROOT / "scripts" / "port_chaos_drill.py",
         ROOT / "tests" / "torch_dist_child.py"]
     assert len(files) > 20
     for mod in ("launch.py", "comm/process_group.py", "comm/fabric.py",
@@ -44,7 +45,10 @@ def _sources():
                 "train/glue.py", "obs/events.py", "obs/journal.py",
                 "obs/rollup.py", "obs/export.py", "obs/regress.py",
                 "autotune/journal.py", "utils/logging.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "resilience/__init__.py",
+                "resilience/faults.py", "resilience/guard.py",
+                "resilience/journal.py", "resilience/supervisor.py",
+                "resilience/density.py", "resilience/drills.py"):
         assert PKG / mod in files
     return files
 

@@ -326,6 +326,93 @@ def run_trainer(comm, weights, steps: int = 3, ckpt_dir=None, ckpt=None):
     return metrics, {k: v.clone() for k, v in tt.model.state_dict().items()}
 
 
+def run_guarded(comm, weights, steps: int = 3):
+    """The narrow VGG with the anomaly guard and a ``nan_grad`` fault on
+    worker 2 at attempted step 1: the per-step skip flags, the health
+    clock, then the state_dict. Every rank must take the skip that rank
+    2's gradient alone calls for (the psum'd anomaly counts)."""
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.resilience import FaultPlan, FaultSpec
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    register_narrow()
+    plan = FaultPlan((FaultSpec("nan_grad", step=1, worker=2),))
+    tt = Trainer(TrainConfig(**TRAIN, resilience=True),
+                 algo_cfg=OkTopkConfig(**TRAIN_ALGO), device="cpu",
+                 comm=comm, fault_plan=plan)
+    tt.load_jax_variables(*weights)
+    skips = [int(tt.train_step(train_batch(s))["step_skipped"])
+             for s in range(steps)]
+    h = tt.grad_step.health
+    return (skips, (int(h.step), int(h.steps_skipped), h.host_step),
+            {k: v.clone() for k, v in tt.model.state_dict().items()})
+
+
+def run_restore(comm, weights, ckpt_dir):
+    """A divergence restore: the guarded narrow VGG with a divergence
+    limit of 2, a cooldown of 3 steps, and ``nan_grad`` on worker 2 at
+    attempted steps 2, 3, 5 and 6 of the health clock. Steps 1-2 run
+    clean and ``main_trainer.save_and_register`` checkpoints step 2 on
+    every rank; steps 3-4 skip and step 4's supervision restores that
+    file, the health clock with it, so steps 5-6 replay attempts 2-3
+    and skip inside the cooldown; step 7 runs and is checkpointed, then
+    a write failure of that file reaches rank 0 alone (as an async
+    writer's would), so the restore that steps 8-9 call for is
+    unavailable on every rank. Returns the skip flags, whether the state
+    right after the restore is step 2's bit for bit, the journal's
+    checkpoint and restore records (file names only), the supervisor's
+    checkpoint fields, and the final state_dict."""
+    from types import SimpleNamespace
+
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.resilience import FaultPlan, FaultSpec
+    from oktopk_tpu_torch.train.main_trainer import save_and_register
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    register_narrow()
+    plan = FaultPlan(tuple(FaultSpec("nan_grad", step=k, worker=2)
+                           for k in (2, 3, 5, 6)))
+    tt = Trainer(TrainConfig(**TRAIN, resilience=True,
+                             resilience_divergence_limit=2,
+                             resilience_cooldown=3,
+                             resilience_strikes=10),
+                 algo_cfg=OkTopkConfig(**TRAIN_ALGO), device="cpu",
+                 comm=comm, fault_plan=plan)
+    tt.load_jax_variables(*weights)
+    rank0 = comm is None or comm.first_worker == 0
+    args = SimpleNamespace(ckpt_dir=ckpt_dir, ckpt_keep=0)
+    skips = []
+
+    def run(start, n):
+        for s in range(start, start + n):
+            m = tt.train(iter([train_batch(s)]), 1, start_step=s)
+            skips.append(int(m["step_skipped"]))
+
+    def sd():
+        return {k: v.clone() for k, v in tt.model.state_dict().items()}
+
+    run(0, 2)
+    at_ckpt = sd()
+    save_and_register(tt, args, 2, rank0)
+    run(2, 2)
+    restored = all(torch.equal(v, at_ckpt[k]) for k, v in sd().items())
+    run(4, 3)
+    path = save_and_register(tt, args, 7, rank0)
+    if rank0:
+        tt.note_ckpt_failure(7, path, RuntimeError("disk full"))
+    run(7, 2)
+    sup = tt.supervisor
+    events = [(e["event"], e["step"],
+               os.path.basename(e.get("path") or e.get("ckpt") or ""))
+              for e in sup.journal.entries
+              if e["event"] in ("checkpoint", "restore",
+                                "restore_unavailable")]
+    return (skips, restored, events,
+            (os.path.basename(sup.last_good_ckpt or ""),
+             sup.last_good_step, sup.ckpt_write_failures,
+             sup.restore_events), sd())
+
+
 def run_preempt(comm, weights, state_dir, stop_after: int = 2,
                 steps: int = 4):
     """The CLIs' preemption path on the narrow VGG: ``steps`` steps asked
@@ -448,6 +535,9 @@ def _checks(rank: int, out_dir: str):
                                  ckpt=res["trainer_ckpt"])
     res["preempt"] = run_preempt(comm, weights,
                                  os.path.join(out_dir, "parked_dist"))
+    res["guarded"] = run_guarded(comm, weights)
+    res["restore"] = run_restore(comm, weights,
+                                 os.path.join(out_dir, "restore_dist"))
     res["bert_trainer"] = run_bert_trainer(comm)
     res["resnet"] = run_resnet(comm)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -457,9 +547,10 @@ def checks_worker(rank, out_dir):
     """Spawn target: every comm verb, every compressor case, the
     two-level cases over 2 pods x 2 ``new_group``s, three trainer steps
     and a checkpoint of them, saved and restored, a run stopped by one
-    rank and parked, two BERT steps with dropout and one resnet20 step
-    over a 4-rank gloo group. The cases
-    held to JAX start from the JAX states the parent writes to
+    rank and parked, three guarded steps with a NaN on rank 2, a
+    divergence restore of a checkpoint, two BERT steps with dropout and
+    one resnet20 step over a 4-rank gloo group.
+    The cases held to JAX start from the JAX states the parent writes to
     ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
     while these run."""
     _guard(_checks, rank, out_dir)
