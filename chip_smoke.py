@@ -289,7 +289,29 @@ directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
               (``--num-buckets 2``, the resilience path): n = 7,379,978
               and 7,348,288 (``vgg16_b0_sweep``, ``vgg16_b0_pack_a``,
               ``vgg16_b0_select_b``, and ``vgg16_b1_*``), bit-equal and
-              timed as above.
+              timed as above;
+40. autotune — (after ``resilience``) the autotuner on the main path:
+              full-width VGG-16 through ``main_trainer.build_trainer
+              --autotune --autotune-candidates dense,oktopk
+              --autotune-trial-steps 3 --obs``, P = 4, batch 16 a worker,
+              d = 0.02, bf16 wire, two buckets, lr 0.01 (the journal's
+              and the guard's phases' rate), then ``Trainer.train`` for
+              6 steps, whose first runs the real calibrate -> trial ->
+              policy pass: one ``calibration`` (measured, 4 probes, alpha
+              and beta > 0), one ``autotune_decision`` per bucket choosing
+              its fastest measured candidate, the step on the plan, K1 and
+              the compaction's pack (R = 4) and select (R = 1) launched by
+              the trials (``launches_by_path`` ``vgg16 autotune``), finite
+              losses; every candidate's ms, the fit and the planned steps'
+              host ms printed; a forced re-tune (``retune`` ->
+              ``calibration`` -> ``autotune_decision``, re-planned only if
+              the plan changed); mnistnet's fake seam, card = CPU, a mixed
+              plan; the ``latency_retune`` drill (oktopk -> dense); the
+              benchmark CLI (``python -m oktopk_tpu_torch.benchmarks.
+              collectives``), its volumes the in-process step's; its own
+              budget, ``AUTOTUNE_BUDGET_S``; and in ``dist_trainer`` four
+              gloo ranks of VGG-16 ``--autotune`` over two buckets, every
+              rank the same coefficients and plan.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -1773,6 +1795,261 @@ def phase_resilience(dev) -> dict:
     return launches
 
 
+AUTOTUNE_BUDGET_S = 60.0      # the autotune phase's own budget
+AUTOTUNE_ARGV = ["--dnn", "vgg16", "--dataset", "cifar10", "--num-workers",
+                 "4", "--batch-size", "16", "--density", "0.02",
+                 "--wire-dtype", "bfloat16", "--num-buckets", "2",
+                 "--autotune", "--autotune-candidates", "dense,oktopk",
+                 "--autotune-trial-steps", "3", "--obs", "--lr", "0.01",
+                 "--seed", str(SEED)]
+AUTOTUNE_STEPS = 6
+# the CPU tests' fake-seam Trainer (tests/test_torch_autotune.py: JAX's
+# TestTrainerIntegration config)
+AUTOTUNE_MNIST = dict(dnn="mnistnet", dataset="mnist", batch_size=8,
+                      lr=0.1, compressor="oktopk", density=0.02,
+                      num_workers=8, num_buckets=2, autotune=True,
+                      autotune_candidates=("dense", "oktopk"),
+                      autotune_trial_steps=1, autotune_retune_every=50)
+BENCH_CMD = ["--algo", "oktopk", "--n", "1048576", "--density", "0.01",
+             "--steps", "5"]
+
+
+def crossover_fake_ms(algo, n, density):
+    """The JAX tests' synthetic fabric (tests/test_autotune.py:27-33):
+    dense wins small buckets, oktopk large ones."""
+    if algo == "dense":
+        return 0.5 + n * 1e-6
+    return 2.0 + density * n * 2e-6
+
+
+def tuner_events(trainer, start: int = 0) -> list:
+    """The run journal's tuner events from entry ``start`` on."""
+    return [e for e in trainer.run_journal.entries[start:]
+            if e["event"] in ("retune", "calibration", "autotune_decision")]
+
+
+def check_decisions(decisions, where: str) -> None:
+    """Raise unless each decision is a trial that chose its fastest
+    measured candidate."""
+    for d in decisions:
+        best = min(d["candidates"], key=lambda c: c["measured_ms"])
+        if d["reason"] != "trial" or d["chosen"]["algo"] != best["algo"] \
+                or d["chosen"]["density"] != best["density"]:
+            raise AssertionError(f"{where}: bucket {d['bucket']} chose "
+                                 f"{d['chosen']} ({d['reason']}), fastest "
+                                 f"{best}")
+
+
+def bench_in_process(dev, n: int, density: float, steps: int, P: int = 4):
+    """The benchmark CLI's loop in this process (its seed, its cadences):
+    each timed step's volume."""
+    import numpy as np
+    import torch
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+    from oktopk_tpu_torch.comm import StackedComm
+    from oktopk_tpu_torch.config import OkTopkConfig
+    cfg = OkTopkConfig(n=n, num_workers=P, density=density, warmup_steps=0,
+                       local_recompute_every=1, global_recompute_every=4)
+    step = build_allreduce_step("oktopk", cfg, StackedComm(P), warmup=False)
+    state = batched_init_state(cfg, dev)
+    rng = np.random.RandomState(0)
+    base = rng.randn(P, n).astype(np.float32)
+    _, state = step(torch.from_numpy(base).to(dev), state)
+    vols = []
+    for _ in range(steps):
+        g = base + 0.3 * rng.randn(P, n).astype(np.float32)
+        _, state = step(torch.from_numpy(g).to(dev), state)
+        vols.append(float(state.last_volume[0]))
+    return vols
+
+
+def phase_autotune(dev) -> dict:
+    """The autotuner on the main path: full-width VGG-16 through
+    ``main_trainer.build_trainer --autotune`` (``AUTOTUNE_ARGV``: P = 4
+    stacked, batch 16 a worker, d = 0.02, bf16 wire, two buckets) and
+    ``Trainer.train`` for ``AUTOTUNE_STEPS`` steps, whose first runs the
+    real calibrate -> trial -> policy pass; then a forced re-tune, the
+    fake seam on mnistnet card against CPU, the ``latency_retune`` drill
+    and the benchmark CLI. Returns the launches of the train run (the
+    path ``vgg16 autotune``: the trials', and the planned steps')."""
+    import torch
+    from oktopk_tpu_torch.ops import compaction
+    from oktopk_tpu_torch.resilience import drills
+    from oktopk_tpu_torch.train import main_trainer
+
+    t_phase = time.perf_counter()
+    out = {"phase": "autotune", "model": "vgg16", "n": N_VGG16,
+           "workers": 4, "global_batch": 64, "num_buckets": 2,
+           "argv": " ".join(AUTOTUNE_ARGV)}
+
+    # 1. the real trials at full width, inside Trainer.train
+    args = main_trainer.parse_args(AUTOTUNE_ARGV + ["--device", str(dev)])
+    tr, data, _, _ = main_trainer.build_trainer(args)
+    if tr.algo_cfg.n != N_VGG16 or len(tr.grad_step.states) != 2:
+        raise AssertionError("autotune: not VGG-16 over two buckets")
+    forms, trial, step_ms = [], {}, []
+    real_compact, real_autotune = compaction._compact_cuda, tr.autotune
+    real_step = tr.train_step
+
+    def compact_by_form(x, t, boundaries, R, cap):
+        forms.append((int(R), int(cap)))
+        return real_compact(x, t, boundaries, R, cap)
+
+    def counted_autotune(step=0, fake_ms=None):
+        torch.cuda.synchronize()
+        before, n_forms, t0 = read_counts(), len(forms), time.perf_counter()
+        plans = real_autotune(step=step, fake_ms=fake_ms)
+        torch.cuda.synchronize()
+        after = read_counts()
+        trial[step] = {"launches": {k: after[k] - before[k] for k in after},
+                       "forms": sorted(set(forms[n_forms:])),
+                       "seconds": time.perf_counter() - t0}
+        return plans
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = real_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    tr.autotune, tr.train_step = counted_autotune, timed_step
+    compaction._compact_cuda = compact_by_form
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        tr.train(data, AUTOTUNE_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        compaction._compact_cuda = real_compact
+    events = tuner_events(tr)
+    cal = [e for e in events if e["event"] == "calibration"]
+    dec = [e for e in events if e["event"] == "autotune_decision"]
+    losses = [e["loss"] for e in tr.run_journal.entries
+              if e["event"] == "step"]
+    if (len(cal) != 1 or cal[0]["source"] != "measured"
+            or cal[0]["nsamples"] != 4 or not cal[0]["alpha"] > 0
+            or not cal[0]["beta"] > 0
+            or not math.isfinite(cal[0]["residual"])):
+        raise AssertionError(f"autotune: calibration events {cal}")
+    if sorted(d["bucket"] for d in dec) != [0, 1]:
+        raise AssertionError(f"autotune: decisions {dec}")
+    check_decisions(dec, "autotune")
+    plan = [(p.algo, p.density) for p in tr._plans]
+    if tr.grad_step.names != [a for a, _ in plan]:
+        raise AssertionError(f"autotune: step {tr.grad_step.names}, plan "
+                             f"{plan}")
+    tl = trial.get(1, {}).get("launches", {})
+    tforms = trial.get(1, {}).get("forms", [])
+    assert_launched(tl, SPARSE_KERNELS, "autotune trials")
+    if not ({R for R, _ in tforms} >= {1, 4}):
+        raise AssertionError(f"autotune: the trials' compaction forms "
+                             f"{tforms} lack the pack (R = 4) or the "
+                             "select (R = 1)")
+    if len(losses) != AUTOTUNE_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"autotune: losses {losses}")
+    out["trials"] = {
+        "calibration": {k: cal[0][k] for k in ("alpha", "beta", "residual",
+                                               "nsamples", "source")},
+        "candidates_ms": [{"bucket": d["bucket"], "n": d["n"],
+                           "measured_ms": {c["algo"]: c["measured_ms"]
+                                           for c in d["candidates"]},
+                           "predicted_ms": {c["algo"]: c["predicted_ms"]
+                                            for c in d["candidates"]},
+                           "chosen": d["chosen"]["algo"]} for d in dec],
+        "plan": plan, "launches": tl, "compaction_forms": tforms,
+        "seconds": trial[1]["seconds"]}
+    out["planned_steps"] = {"losses": losses, "step_ms": step_ms,
+                            "step_ms_after_first": spread(step_ms[1:]),
+                            "launches_with_trials": launches}
+
+    # 2. a forced re-tune: retune -> calibration -> autotune_decision, and
+    # the step re-planned only if the plan changed
+    t0 = time.perf_counter()
+    start = len(tr.run_journal.entries)
+    old, replans = list(tr._plans), []
+    real_replan = tr._replan
+    tr._replan = lambda: replans.append(1) or real_replan()
+    tr.force_retune(AUTOTUNE_STEPS + 1)
+    chain = [e["event"] for e in tuner_events(tr, start)]
+    changed = [p.key() for p in tr._plans] != [p.key() for p in old]
+    check_decisions([e for e in tuner_events(tr, start)
+                     if e["event"] == "autotune_decision"], "re-tune")
+    if (chain != ["retune", "calibration", "autotune_decision",
+                  "autotune_decision"] or len(replans) != int(changed)):
+        raise AssertionError(f"autotune: re-tune chain {chain}, plan "
+                             f"changed {changed}, re-plans {len(replans)}")
+    out["retune"] = {"chain": chain, "plan_changed": changed,
+                     "replans": len(replans),
+                     "plan": [(p.algo, p.density) for p in tr._plans],
+                     "calibration": {k: e[k] for e in tuner_events(
+                         tr, start) if e["event"] == "calibration"
+                         for k in ("alpha", "beta", "residual")},
+                     "seconds": time.perf_counter() - t0}
+    del tr, data
+    torch.cuda.empty_cache()
+
+    # 3. the fake seam on mnistnet: the card's plans are the CPU's
+    t0 = time.perf_counter()
+    from oktopk_tpu_torch.config import TrainConfig
+    from oktopk_tpu_torch.train.trainer import Trainer
+    seam = {}
+    for where in (dev, "cpu"):
+        t = Trainer(TrainConfig(**AUTOTUNE_MNIST), warmup=False,
+                    device=where)
+        seam[str(where)] = [(p.bucket, p.n, p.algo, p.density,
+                             p.measured_ms) for p in t.autotune(
+                                 step=0, fake_ms=crossover_fake_ms)]
+        del t
+    card, cpu = seam[str(dev)], seam["cpu"]
+    if card != cpu or len({p[2] for p in card}) != 2:
+        raise AssertionError(f"autotune: fake-seam plans on the card "
+                             f"{card}, on the CPU {cpu}")
+    out["fake_seam"] = {"plans": card, "equal_to_cpu": True,
+                        "seconds": time.perf_counter() - t0}
+
+    # 4. the latency_retune drill on the card
+    t0 = time.perf_counter()
+    report = drills.run_drill("latency_retune", device=dev)
+    if not report.ok or report.notes["plan"] != "oktopk->dense":
+        raise AssertionError("autotune: latency_retune\n" + report.summary())
+    out["latency_retune"] = {"checks": [c[0] for c in report.checks],
+                             "plan": report.notes["plan"],
+                             "retune_at": report.notes["retune_at"],
+                             "seconds": time.perf_counter() - t0}
+
+    # 5. the benchmark CLI, its volumes against the same steps here
+    t0 = time.perf_counter()
+    rc, text = run_cli([sys.executable, "-m",
+                        "oktopk_tpu_torch.benchmarks.collectives"]
+                       + BENCH_CMD, 300)
+    lines = [ln for ln in text.splitlines() if ln.startswith("step ")]
+    vols = [float(ln.split("volume")[1].split()[0]) for ln in lines]
+    want = bench_in_process(dev, 1 << 20, 0.01, 5)
+    if rc != 0 or vols != want:
+        raise AssertionError(f"autotune: benchmark CLI exit {rc}, volumes "
+                             f"{vols} vs in process {want}\n{text[-3000:]}")
+    out["benchmark_cli"] = {"cmd": " ".join(BENCH_CMD), "exit": rc,
+                            "lines": text.strip().splitlines(),
+                            "volumes_equal": True,
+                            "seconds": time.perf_counter() - t0}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    secs = time.perf_counter() - t_phase
+    out["card"], out["seconds"] = smi, secs
+    emit(out)
+    if secs > AUTOTUNE_BUDGET_S:
+        raise AssertionError(f"autotune took {secs:.1f} s, over its "
+                             f"{AUTOTUNE_BUDGET_S:.0f} s budget")
+    return launches
+
+
 N_BERT = 110106428            # BERT-base's flat parameter count
 N_LSTMAN4 = 54791168          # DeepSpeech (lstman4, 5 x 800)'s
 
@@ -2824,6 +3101,37 @@ def trainer_rank(rank, tmp, world, dev, want_path):
     dist_guard(_trainer_rank, rank, tmp, world, dev, want_path)
 
 
+def _autotune_rank(rank: int, tmp: str, world: int, dev: str):
+    from oktopk_tpu_torch.train import main_trainer
+    dist_join(rank, world, tmp, "gloo", dev)
+    trainer, data, penv, _ = main_trainer.build_trainer(vgg_args(
+        ["--device", dev, "--backend", "gloo", "--num-buckets", "2",
+         "--autotune", "--autotune-candidates", "dense,oktopk",
+         "--autotune-trial-steps", "3"]))
+    if not trainer.distributed or penv.num_processes != world:
+        raise AssertionError("build_trainer did not take the "
+                             "multi-process path")
+    t0 = time.perf_counter()
+    plans = trainer.autotune(step=0)
+    secs = time.perf_counter() - t0
+    m = trainer.train_step(next(data))
+    dec = [e for e in trainer.autotuner.journal.entries
+           if e["event"] == "decision"]
+    return {"coeffs": trainer.autotuner.coeffs.as_dict(),
+            "plan": [[p.algo, p.density, p.measured_ms] for p in plans],
+            "candidates_ms": [{c["algo"]: c["measured_ms"]
+                               for c in d["candidates"]} for d in dec],
+            "names": list(trainer.grad_step.names),
+            "loss": float(m["loss"]), "tune_seconds": secs}
+
+
+def autotune_rank(rank, tmp, world, dev):
+    """Spawn target: full-width VGG-16 as one gloo rank of ``world``,
+    built by ``main_trainer.build_trainer --autotune`` over two buckets:
+    one real calibrate -> trial -> policy pass and one planned step."""
+    dist_guard(_autotune_rank, rank, tmp, world, dev)
+
+
 def run_cli(cmd, timeout_s: float, env=None):
     """Run ``cmd`` in its own session from the repository root; on
     timeout kill the whole session (the launcher and its workers) and
@@ -2932,6 +3240,28 @@ def phase_dist_trainer(dev):
     emit({"phase": "dist_trainer_cli", "cmd": " ".join(cmd[1:]),
           "exit": rc, "rank0_log": lines, "seconds": cli_s,
           "last_step": cli, "equal_to_dist_trainer": True})
+
+    # the autotuner across processes: every rank fits the same
+    # coefficients and takes the same plan (the medians agreed)
+    t0 = time.perf_counter()
+    tuned = spawn_ranks(autotune_rank, DIST_P, (DIST_P, str(dev)),
+                        "dist_trainer autotune")
+    want = {k: tuned[0][k] for k in ("coeffs", "plan", "candidates_ms",
+                                     "names")}
+    for r, res in enumerate(tuned):
+        if {k: res[k] for k in want} != want or not math.isfinite(
+                res["loss"]) or res["names"] != [p[0] for p in
+                                                 res["plan"]]:
+            raise AssertionError(f"dist_trainer autotune rank {r}: {res} "
+                                 f"against rank 0's {want}")
+    emit({"phase": "dist_trainer_autotune", "ranks": DIST_P,
+          "placement": f"4 gloo ranks on {dev}", "num_buckets": 2,
+          "same_on_every_rank": True, **want,
+          "losses": [res["loss"] for res in tuned],
+          "tune_seconds": [res["tune_seconds"] for res in tuned],
+          "seconds": time.perf_counter() - t0,
+          "note": "four processes share one card and gloo stages through "
+                  "the host: the trial times are no multi-card number"})
     return ranks[0]["launches"]
 
 
@@ -4668,6 +4998,8 @@ def main() -> int:
     by_path["vgg16 obs"] = phase_obs_trainer(dev)
     torch.cuda.empty_cache()
     by_path["vgg16 resilience"] = phase_resilience(dev)
+    torch.cuda.empty_cache()
+    by_path["vgg16 autotune"] = phase_autotune(dev)
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
     phase_lstman4_parity(dev)

@@ -180,13 +180,14 @@ class ProcessGroupComm:
                 off += t.numel()
         return changed
 
-    def broadcast_object(self, obj):
-        """The group's rank 0's ``obj`` (a picklable host value), on every
-        rank: a host-side decision that rank 0 alone can make, such as
-        which checkpoint file a restore loads."""
+    def broadcast_object(self, obj, src: int = 0):
+        """The group's rank ``src``'s ``obj`` (a picklable host value), on
+        every rank: a host-side decision that one rank alone can make,
+        such as which checkpoint file a restore loads (rank 0's) or the
+        descriptor of a feedback vote that rank passed."""
         box = [obj]
-        src = 0 if self.group is None else dist.get_global_rank(self.group,
-                                                                0)
+        if self.group is not None:
+            src = dist.get_global_rank(self.group, src)
         dist.broadcast_object_list(box, src=src, group=self.group)
         return box[0]
 

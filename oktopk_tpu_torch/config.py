@@ -210,6 +210,28 @@ class TrainConfig:
     compute_dtype: str = "float32"
     num_buckets: int = 1
 
+    # ---- per-bucket algorithm/density autotuning (autotune/) ----------
+    # calibrate -> trial -> policy before the first step (and again on
+    # the re-tune cadence), each bucket's collective from the plan;
+    # ``compressor`` is the fallback for buckets not planned yet
+    autotune: bool = False
+    # candidate registry names; sparse ones are crossed with
+    # ``autotune_densities``, "dense" is the single density-1.0 point
+    autotune_candidates: Tuple[str, ...] = ("dense", "oktopk")
+    # density grid of the sparse candidates; () = just ``density``
+    autotune_densities: Tuple[float, ...] = ()
+    # timed steps per candidate per bucket in the trial phase
+    autotune_trial_steps: int = 3
+    # steps between re-tunes; 0 = tune once before the first step
+    autotune_retune_every: int = 0
+    # a challenger must beat the incumbent's fresh measurement by this
+    # fraction to flip a bucket's plan (a flip re-plans the step)
+    autotune_hysteresis: float = 0.15
+    # trial only the top-N candidates by cost-model prior (0 = all)
+    autotune_max_trials: int = 0
+    # the decision journal's path; None keeps it in memory
+    autotune_journal: Optional[str] = None
+
     # ---- the numeric-health guard and its escalation (resilience/) ----
     # the step's anomaly guard: nonfinite local gradients or
     # nonfinite/absurd reduced values trip a psum-agreed skip that rolls
@@ -229,8 +251,10 @@ class TrainConfig:
     resilience_check_every: int = 1
     # the health journal's path; None keeps it in memory
     resilience_journal: Optional[str] = None
-    # the fault -> autotune feedback loop (ROADMAP item 17c: the Trainer
-    # refuses it until the autotuner is ported)
+    # the fault -> autotune feedback loop (resilience/feedback.py; needs
+    # obs): a sustained stream of regression/guard_trip events (and, with
+    # obs_quality, breached quality rollups) within the window forces a
+    # re-calibrate and re-tune
     resilience_feedback: bool = False
     resilience_feedback_window: int = 32
     resilience_feedback_signals: int = 3

@@ -1,9 +1,7 @@
 """Fault injection, the in-step anomaly guard, and supervised
 dense-fallback.
 
-Counterpart of ``oktopk_tpu/resilience/__init__.py``, less
-``AutotuneFeedback`` (``feedback.py`` waits for the autotuner, ROADMAP
-item 17c). Ok-Topk's error-feedback residuals make sparse training
+Counterpart of ``oktopk_tpu/resilience/__init__.py``. Ok-Topk's error-feedback residuals make sparse training
 *stateful*: one NaN/Inf gradient or corrupted wire payload poisons every
 later step through the residual, and the reference only *warns* on NaN
 gradient sparsity (VGG/dl_trainer.py:608-609). The layers:
@@ -21,7 +19,10 @@ gradient sparsity (VGG/dl_trainer.py:608-609). The layers:
 4. ``journal``    — the JSONL health log;
 5. ``density``    — :class:`DensityBackoff`, the guard-aware density
    controller;
-6. ``drills``     — the chaos-drill catalog behind
+6. ``feedback``   — :class:`AutotuneFeedback`, the fault→autotune loop:
+   a sustained stream of regressions or guard trips forces a
+   re-calibrate and re-tune;
+7. ``drills``     — the chaos-drill catalog behind
    ``scripts/port_chaos_drill.py`` (imported on its own: it builds
    Trainers).
 """
@@ -35,6 +36,9 @@ from oktopk_tpu_torch.resilience.faults import (  # noqa: F401
     latency_ms,
     make_wire_hook,
     with_latency,
+)
+from oktopk_tpu_torch.resilience.feedback import (  # noqa: F401
+    AutotuneFeedback,
 )
 from oktopk_tpu_torch.resilience.guard import (  # noqa: F401
     GuardConfig,

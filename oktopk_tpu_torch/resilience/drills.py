@@ -15,8 +15,11 @@ The catalog (``DRILLS``) names the same four drills as JAX's, and
   to ``remesh`` and training resumes on the shrunk comm without a
   requeue (chain: ``fault_seen(chip_loss)`` → ``remesh`` → first
   post-resize ``step``);
-- ``latency_retune``  — needs the autotuner and its feedback loop
-  (ROADMAP item 17c): it raises ``NotImplementedError``;
+- ``latency_retune``  — a sustained latency fault degrades step time;
+  the feedback policy forces a re-calibrate + re-tune and the plan
+  flips to the algorithm that tolerates the degraded fabric (chain:
+  ``regression``... → ``retune`` → ``calibration`` →
+  ``autotune_decision``), through the autotuner's fake-timing seam;
 - ``density_backoff`` — repeated guard-pressure steps back the
   effective density off hysteretically, then a clean streak re-advances
   it; the same fault without the guard diverges (the contrast case);
@@ -30,7 +33,8 @@ The catalog (``DRILLS``) names the same four drills as JAX's, and
 The drills build their Trainers on ``device`` (CUDA unless the caller
 asks for the CPU), with the model ``DEFAULT_DNN`` and JAX's drill
 settings: warmup off, every recompute cadence 1, the journal and the
-guard on.
+guard on (``latency_retune``: the autotuner and its feedback loop on,
+the guard off, as JAX's).
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from oktopk_tpu_torch.resilience.faults import FaultPlan, FaultSpec
+from oktopk_tpu_torch.resilience.faults import (FaultPlan, FaultSpec,
+                                               latency_ms)
 
 DEFAULT_DNN = "mnistnet"
 
@@ -234,13 +239,114 @@ def drill_chip_loss(workers: int = 8, steps_before: int = 3,
 
 # ---- drill: sustained latency → forced re-tune --------------------------
 
-def drill_latency_retune(*args, **kwargs) -> DrillReport:
-    """A sustained latency fault forcing an autotune re-calibrate and
-    re-tune: it needs the autotuner and its feedback loop, which are not
-    ported yet (ROADMAP.md item 17c)."""
-    raise NotImplementedError(
-        "the latency_retune drill needs the autotuner and its feedback "
-        "loop, which are not ported yet (ROADMAP.md item 17c)")
+def drill_latency_retune(workers: int = 8, fault_step: int = 4,
+                         fault_duration: int = 6,
+                         fault_latency_ms: float = 40.0,
+                         num_steps: int = 14, per_worker_bs: int = 2,
+                         device=None) -> DrillReport:
+    """A sustained latency fault inflates the sparse path's step time;
+    the regression stream must trip the feedback policy, which forces a
+    re-calibrate + re-tune, and the plan must flip to the algorithm that
+    tolerates the degraded fabric (dense: one exchange round instead of
+    the sparse path's several). Step time recovers once the fault
+    clears."""
+    from oktopk_tpu_torch.obs.events import validate_journal
+    from oktopk_tpu_torch.obs.regress import RegressionDetector
+
+    P = int(workers)
+    plan = FaultPlan((FaultSpec("latency", step=fault_step,
+                                duration=fault_duration,
+                                latency_ms=fault_latency_ms),))
+    tr = _drill_trainer(
+        P, device, resilience=False, autotune=True,
+        autotune_candidates=("dense", "oktopk"),
+        resilience_feedback=True, resilience_feedback_window=16,
+        resilience_feedback_signals=3,
+        resilience_feedback_cooldown=100)
+    baseline_ms = 10.0
+    tolerance = 1.5
+    tr.regress = RegressionDetector(baseline_ms=baseline_ms,
+                                    tolerance=tolerance, warmup_windows=0,
+                                    bus=tr.bus, key="drill_step_ms")
+
+    # deterministic fabric model through the trial seam: the multi-round
+    # sparse exchange pays the injected latency several times per step,
+    # dense pays it once — so the degraded-fabric optimum flips
+    base = {"dense": 8.0, "oktopk": 5.0}
+    cur = {"step": 0}
+
+    def fake(algo: str, n: int, density: float) -> float:
+        mult = 1.0 if algo == "dense" else 3.0
+        return base.get(algo, 6.0) + mult * latency_ms(plan, cur["step"])
+
+    tr.autotune(step=0, fake_ms=fake)
+    checks: List[Tuple[str, bool, str]] = []
+    initial_algo = tr._plans[0].algo if tr._plans else "?"
+    _check(checks, "initial_plan_sparse", initial_algo == "oktopk",
+           f"initial plan: {initial_algo}")
+    retune_at = None
+    ms_trace: List[float] = []
+    batches = _batches(DEFAULT_DNN, P * per_worker_bs)
+    for step in range(1, num_steps + 1):
+        cur["step"] = step
+        m = tr.train_step(next(batches))
+        # simulated wall clock: the current plan's algorithm on the
+        # currently degraded fabric (same model the trial seam uses)
+        algo = tr._plans[0].algo if tr._plans else "oktopk"
+        mult = 1.0 if algo == "dense" else 3.0
+        ms = base.get(algo, 6.0) + mult * latency_ms(plan, step)
+        ms_trace.append(ms)
+        tr.bus.emit("step", step=step, loss=float(m["loss"]), dt_ms=ms)
+        tr.regress.observe(step, ms)
+        if tr.check_feedback(step) is not None and retune_at is None:
+            retune_at = step
+
+    journal = list(tr.run_journal.entries)
+    idx_reg = _event_indices(journal, "regression")
+    idx_retune = _event_indices(journal, "retune")
+    idx_cal = _event_indices(journal, "calibration")
+    idx_dec = _event_indices(journal, "autotune_decision")
+    _check(checks, "regressions_seen", len(idx_reg) >= 3,
+           f"{len(idx_reg)} regression events")
+    _check(checks, "retune_fired",
+           tr.retune_events == 1 and len(idx_retune) == 1
+           and retune_at is not None,
+           f"retune_events={tr.retune_events} at step {retune_at}")
+    if idx_retune:
+        e = journal[idx_retune[0]]
+        _check(checks, "retune_evidence",
+               e["trigger"] in ("regression", "guard_trip")
+               and len(e.get("signals", [])) >= 3
+               and idx_reg and idx_reg[0] < idx_retune[0],
+               f"retune event: {e}")
+        recal = [i for i in idx_cal if i > idx_retune[0]]
+        redec = [i for i, j in ((i, journal[i]) for i in idx_dec)
+                 if i > idx_retune[0]
+                 and j.get("chosen", {}).get("algo") == "dense"]
+        _check(checks, "chain_retune_calibration_decision",
+               bool(recal) and bool(redec) and recal[0] < redec[0],
+               f"retune@{idx_retune[0]} cal@{recal[:1]} dense-dec@{redec[:1]}")
+    else:
+        _check(checks, "retune_evidence", False, "no retune event")
+        _check(checks, "chain_retune_calibration_decision", False,
+               "no retune event")
+    final_algo = tr._plans[0].algo if tr._plans else "?"
+    _check(checks, "plan_flipped_dense", final_algo == "dense",
+           f"final plan: {final_algo}")
+    _check(checks, "step_time_recovered",
+           ms_trace[-1] <= tolerance * baseline_ms,
+           f"final step {ms_trace[-1]:.1f} ms vs "
+           f"threshold {tolerance * baseline_ms:.1f} ms")
+    problems = validate_journal(journal)
+    _check(checks, "journal_valid", not problems, "; ".join(problems[:3]))
+    # the port's own: the step follows the plan it re-planned to
+    _check(checks, "step_follows_plan",
+           tr.grad_step.names == [p.algo for p in tr._plans],
+           f"step {tr.grad_step.names}")
+    return DrillReport("latency_retune", checks, journal,
+                       notes={"ms_trace": ms_trace,
+                              "retune_at": retune_at,
+                              "plan": f"{initial_algo}->{final_algo}"})
 
 
 # ---- drill: guard pressure → density backoff ----------------------------

@@ -15,12 +15,15 @@ checkpoint and preemption flags of :148-169 (``--ckpt-dir``,
 the resilience flags of :63-105 (``--resilience``,
 ``--resilience-strikes``, ``--resilience-abs-limit``,
 ``--resilience-journal``, ``--resilience-density-backoff`` and its
-five knobs; ``--resilience-feedback*`` parse, and the Trainer refuses
-``--resilience-feedback``: the loop needs the autotuner, ROADMAP item
-17c), plus
-``--num-workers``, ``--device`` and ``--backend``. ``--dataset`` is
-``cifar10``, ``mnist`` or ``imagenet`` for the image models, ``an4``
-(``lstman4``, ``lstman4_tiny``) or ``ptb`` (``lstm``, ``lstm_tiny``).
+five knobs, ``--resilience-feedback`` and its three knobs: the fault ->
+autotune loop, which needs ``--obs``), the autotuner's of :51-62
+(``--autotune``, ``--autotune-candidates``, ``--autotune-trial-steps``,
+``--autotune-retune-every``, ``--autotune-journal``; rank 0 alone writes
+the decision journal, every rank runs the same trials and takes the
+same plan), plus ``--num-workers``, ``--device`` and ``--backend``.
+``--dataset`` is ``cifar10``, ``mnist`` or ``imagenet`` for the image
+models, ``an4`` (``lstman4``, ``lstman4_tiny``) or ``ptb`` (``lstm``,
+``lstm_tiny``).
 The batches come from ``data.make_dataset`` and the files under
 ``--data-dir`` (default ``$OKTOPK_DATA_DIR``, else ``./data``): the
 CIFAR-10 pickle batches, the MNIST idx files, the ImageNet HDF5 file or
@@ -44,6 +47,12 @@ the dropout key chain start again from ``--seed``, as in the JAX
 package, H20). ``--handle-preemption`` stops between steps on SIGINT,
 SIGTERM, SIGUSR2 or SIGUSR1, parks the state (``train/preemption.py``),
 and exits with code 3; a later run with the flag resumes from it.
+With ``OKTOPK_PROFILING_GRAD=1`` (``settings.PROFILING_GRAD``) each
+chunk ends with a dump of the gradient stream's state, as the JAX
+command line's (:332-345): ``<logdir>/<slug>/grad_dumps/iter_<step>.npz``
+with ``residual`` [P, n], ``local_threshold`` and ``global_threshold``
+[P] (every rank's rows gathered to rank 0, which writes it; over several
+buckets the residual in the flat layout and the thresholds [P, buckets]).
 
 One process holds its P workers stacked on its device
 (``--num-workers``, default 1). A multi-process launch (``torchrun``,
@@ -91,6 +100,9 @@ Examples:
     python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
         --num-workers 4 --max-iters 100 --resilience \\
         --resilience-density-backoff --ckpt-dir ckpts --ckpt-every 50
+    python -m oktopk_tpu_torch.train.main_trainer --dnn vgg16 \\
+        --num-workers 4 --num-buckets 2 --max-iters 20 --autotune \\
+        --autotune-candidates dense,oktopk --obs --resilience-feedback
 """
 
 from __future__ import annotations
@@ -140,7 +152,21 @@ def parse_args(argv=None):
                    choices=["bfloat16", "float32"])
     p.add_argument("--num-buckets", type=int, default=1)
     p.add_argument("--compressor", default="oktopk",
-                   choices=list_algorithms())
+                   choices=list_algorithms(),
+                   help="every bucket's collective; with --autotune the "
+                        "fallback of buckets not planned yet")
+    p.add_argument("--autotune", action="store_true",
+                   help="pick each bucket's collective and density at run "
+                        "time (autotune/: calibrated cost-model prior -> "
+                        "timed trial posterior, with hysteresis)")
+    p.add_argument("--autotune-candidates", default="dense,oktopk",
+                   help="comma-separated registry names to trial")
+    p.add_argument("--autotune-trial-steps", type=int, default=3,
+                   help="timed steps per candidate per bucket")
+    p.add_argument("--autotune-retune-every", type=int, default=0,
+                   help="steps between re-tunes (0 = tune once)")
+    p.add_argument("--autotune-journal", default=None,
+                   help="JSONL decision-journal path (rank 0 writes it)")
     p.add_argument("--density", type=float, default=0.02)
     p.add_argument("--sigma-scale", type=float, default=2.5,
                    help="the reference's sigma scale (no collective reads "
@@ -213,11 +239,17 @@ def parse_args(argv=None):
     p.add_argument("--resilience-journal", default=None,
                    help="JSONL health-journal path (rank 0 writes it)")
     p.add_argument("--resilience-feedback", action="store_true",
-                   help="the fault->autotune feedback loop (not ported: "
-                        "the Trainer refuses it, ROADMAP item 17c)")
-    p.add_argument("--resilience-feedback-window", type=int, default=32)
-    p.add_argument("--resilience-feedback-signals", type=int, default=3)
-    p.add_argument("--resilience-feedback-cooldown", type=int, default=64)
+                   help="fault->autotune feedback: a sustained stream of "
+                        "regression/guard_trip events forces an autotune "
+                        "re-calibrate + re-tune against the degraded "
+                        "fabric (resilience/feedback.py; needs --obs)")
+    p.add_argument("--resilience-feedback-window", type=int, default=32,
+                   help="steps a feedback signal stays live in the vote")
+    p.add_argument("--resilience-feedback-signals", type=int, default=3,
+                   help="signals within the window needed to force a "
+                        "re-tune")
+    p.add_argument("--resilience-feedback-cooldown", type=int, default=64,
+                   help="steps between forced re-tunes")
     p.add_argument("--resilience-density-backoff", action="store_true",
                    help="guard-aware density backoff: repeated "
                         "near-abs-limit/guard-skip steps back the "
@@ -262,6 +294,12 @@ def configs(args, workers: int):
         density=args.density, seed=args.seed, num_workers=workers,
         grad_clip=args.grad_clip, num_buckets=args.num_buckets,
         compute_dtype=args.compute_dtype, sigma_scale=args.sigma_scale,
+        autotune=args.autotune,
+        autotune_candidates=tuple(
+            s for s in args.autotune_candidates.split(",") if s),
+        autotune_trial_steps=args.autotune_trial_steps,
+        autotune_retune_every=args.autotune_retune_every,
+        autotune_journal=args.autotune_journal,
         obs=args.obs, obs_regress_key=args.obs_regress_key,
         obs_quality=args.obs_quality,
         obs_quality_every=args.obs_quality_every,
@@ -295,6 +333,7 @@ def build_trainer(args, config_overrides=None, algo_overrides=None,
     True without the files). With ``--obs`` rank 0's journal is
     ``--obs-journal``, else ``<logdir>/<slug>/run_journal.jsonl``; the
     health journal (``--resilience-journal``) is rank 0's alone too.
+    So is the decision journal (``--autotune-journal``).
     ``config_overrides`` / ``algo_overrides`` replace fields of the
     ``TrainConfig`` / ``OkTopkConfig`` the flags give (a drill's
     cadences), and ``fault_plan`` goes to the Trainer."""
@@ -318,7 +357,8 @@ def build_trainer(args, config_overrides=None, algo_overrides=None,
             args.obs_journal or os.path.join(run_dir(args, cfg),
                                              "run_journal.jsonl")))
     if not penv.is_coordinator:
-        cfg = dataclasses.replace(cfg, resilience_journal=None)
+        cfg = dataclasses.replace(cfg, resilience_journal=None,
+                                  autotune_journal=None)
     trainer = Trainer(cfg, algo_cfg=algo_cfg, device=dev, comm=comm,
                       fault_plan=fault_plan)
     global_bs = args.batch_size * workers * args.nsteps_update
@@ -434,7 +474,45 @@ def save_and_register(trainer, args, step: int, rank0: bool,
     return path
 
 
+def dump_grad_stream(trainer, rundir: str, step: int, rank0: bool):
+    """The JAX command line's ``PROFILING_GRAD`` snapshot (:332-345):
+    the gradient stream's residual (the untransmitted gradient mass) and
+    thresholds, every worker's rows, to
+    ``<rundir>/grad_dumps/iter_<step>.npz`` in its layout (``residual``
+    [P, n], ``local_threshold`` and ``global_threshold`` [P], float32;
+    over several buckets the residual in the flat layout, the thresholds
+    [P, buckets]). Every rank calls it (the rows are gathered to rank 0,
+    a collective); rank 0 writes and returns the path, the others None."""
+    import numpy as np
+    import torch
+    from oktopk_tpu_torch.convert import _rows
+
+    gs = trainer.grad_step
+    flat_order = sorted(range(len(gs.states)), key=lambda b: gs.ranges[b][0])
+    residual = torch.cat([gs.states[b].residual for b in flat_order], 1)
+    lt = torch.stack([s.local_threshold for s in gs.states], 1)
+    gt = torch.stack([s.global_threshold for s in gs.states], 1)
+    nb = lt.shape[1]
+    packed = _rows(trainer, torch.cat([residual, lt, gt], 1), gather=True)
+    if not rank0:
+        return None
+    host = packed.cpu().numpy()
+    n = residual.shape[1]
+    fields = {"residual": host[:, :n], "local_threshold": host[:, n:n + nb],
+              "global_threshold": host[:, n + nb:]}
+    if nb == 1:
+        for k in ("local_threshold", "global_threshold"):
+            fields[k] = fields[k][:, 0]
+    dump_dir = os.path.join(rundir, "grad_dumps")
+    os.makedirs(dump_dir, exist_ok=True)
+    path = os.path.join(dump_dir, f"iter_{step}.npz")
+    np.savez_compressed(path, **{k: np.ascontiguousarray(v)
+                                 for k, v in fields.items()})
+    return path
+
+
 def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
+    from oktopk_tpu_torch import settings
     from oktopk_tpu_torch.train import preemption
     from oktopk_tpu_torch.train.durable import AsyncCheckpointer
     from oktopk_tpu_torch.utils.profiling import (MetricWriter, PhaseTimers,
@@ -482,6 +560,8 @@ def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
             done = trainer.last_step
             if done == start:       # stopped before the chunk's first step
                 break
+            if settings.PROFILING_GRAD:
+                dump_grad_stream(trainer, rundir, done, rank0)
             mem = device_memory_stats(trainer.device)
             logger.info("epoch done @ iter %d: loss %.4f vol/step %.0f "
                         "hbm %.0fMiB", done, m["loss"], m["comm_volume"],

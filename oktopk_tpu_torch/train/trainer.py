@@ -8,10 +8,9 @@ Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``nsteps_update``, ``grad_clip``, momentum correction and
 ``profile_norm``, the workload dispatch of :44-53, :98-107, :558-624
 for the CNN zoo, BERT pretraining, the PTB LSTM and DeepSpeech on AN4,
-the run journal with its quality taps, and the resilience surface,
-below). Not ported yet (ROADMAP.md): the autotuner and its feedback loop
-(``cfg.resilience_feedback`` raises, item 17c), step anatomy and anomaly
-tracing.
+the run journal with its quality taps, the resilience surface and the
+autotuner with its fault feedback loop, each below). Not ported yet
+(ROADMAP.md item 17d): step anatomy and anomaly tracing.
 
 With ``cfg.obs`` the Trainer runs the JAX Trainer's run journal
 (:121-170, less the anomaly tracer): an ``EventBus`` and a
@@ -132,6 +131,28 @@ and health kept); a restore goes through ``train/durable.py``'s
 (``resize_workers``). Checkpoints carry the health counters
 (``convert.py``) and the supervisor's state (``supervisor_extra``,
 ``restore_supervisor``).
+
+With ``cfg.autotune`` the Trainer runs the JAX Trainer's autotuner
+(:337-427): ``maybe_autotune`` before each step tunes on first use and
+on ``cfg.autotune_retune_every``; ``autotune`` runs calibrate -> trial ->
+policy over the buckets (``autotune/``: the comm's ``pmean`` probes, the
+candidates' collectives timed on the device, or the ``fake_ms`` seam)
+and re-plans the step only when ``Autotuner.plans_changed`` says so.
+``_replan`` resolves in JAX's ``_build_step`` order (:242-283): the
+plan's per-bucket algorithm and density, then the density backoff's
+scale, then the supervisor's dense fallbacks; the step keeps every state
+across a re-plan. With ``cfg.resilience_feedback`` (and a bus) an
+``AutotuneFeedback`` votes on the bus's ``regression`` and
+``guard_trip`` events (and breached ``quality_rollup``s under
+``cfg.obs_quality``); ``check_feedback``, after the quality flush, fires
+``force_retune``: a ``retune`` event, the tuner dropped, a fresh
+calibration and plan. Across processes every rank runs the probes and
+trials in the same order and decides on medians agreed over the ranks
+(``autotune/calibrate.py``), and the feedback vote is agreed by one
+small psum, so a regression seen on one rank re-tunes every rank.
+
+``profile_norm`` defaults to ``settings.PROFILING_NORM``
+(``OKTOPK_PROFILING_NORM``), as the JAX Trainer's (:64-66).
 """
 
 from __future__ import annotations
@@ -164,8 +185,9 @@ from oktopk_tpu_torch.obs.rollup import RollupEngine
 from oktopk_tpu_torch.ops import prng
 from oktopk_tpu_torch.optim import SGD, BertAdam
 from oktopk_tpu_torch.optim.distributed import SparseGradStep, flat_size
-from oktopk_tpu_torch.resilience import (DensityBackoff, GuardConfig,
-                                         HealthJournal, Supervisor)
+from oktopk_tpu_torch.resilience import (AutotuneFeedback, DensityBackoff,
+                                         GuardConfig, HealthJournal,
+                                         Supervisor)
 from oktopk_tpu_torch.resilience.faults import dead_workers
 from oktopk_tpu_torch.resilience.supervisor import plan_with_fallbacks
 from oktopk_tpu_torch.train import losses
@@ -232,7 +254,11 @@ class Trainer:
                  algo_cfg: Optional[OkTopkConfig] = None, device=None,
                  warmup: bool = True,
                  model_kwargs: Optional[Dict[str, Any]] = None,
-                 profile_norm: bool = False, comm=None, fault_plan=None):
+                 profile_norm: Optional[bool] = None, comm=None,
+                 fault_plan=None):
+        from oktopk_tpu_torch import settings
+        if profile_norm is None:
+            profile_norm = settings.PROFILING_NORM
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -323,10 +349,6 @@ class Trainer:
                     tolerance=cfg.obs_regress_tolerance,
                     phase_limits=cfg.obs_phase_limits)
         # ---- the numeric-health guard and supervisor (resilience/) ----
-        if cfg.resilience_feedback:
-            raise NotImplementedError(
-                "resilience_feedback needs the autotuner, which is not "
-                "ported yet (ROADMAP.md item 17c)")
         self._fault_plan = fault_plan
         self._guard = None
         self.supervisor = None
@@ -345,6 +367,19 @@ class Trainer:
                 for f in fault_plan.faults:
                     self.supervisor.journal.fault_seen(
                         f.step, f"planned:{f.kind}", buckets=[f.bucket])
+        # ---- the closed-loop policies (resilience/feedback.py, density.py)
+        self.feedback = None
+        if cfg.resilience_feedback and self.bus is not None:
+            kinds = ("regression", "guard_trip")
+            if self._quality_cfg is not None:
+                # breached quality rollups vote alongside guard trips and
+                # step-time regressions
+                kinds = kinds + ("quality_rollup",)
+            self.feedback = AutotuneFeedback(
+                self.bus, window_steps=cfg.resilience_feedback_window,
+                min_signals=cfg.resilience_feedback_signals,
+                cooldown_steps=cfg.resilience_feedback_cooldown,
+                kinds=kinds)
         self.density_backoff = None
         if cfg.resilience and cfg.resilience_density_backoff:
             self.density_backoff = DensityBackoff(
@@ -355,6 +390,10 @@ class Trainer:
                 max_level=cfg.resilience_backoff_max_level,
                 clean_streak=cfg.resilience_clean_streak)
         self._density_scale = 1.0  # the density backoff's multiplier
+        self.retune_events = 0     # forced re-calibrations executed
+        self._fake_ms = None       # the remembered trial-timing injector
+        self.autotuner = None      # built on first use by autotune()
+        self._plans = None         # per-bucket BucketPlan list, or None
         self._warmup, self._mc, self._profile_norm = warmup, mc, profile_norm
         self.grad_step = self._new_grad_step()
         self.flat = torch.empty((W, n), dtype=torch.float32,
@@ -387,14 +426,18 @@ class Trainer:
         return self.supervisor.forced_dense if self.supervisor else ()
 
     def _replan(self) -> None:
-        """The JAX Trainer's ``_build_step`` (:235-282) as a re-plan of
-        the step: the density backoff's scale on the schedule (capacity
-        sizing pinned to ``cfg.density``) or on the per-bucket
-        densities, and the supervisor's dense fallbacks, at density 1.0.
+        """The JAX Trainer's ``_build_step`` (:242-283) as a re-plan of
+        the step, in its order: the autotune plan's per-bucket algorithm
+        and density; then the density backoff's scale on the schedule
+        (capacity sizing pinned to ``cfg.density``) or on the per-bucket
+        densities; then the supervisor's dense fallbacks, at density 1.0.
         The step keeps every state."""
         nb = max(1, self.cfg.num_buckets)
         compressor = self.cfg.compressor
         densities = None
+        if self._plans:
+            compressor = [p.algo for p in self._plans]
+            densities = [p.density for p in self._plans]
         acfg = self.algo_cfg
         if self._density_scale < 1.0:
             if acfg.density_schedule:
@@ -402,10 +445,13 @@ class Trainer:
                     (s, d * self._density_scale)
                     for s, d in acfg.density_schedule))
             else:
-                densities = [self.cfg.density * self._density_scale] * nb
+                densities = [d * self._density_scale for d in
+                             (densities if densities is not None
+                              else [self.cfg.density] * nb)]
         if self._forced_dense:
-            compressor = plan_with_fallbacks([compressor] * nb,
-                                             self._forced_dense)
+            names = (list(compressor) if not isinstance(compressor, str)
+                     else [compressor] * nb)
+            compressor = plan_with_fallbacks(names, self._forced_dense)
             if densities is not None:
                 densities = [1.0 if b in self._forced_dense else d
                              for b, d in enumerate(densities)]
@@ -627,6 +673,9 @@ class Trainer:
                 break
             step = start_step + i + 1
             self.last_step = step
+            # plan (or re-plan) the per-bucket collectives before the
+            # step runs; a no-change verdict leaves the step as it is
+            self.maybe_autotune(step)
             if trace is not None:
                 trace.on_step(step)
             if timers is not None:
@@ -647,6 +696,10 @@ class Trainer:
                     and step % self._quality_cfg.every == 0):
                 # the rings are drained on their own cadence only
                 self._flush_quality(step)
+            if self.feedback is not None:
+                # the fault -> autotune feedback: a passing window vote
+                # forces a re-calibrate and re-tune
+                self.check_feedback(step)
             if metric_writer is not None or self.bus is not None:
                 pending.append((step, metrics))
             if "grad_nonfinite" in metrics:
@@ -688,8 +741,9 @@ class Trainer:
 
     def _bucket_plan(self):
         """Per-bucket (algo name, density) for the reports (the JAX
-        Trainer's, :757, less the autotune plans), read off the step as
-        ``_replan`` left it; a dense fallback reports density 1.0."""
+        Trainer's, :757), read off the step as ``_replan`` left it (the
+        autotune plans, the backoff's scale, the fallbacks); a dense
+        fallback reports density 1.0."""
         gs = self.grad_step
         densities = [1.0 if b in self._forced_dense else c.density
                      for b, c in enumerate(gs.cfgs)]
@@ -766,6 +820,122 @@ class Trainer:
                 nm, cfg_b, wb / max(1, steps_done), bucket=b,
                 step=self.last_step, steps=steps_done)
             self.bus.emit("volume_report", **rep)
+
+    # ---- autotuning ---------------------------------------------------
+
+    def _make_autotuner(self, fake_ms=None):
+        """The JAX Trainer's (:337-360): candidates from
+        ``cfg.autotune_candidates`` crossed with ``cfg.autotune_densities``
+        (or ``cfg.density``), a ``TrialRunner`` over the comm on the
+        Trainer's device, the buckets' sizes (``bucket_sizes`` over
+        ``bucket_partition``, JAX's) and a decision journal on the bus."""
+        from oktopk_tpu_torch.autotune import (Autotuner, AutotunePolicy,
+                                               DecisionJournal, TrialRunner)
+        from oktopk_tpu_torch.autotune.policy import make_candidates
+        from oktopk_tpu_torch.optim.distributed import (bucket_partition,
+                                                        bucket_sizes)
+
+        cfg = self.cfg
+        densities = tuple(cfg.autotune_densities) or (cfg.density,)
+        policy = AutotunePolicy(
+            candidates=make_candidates(cfg.autotune_candidates, densities),
+            hysteresis=cfg.autotune_hysteresis,
+            retune_every=cfg.autotune_retune_every,
+            max_trials=cfg.autotune_max_trials)
+        runner = TrialRunner(
+            comm=self.comm, trial_steps=cfg.autotune_trial_steps,
+            seed=cfg.seed, base_cfg=self.algo_cfg, fake_ms=fake_ms,
+            device=self.device)
+        sizes = bucket_sizes(self.params, bucket_partition(
+            self.params, cfg.num_buckets))
+        return Autotuner(
+            sizes, cfg.num_workers, policy, runner,
+            journal=DecisionJournal(cfg.autotune_journal, bus=self.bus))
+
+    def autotune(self, step: int = 0, fake_ms=None):
+        """Run (or re-run) the calibrate -> trial -> policy pass and adopt
+        the per-bucket plan (the JAX Trainer's, :362-385). The step is
+        re-planned only when the plan changed: the policy's hysteresis
+        keeps borderline buckets from re-planning every re-tune. Returns
+        the plan list.
+
+        ``fake_ms(algo, n, density) -> ms`` injects synthetic trial
+        timings (``autotune/trial.py``); it is remembered, so a forced
+        re-tune or an elastic resize keeps measuring through the same
+        seam."""
+        from oktopk_tpu_torch.autotune import Autotuner
+
+        if fake_ms is not None:
+            self._fake_ms = fake_ms
+        if self.autotuner is None:
+            self.autotuner = self._make_autotuner(fake_ms=self._fake_ms)
+        old = self._plans
+        self._plans = self.autotuner.tune(step=step, comm=self.comm)
+        if Autotuner.plans_changed(self._plans, old):
+            self._replan()
+        return self._plans
+
+    def maybe_autotune(self, step: int) -> None:
+        """Tune on first use and on the configured re-tune cadence."""
+        if not self.cfg.autotune:
+            return
+        if self.autotuner is None or self.autotuner.should_retune(step):
+            self.autotune(step=step)
+
+    def force_retune(self, step: int, trigger: str = "manual",
+                     signals=()):
+        """Drop the autotuner and re-tune from scratch (the JAX
+        Trainer's, :394-413): the fault -> autotune feedback path. A
+        fresh tuner has no fabric coefficients, so the next ``tune()``
+        re-calibrates against the current (possibly degraded) fabric
+        before re-deciding; the journal carries the chain ``retune``
+        (with the evidence steps) -> ``calibration`` ->
+        ``autotune_decision``. Returns the new plan (None with autotune
+        off: the retune is still journalled)."""
+        self.retune_events += 1
+        if self.bus is not None:
+            self.bus.emit("retune", step=int(step), trigger=str(trigger),
+                          signals=[int(s) for s in signals],
+                          cleared="autotuner")
+        self.autotuner = None
+        if self.cfg.autotune:
+            return self.autotune(step=step)
+        return None
+
+    def check_feedback(self, step: int):
+        """Poll the feedback policy and run the forced re-calibrate and
+        re-tune when its window vote passes (the JAX Trainer's,
+        :415-427). Returns the trigger descriptor, or None. Across
+        processes the vote is agreed (``_agree_trigger``), so every rank
+        re-tunes, with the same descriptor, when any rank's vote passes."""
+        if self.feedback is None:
+            return None
+        trig = self.feedback.should_retune(step)
+        if self.distributed:
+            trig = self._agree_trigger(step, trig)
+        if trig is not None:
+            self.force_retune(step, trigger=trig["trigger"],
+                              signals=trig["signals"])
+        return trig
+
+    def _agree_trigger(self, step: int, trig):
+        """The feedback vote across processes: one psum of a [P] one-hot
+        row says which ranks fired; when any did, the lowest one's
+        descriptor goes to every rank (a broadcast), and a rank that did
+        not fire takes the firing's bookkeeping
+        (``AutotuneFeedback.note_peer_fire``), so every rank's window and
+        cooldown stay in step."""
+        fired = torch.zeros((1, self.comm.size), dtype=torch.int32,
+                            device=self.device)
+        if trig is not None:
+            fired[0, self.comm.first_worker] = 1
+        ranks = torch.nonzero(self.comm.psum(fired)[0]).flatten().tolist()
+        if not ranks:
+            return None
+        agreed = self.comm.broadcast_object(trig, src=ranks[0])
+        if trig is None:
+            self.feedback.note_peer_fire(step)
+        return agreed
 
     # ---- resilience supervision ---------------------------------------
 
@@ -885,8 +1055,10 @@ class Trainer:
         optimizer state (the JAX Trainer's, :801-870). Carried: the
         parameters, the BatchNorm statistics, the optimizer state, the
         health clock and the supervisor; re-initialised: the sparse
-        states, the local momenta and the quality rings (per-worker
-        state of the old topology). Journalled as a ``remesh`` event
+        states, the local momenta, the autotuner (its trials timed the
+        old topology: dropped, so it re-tunes on the next cadence, while
+        the plan is kept and the new step follows it) and the quality
+        rings. Journalled as a ``remesh`` event
         naming both lists. Stacked comms only: JAX's remesh is its
         single controller's, and a dead process cannot be dropped from a
         live ``ProcessGroupComm``."""
@@ -906,7 +1078,9 @@ class Trainer:
         self.flat = torch.empty((P, self.algo_cfg.n), dtype=torch.float32,
                                 device=self.device)
         carried = ["params", "model_state", "opt_state"]
-        reinit = ["sparse_state", "local_momentum"]
+        reinit = ["sparse_state", "local_momentum", "autotuner"]
+        # the trials timed the old topology: drop the tuner, keep the plan
+        self.autotuner = None
         if self._quality_cfg is not None:
             # fresh rings: the drained-cursor bookkeeping restarts too
             self._q_cursors = {}

@@ -9,14 +9,13 @@ Usage:
 The PyTorch port's counterpart of ``scripts/chaos_drill.py``, with its
 flags and ``--device`` (the port's entry points run on ``cuda`` unless
 given ``cpu``). Each drill scripts one incident (chip loss, guard
-pressure, a corrupt checkpoint) end to end through the port's Trainer —
+pressure, a corrupt checkpoint, a degraded fabric that forces an
+autotune re-tune) end to end through the port's Trainer —
 real steps, real collectives over a ``StackedComm``, a deterministic
 ``FaultPlan`` — and checks both the recovery and the journalled
 timeline. The catalog is ``oktopk_tpu_torch/resilience/drills.py``, the
 code ``tests/test_torch_chaos_drills.py`` holds against the JAX
-package's drills. ``latency_retune`` needs the autotuner (ROADMAP item
-17c): ``--drill all`` lists it as not ported, ``--drill latency_retune``
-fails.
+package's drills.
 
 Exit status is 0 only when every requested drill passes every check.
 """
@@ -29,8 +28,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-NOT_PORTED = {"latency_retune": "needs the autotuner (ROADMAP item 17c)"}
 
 
 def main(argv=None) -> int:
@@ -53,12 +50,7 @@ def main(argv=None) -> int:
             print(f"{name:<18} {doc}")
         return 0
 
-    if args.drill == "all":
-        for name, why in NOT_PORTED.items():
-            print(f"drill {name}: not ported — {why}", file=sys.stderr)
-        names = sorted(n for n in DRILLS if n not in NOT_PORTED)
-    else:
-        names = [args.drill]
+    names = sorted(DRILLS) if args.drill == "all" else [args.drill]
     all_ok = True
     for name in names:
         report = run_drill(name, device=args.device)

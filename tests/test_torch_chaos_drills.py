@@ -3,17 +3,23 @@ package's.
 
 - ``DensityBackoff``: one pressure script replayed through both
   packages' controllers gives the same level changes and state;
-- the catalog names JAX's four drills; ``latency_retune`` needs the
-  autotuner and raises (ROADMAP item 17c);
+- the catalog names JAX's four drills, and ``latency_retune`` passes
+  every check on two stacked workers;
 - the drills ``chip_loss`` (8 -> 7 stacked workers), ``density_backoff``
-  (4 workers) and ``ckpt_corruption`` (8 workers), each on both
-  packages: every check of the port's report holds, and its journal is
-  JAX's drill's event for event — the same events in the same order with
-  the same steps, skips, strikes, buckets, levels, scales, worlds,
-  checkpoint names and restore depths. The values that are not decisions
-  are left out: losses and ``reduced_absmax`` (H1), file sizes, digests
-  and timings, directory names, and JAX's ``autotuner`` among the
-  re-initialised states of a remesh (the port has no autotuner).
+  (4 workers), ``ckpt_corruption`` (8 workers) and ``latency_retune`` (4
+  workers), each on both packages: every check of the port's report
+  holds, and its journal is JAX's drill's event for event — the same
+  events in the same order with the same steps, skips, strikes, buckets,
+  levels, scales, worlds, re-initialised states, checkpoint names,
+  restore depths, regressions, re-tune triggers and evidence, and the
+  autotune decisions (bucket, n, the candidates, chosen, incumbent,
+  reason, their fake-seam times). The values that are not decisions are
+  left out: losses and ``reduced_absmax`` (H1), file sizes, digests and
+  timings, directory names, and what the calibration measured (the
+  fitted alpha, beta and residual, each package's own host clock over
+  its own pmean) with the cost-model prior priced from it
+  (``predicted_ms``, which also orders the journal's candidate list: the
+  candidates are compared as a set sorted by name).
 
 Both packages' drills run on the narrow VGG of ``test_torch_vgg.py``
 (their model is the module constant ``DEFAULT_DNN``): mnistnet's oktopk
@@ -36,7 +42,8 @@ from oktopk_tpu_torch.resilience import drills
 from test_torch_dist import narrow_models
 
 DROP = {"loss", "reduced_absmax", "bytes", "digest", "duration_ms", "jax",
-        "jaxlib", "torch", "cuda", "device_kind", "platform", "world_size"}
+        "jaxlib", "torch", "cuda", "device_kind", "platform", "world_size",
+        "alpha", "beta", "residual", "predicted_ms"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,11 +124,14 @@ def test_density_backoff_validation_matches_jax(kw):
 # ---- the catalog ---------------------------------------------------------
 
 def test_catalog_names_jax_drills():
+    """The catalog is JAX's, and ``latency_retune`` runs: its plan goes
+    oktopk -> dense on two stacked workers, every check passing."""
     assert set(drills.DRILLS) == set(jdrills.DRILLS)
     with pytest.raises(KeyError):
         drills.run_drill("meteor_strike")
-    with pytest.raises(NotImplementedError, match="17c"):
-        drills.run_drill("latency_retune", device="cpu")
+    report = drills.run_drill("latency_retune", workers=2, device="cpu")
+    assert report.ok, "\n" + report.summary()
+    assert report.notes["plan"] == "oktopk->dense"
 
 
 # ---- the drills on both packages ----------------------------------------
@@ -137,15 +147,18 @@ def decisions(journal):
                 d[k] = os.path.basename(d[k])
         if "reason" in d:
             d["reason"] = d["reason"].split(":")[0]
-        if "reinitialised" in d:
-            d["reinitialised"] = [r for r in d["reinitialised"]
-                                  if r != "autotuner"]
+        if "candidates" in d:
+            d["candidates"] = sorted(
+                ({k: v for k, v in c.items() if k not in DROP}
+                 for c in d["candidates"]),
+                key=lambda c: (c["algo"], c["density"]))
         out.append(d)
     return out
 
 
 DRILL_RUNS = {"chip_loss": ("mesh8", 8), "density_backoff": ("mesh4", 4),
-              "ckpt_corruption": ("mesh8", 8)}
+              "ckpt_corruption": ("mesh8", 8),
+              "latency_retune": ("mesh4", 4)}
 
 
 @pytest.mark.chaos
@@ -166,12 +179,17 @@ def test_drill_matches_jax(name, request):
     if name == "density_backoff":
         assert report.notes["skipped"] == jreport.notes["skipped"]
         assert report.notes["guarded_param_absmax"] < 1e3
+    if name == "latency_retune":
+        assert report.notes == jreport.notes
+    if name == "chip_loss":
+        rm = [e for e in report.journal if e["event"] == "remesh"]
+        assert "autotuner" in rm[0]["reinitialised"]
 
 
 def test_port_chaos_drill_cli(capsys):
     """``scripts/port_chaos_drill.py``: ``--list`` names the catalog,
-    ``--drill chip_loss --json`` passes on the CPU, and the drill that
-    needs the autotuner fails."""
+    ``--drill chip_loss --json`` and ``--drill latency_retune --json``
+    pass on the CPU."""
     import importlib.util
     import json
 
@@ -188,5 +206,8 @@ def test_port_chaos_drill_cli(capsys):
                      "cpu"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert out["drill"] == "chip_loss" and out["ok"]
-    with pytest.raises(NotImplementedError):
-        cli.main(["--drill", "latency_retune", "--device", "cpu"])
+    assert cli.main(["--drill", "latency_retune", "--json", "--device",
+                     "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["drill"] == "latency_retune" and out["ok"]
+    assert out["notes"]["plan"] == "oktopk->dense"

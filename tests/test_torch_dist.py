@@ -38,6 +38,10 @@ module, and each test reads what its part wrote:
   chain in ``jax.random``, flax's site key and ``bernoulli``);
 - one resnet20 oktopk step (BatchNorm statistics rank 0's everywhere):
   bit-equal to the stacked Trainer on every rank;
+- the autotuner on the narrow VGG over two buckets with real probes and
+  trials: every rank fits the same coefficients and takes the same plan
+  (the medians agreed over the ranks), and a regression that rank 2
+  alone sees re-tunes every rank, with the same ``retune`` event;
 - the two-level ``hierarchical`` step as 2 pods x 2 over
   ``dist.new_group`` groups, with the ``dense``, ``oktopk`` and ``topkA``
   outers: results and every state field bit-equal on every rank to the
@@ -478,6 +482,26 @@ def test_trainer_matches_jax(dist):
                 np.testing.assert_allclose(
                     stats[mod][leaf], np.asarray(want_s[mod][leaf]),
                     rtol=1e-4, atol=1e-5)
+
+
+def test_autotune_decides_once_across_ranks(dist):
+    """Every rank's calibration, plan, vote and re-tune are rank 0's: the
+    probes' and trials' medians are agreed (their max over the ranks),
+    and rank 2's regressions fire the re-tune on every rank."""
+    results = [res["autotune"] for res in dist["ranks"]]
+    want = results[0]
+    assert want["first"][0]["source"] == "measured"
+    assert want["first"][0]["nsamples"] == 4
+    assert all(ms > 0 for _, _, ms in want["first"][1])
+    assert want["fired"] == [None, None, {"trigger": "regression",
+                                          "signals": [1, 2, 3]}]
+    assert want["retune_events"] == 1
+    assert [e["signals"] for e in want["retunes"]] == [[1, 2, 3]]
+    assert want["feedback"] == (1, 3 + 64, [])
+    assert want["names"] == [a for a, _, _ in want["after"][1]]
+    assert np.isfinite(want["loss"])
+    for r, res in enumerate(results[1:], start=1):
+        assert res == want, r
 
 
 def test_main_trainer_two_ranks(tmp_path):

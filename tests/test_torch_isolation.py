@@ -1,5 +1,6 @@
 """The port stands alone: neither ``oktopk_tpu_torch/`` (its launch
-layer, process-group comm and resilience layer included) nor
+layer, process-group comm, resilience layer, autotuner, settings and
+micro-benchmarks included) nor
 ``chip_smoke.py`` (nor the port's profiling, A/B and drill scripts,
 ``psum_ab.py``, ``bf16_card_yardstick.py`` and ``port_chaos_drill.py``
 among them, nor the worker module that the process-group tests spawn)
@@ -48,7 +49,12 @@ def _sources():
                 "utils/profiling.py", "resilience/__init__.py",
                 "resilience/faults.py", "resilience/guard.py",
                 "resilience/journal.py", "resilience/supervisor.py",
-                "resilience/density.py", "resilience/drills.py"):
+                "resilience/density.py", "resilience/drills.py",
+                "resilience/feedback.py", "autotune/__init__.py",
+                "autotune/calibrate.py", "autotune/trial.py",
+                "autotune/policy.py", "utils/cost_model.py",
+                "utils/flops.py", "settings.py", "benchmarks/__init__.py",
+                "benchmarks/collectives.py"):
         assert PKG / mod in files
     return files
 

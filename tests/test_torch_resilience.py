@@ -802,7 +802,8 @@ def test_resize_carries_supervisor_and_health():
     assert (ev[0]["old_world"], ev[0]["new_world"], ev[0]["trigger"]) == (
         4, 2, "manual")
     assert {"supervisor", "health"} <= set(ev[0]["carried"])
-    assert ev[0]["reinitialised"] == ["sparse_state", "local_momentum"]
+    assert ev[0]["reinitialised"] == ["sparse_state", "local_momentum",
+                                      "autotuner"]
     m = tt.train_step(batch(4, 21))
     assert np.isfinite(float(m["loss"]))
     assert tt.grad_step.states[0].residual.shape[0] == 2
@@ -902,12 +903,22 @@ def test_resilience_flags_parse_as_jax():
         assert getattr(default, f) == getattr(JTrain(), f), f
 
 
-def test_feedback_is_refused():
-    args = main_trainer.parse_args(["--dnn", "mnistnet", "--dataset",
-                                    "mnist", "--device", "cpu",
-                                    "--resilience", "--resilience-feedback"])
-    with pytest.raises(NotImplementedError, match="17c"):
-        main_trainer.build_trainer(args)
+def test_feedback_is_built_and_trains():
+    """``--resilience --resilience-feedback``: with ``--obs`` the Trainer
+    holds the feedback vote (``guard_trip`` and ``regression``, JAX's
+    kinds) and trains; without a bus there is none, as in JAX's."""
+    argv = ["--dnn", "mnistnet", "--dataset", "mnist", "--device", "cpu",
+            "--num-workers", "2", "--batch-size", "2", "--resilience",
+            "--resilience-feedback", "--resilience-feedback-window", "9"]
+    tt, data, _, _ = main_trainer.build_trainer(
+        main_trainer.parse_args(argv + ["--obs"]))
+    assert tt.feedback.kinds == ("regression", "guard_trip")
+    assert tt.feedback.window_steps == 9
+    m = tt.train(data, 2, log_every=1)
+    assert np.isfinite(m["loss"]) and tt.retune_events == 0
+    quiet, _, _, _ = main_trainer.build_trainer(
+        main_trainer.parse_args(argv))
+    assert quiet.feedback is None
 
 
 def test_cli_checkpoint_carries_the_supervisor(tmp_path):

@@ -450,6 +450,54 @@ def run_preempt(comm, weights, state_dir, stop_after: int = 2,
     return tt.last_step, rc
 
 
+AUTOTUNE_TRAIN = dict(TRAIN, num_buckets=2, autotune=True,
+                      autotune_candidates=("dense", "oktopk"),
+                      autotune_trial_steps=2, resilience_feedback=True,
+                      resilience_feedback_window=8,
+                      resilience_feedback_signals=3, obs=True)
+REGRESSED_RANK = 2
+
+
+def run_autotune(comm):
+    """The narrow VGG's autotuner over two buckets with real (measured)
+    probes and trials, then a step-time regression that rank
+    ``REGRESSED_RANK`` alone sees at steps 1-3: the coefficients and the
+    plan of the first tune, the retune events, the coefficients and plan
+    after the forced re-tune, the feedback state and one planned step's
+    loss. Every rank must report the same (the medians are agreed, the
+    vote too)."""
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.train.trainer import Trainer
+
+    register_narrow()
+    tt = Trainer(TrainConfig(**AUTOTUNE_TRAIN),
+                 algo_cfg=OkTopkConfig(**TRAIN_ALGO), device="cpu",
+                 comm=comm, warmup=False)
+
+    def plan():
+        return [(p.algo, p.density, p.measured_ms) for p in tt._plans]
+
+    tt.autotune(step=0)
+    first = (tt.autotuner.coeffs.as_dict(), plan())
+    rank = 0 if comm is None else comm.first_worker
+    fired = []
+    for step in (1, 2, 3):
+        if rank == REGRESSED_RANK:
+            tt.bus.emit("regression", step=step, ms=30.0, baseline_ms=10.0,
+                        ratio=3.0)
+        fired.append(tt.check_feedback(step))
+    retunes = [{k: v for k, v in e.items()}
+               for e in tt.run_journal.entries if e["event"] == "retune"]
+    after = (tt.autotuner.coeffs.as_dict(), plan())
+    fb = (tt.feedback.fired, tt.feedback._cooldown_until,
+          list(tt.feedback.signals))
+    loss = float(tt.train_step(train_batch(0))["loss"])
+    return {"first": first, "fired": fired, "retunes": retunes,
+            "retune_events": tt.retune_events, "after": after,
+            "feedback": fb, "names": list(tt.grad_step.names),
+            "loss": loss}
+
+
 def _host_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _host_leaves(tree[k])]
@@ -540,6 +588,7 @@ def _checks(rank: int, out_dir: str):
                                  os.path.join(out_dir, "restore_dist"))
     res["bert_trainer"] = run_bert_trainer(comm)
     res["resnet"] = run_resnet(comm)
+    res["autotune"] = run_autotune(comm)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -548,8 +597,9 @@ def checks_worker(rank, out_dir):
     two-level cases over 2 pods x 2 ``new_group``s, three trainer steps
     and a checkpoint of them, saved and restored, a run stopped by one
     rank and parked, three guarded steps with a NaN on rank 2, a
-    divergence restore of a checkpoint, two BERT steps with dropout and
-    one resnet20 step over a 4-rank gloo group.
+    divergence restore of a checkpoint, two BERT steps with dropout,
+    one resnet20 step and an autotuned run whose regression rank 2 alone
+    sees over a 4-rank gloo group.
     The cases held to JAX start from the JAX states the parent writes to
     ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
     while these run."""
