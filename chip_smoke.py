@@ -34,7 +34,10 @@ and prints one JSON line per phase:
 3. edges    — the compaction kernel bit-equal to its plain version where
               its tiling can break (``compaction_cases``), on scratch
               poisoned with ready-looking status words, and in two
-              back-to-back calls;
+              back-to-back calls; then its pack timed in
+              ``scripts/proto_repair_kernel.py``'s regime (``pack_proto``:
+              n = 2^22, R = 4, cap 20,971) as the kernels phase times its
+              forms;
 4. allreduce — three oktopk steps at n = 2^20, P = 4 on the card against
               the plain path on the CPU from the same state: reduced
               result and residual bit-equal, thresholds within 64 ulps;
@@ -311,7 +314,37 @@ directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
               collectives``), its volumes the in-process step's; its own
               budget, ``AUTOTUNE_BUDGET_S``; and in ``dist_trainer`` four
               gloo ranks of VGG-16 ``--autotune`` over two buckets, every
-              rank the same coefficients and plan.
+              rank the same coefficients and plan;
+41. anatomy — (after ``autotune``) the step anatomy on the main path
+              (``obs/anatomy.py``, ``obs/tracing.py``): VGG-16 at full
+              width, P = 4, batch 16 a worker, d = 0.02, bf16 wire, two
+              buckets. (a) ``capture_pipeline_anatomy`` at the buckets'
+              sizes (7,379,978 and 7,348,288): each phase's ms,
+              ``overlap_ratio``, ``step_ms``, ``ideal_ms``; (b)
+              ``main_trainer --obs --trace-at 3 --trace-steps 1``: the
+              Chrome trace through ``analyze_capture``, buckets 0 and 1
+              with select, stage, exchange and combine and fwd_bwd and
+              optimizer on bucket -1, all on the stream
+              (``gpu_user_annotation``), every kernel from the first
+              fwd_bwd range to bucket 0 inside an ``anat/fwd_bwd`` range,
+              K1 and the compaction launched (``launches_by_path``
+              ``vgg16 anatomy``); (c) two trainers from one seed, the
+              phase ranges on and off, six steps each in turns without a
+              profiler and six inside one: losses bit-identical, host ms;
+              one more profiled step each, without and with
+              ``backward_scope``: how much of the fwd/bwd the ranges
+              cover; (d) ``--resilience --obs --obs-trace-on-anomaly``
+              with the resilience phase's NaN plan: exactly one
+              ``trace_captured`` after the ``guard_trip``, its trace
+              written (a profiler that cannot start fails the phase), with
+              contract ranges on the stream; its own budget,
+              ``ANATOMY_BUDGET_S``;
+42. convergence — item 19 on the card: mnistnet on ``teacher_iterator``,
+              dense then oktopk, ``tests/test_torch_convergence.py``'s
+              settings (P = 8, batch 8 a worker, lr 0.05, d = 0.05, 80
+              steps, no warmup): the mean loss of the last quarter of
+              oktopk under 1.10 x dense's, both falling, K1 and the
+              compaction launched (``mnistnet convergence``).
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -320,6 +353,7 @@ no result and exits non-zero, as does a machine without CUDA.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -386,9 +420,13 @@ def cuda_time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
 def profile_window(fn, iters: int):
     """({activity name: launches}, {activity name: device ms per call})
     of ``iters`` calls under ``torch.profiler``: every kernel, copy and
-    fill the calls put on the card, by self device time."""
+    fill the calls put on the card, by self device time. The phase ranges'
+    spans on the stream (``obs/anatomy.py``'s ``anat/...``) are not device
+    work of their own and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from oktopk_tpu_torch.obs.anatomy import parse_scope_level
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -396,7 +434,8 @@ def profile_window(fn, iters: int):
         torch.cuda.synchronize()
     counts, by_op = {}, {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or parse_scope_level(e.key) is not None):
             continue
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
@@ -819,6 +858,28 @@ def check_scratch_reset(dev) -> float:
                    y, t, bnd, R, cap), "back-to-back 2"))
 
 
+def proto_timing(case, dev) -> dict:
+    """The compaction's pack in ``scripts/proto_repair_kernel.py``'s
+    regime (the case checked bit-equal above), timed as the kernels
+    phase times its forms: the kernel, its plain version and the
+    ``torch.nonzero`` yardstick, and the bound."""
+    import torch
+    from oktopk_tpu_torch.ops import compaction
+    x = torch.from_numpy(case["x"]).to(dev)
+    t = torch.tensor(case["t"], dtype=torch.float32, device=dev)
+    bnd = torch.tensor(case["bounds"], dtype=torch.int32, device=dev)
+    R, cap, n = len(case["bounds"]) - 1, case["cap"], case["x"].size
+    rec = {"R": R, "cap": cap, "n": n,
+           "bound_ms": compaction_bound_ms(n, R, cap, True),
+           "kernel": timing(lambda: compaction.pack_by_region(
+               x, t, bnd, R, cap), COMPACTION_LAUNCHES),
+           "plain": timing(lambda: compaction.pack_by_region_plain(
+               x, t, bnd, R, cap)),
+           "library": timing(lambda: library_call(x, t))}
+    emit({"phase": "kernel_times", "form": "pack_proto", **rec})
+    return rec
+
+
 def phase_edges(dev):
     import torch
     cases = compaction_cases()
@@ -828,7 +889,8 @@ def phase_edges(dev):
     emit({"phase": "edges", "cases": [c["name"] for c in cases]
           + ["poisoned scratch", "back-to-back calls"],
           "bit_equal": True, "max_abs_err": err})
-    return err
+    return err, proto_timing(next(c for c in cases
+                                  if c["name"] == "prototype regime"), dev)
 
 
 # the state fields a card-vs-CPU comparison holds bit-equal
@@ -2047,6 +2109,380 @@ def phase_autotune(dev) -> dict:
     if secs > AUTOTUNE_BUDGET_S:
         raise AssertionError(f"autotune took {secs:.1f} s, over its "
                              f"{AUTOTUNE_BUDGET_S:.0f} s budget")
+    return launches
+
+
+# step anatomy on the main path (obs/anatomy.py, obs/tracing.py):
+# VGG-16 at full width, P = 4 stacked, batch 16 a worker, d = 0.02,
+# bf16 wire, two buckets
+ANATOMY_BUDGET_S = 60.0       # the anatomy phase's own budget
+ANAT_ARGV = ["--dnn", "vgg16", "--dataset", "cifar10", "--batch-size", "16",
+             "--num-workers", "4", "--density", "0.02", "--wire-dtype",
+             "bfloat16", "--num-buckets", "2", "--warmup-steps", "1",
+             "--lr", "0.01", "--seed", str(SEED)]
+ANAT_TRACE_AT = 3             # the traced step: a predicted oktopk step
+ANAT_TURNS = 6                # steps each way, annotations on and off
+BUCKET_PHASES = ("select", "stage", "exchange", "combine")
+
+
+def device_lane(path: str):
+    """(contract events on the stream, kernel events) of a Chrome trace."""
+    from oktopk_tpu_torch.obs.anatomy import parse_scope_level
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ann = [e for e in events if e.get("cat") == "gpu_user_annotation"
+           and parse_scope_level(e.get("name")) is not None]
+    return ann, [e for e in events if e.get("cat") == "kernel"]
+
+
+def check_step_anatomy(a, lane, where: str) -> None:
+    """Buckets 0 and 1 with the four bucket phases and bucket -1 with
+    fwd_bwd and optimizer, each in the analysis and on the stream."""
+    from oktopk_tpu_torch.obs.anatomy import parse_scope_level
+    if a is None:
+        raise AssertionError(f"{where}: no anatomy from the trace")
+    seen = {parse_scope_level(e["name"])[:2] for e in lane}
+    want = {(ph, b) for b in (0, 1) for ph in BUCKET_PHASES} | {
+        ("fwd_bwd", None), ("optimizer", None)}
+    if not want <= seen:
+        raise AssertionError(f"{where}: not on the device lane: "
+                             f"{sorted(want - seen, key=str)}")
+    for b in (0, 1):
+        if not set(BUCKET_PHASES) <= set(a["buckets"].get(b, {})):
+            raise AssertionError(f"{where}: bucket {b} has "
+                                 f"{sorted(a['buckets'].get(b, {}))}")
+    if not {"fwd_bwd", "optimizer"} <= set(a["buckets"].get(-1, {})):
+        raise AssertionError(f"{where}: bucket -1 has "
+                             f"{sorted(a['buckets'].get(-1, {}))}")
+
+
+def phase_ms(a) -> dict:
+    return {str(b): {ph: d["ms"] for ph, d in phases.items()}
+            for b, phases in a["buckets"].items()}
+
+
+def backward_coverage(lane, kernels) -> dict:
+    """The kernels from the step's first ``anat/fwd_bwd`` range on the
+    stream to its first other range (bucket 0's container), and how many
+    of them lie inside an ``anat/fwd_bwd`` range there (the main
+    thread's, and with ``backward_scope`` each backward's, opened on
+    autograd's device thread)."""
+    fb = [e for e in lane if e["name"] == "anat/fwd_bwd"]
+    start = min(e["ts"] for e in fb)
+    end = min(e["ts"] for e in lane if e["name"] != "anat/fwd_bwd"
+              and e["ts"] >= start)
+    pre = [k for k in kernels if start <= k["ts"] < end]
+    inside = [k for k in pre if any(
+        s["ts"] <= k["ts"] and k["ts"] + k.get("dur", 0)
+        <= s["ts"] + s["dur"] + 1e-3 for s in fb)]
+    return {"kernels": len(pre), "covered": len(inside),
+            "fwd_bwd_ranges": len(fb)}
+
+
+def anatomy_turns(dev, root: str) -> dict:
+    """Two trainers from one seed, one with the phase ranges on and one
+    with them off, ``ANAT_TURNS`` steps each in turns (on, off, off, on,
+    ...): host ms of each step (card synchronised), first without a
+    profiler, then each step inside its own profiler window (where the
+    ranges open); losses bit-identical. Then one more profiled step of
+    each with the ranges on, the first without ``backward_scope``: how
+    much of the fwd/bwd's kernels the ranges cover without it and with
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from oktopk_tpu_torch.obs import anatomy
+    from oktopk_tpu_torch.train import main_trainer
+    from oktopk_tpu_torch.train import trainer as trainer_mod
+
+    args = main_trainer.parse_args(ANAT_ARGV + ["--device", str(dev)])
+    pair = {}
+    for key in ("on", "off"):
+        tr, data, _, _ = main_trainer.build_trainer(args)
+        pair[key] = (tr, data)
+    out = {"host_ms": {"on": [], "off": []},
+           "host_ms_profiled": {"on": [], "off": []},
+           "losses": {"on": [], "off": []}}
+
+    def step(key, profiled, export=None):
+        tr, data = pair[key]
+        batch = next(data)
+        prev = anatomy.set_annotations(key == "on" or export is not None)
+        try:
+            torch.cuda.synchronize(dev)
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if profiled else None)
+            if prof is not None:
+                prof.start()
+            t0 = time.perf_counter()
+            m = tr.train_step(batch)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            if prof is not None:
+                prof.stop()
+            if export is not None:
+                prof.export_chrome_trace(export)
+                return
+        finally:
+            anatomy.set_annotations(prev)
+        out["host_ms_profiled" if profiled else "host_ms"][key].append(ms)
+        out["losses"][key].append(float(m["loss"]))
+
+    # two steps each first (the dense warmup, the first exact step),
+    # then the timed predicted steps
+    for key in ("on", "off", "off", "on"):
+        step(key, False)
+    out["host_ms"] = {"on": [], "off": []}
+    out["losses"] = {"on": [], "off": []}
+    for i in range(ANAT_TURNS):
+        for key in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            step(key, False)
+    for i in range(ANAT_TURNS):
+        for key in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            step(key, True)
+    if out["losses"]["on"] != out["losses"]["off"]:
+        raise AssertionError(f"anatomy: losses with the ranges "
+                             f"{out['losses']['on']}, without "
+                             f"{out['losses']['off']}")
+    scoped = trainer_mod.backward_scope
+    for key, fix in (("off", False), ("on", True)):
+        path = os.path.join(root, f"backward_scope_{fix}.json")
+        trainer_mod.backward_scope = scoped if fix else (lambda loss: loss)
+        try:
+            step(key, True, export=path)
+        finally:
+            trainer_mod.backward_scope = scoped
+        out[f"fwd_bwd_coverage_{'with' if fix else 'without'}"
+            "_backward_scope"] = backward_coverage(*device_lane(path))
+    del pair
+    return out
+
+
+def phase_anatomy(dev) -> dict:
+    """The step anatomy on the main path: (a) the pipeline capture at
+    VGG-16's two bucket sizes; (b) ``main_trainer --obs --trace-at 3
+    --trace-steps 1`` (two buckets), its Chrome trace through
+    ``analyze_capture``: both buckets' four phases and fwd_bwd and
+    optimizer, all on the stream, and how much of the fwd/bwd's kernels
+    its ranges cover; (c) the phase ranges on against off, six steps
+    each in turns, without and then with a profiler running: losses
+    bit-identical, host ms; (d) ``--resilience --obs
+    --obs-trace-on-anomaly`` with the resilience phase's NaN plan:
+    exactly one ``trace_captured`` after the ``guard_trip``, its trace
+    written, with contract events on the stream. Returns the launches of
+    (b)'s run (the path ``vgg16 anatomy``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from oktopk_tpu_torch.autotune.journal import read_journal
+    from oktopk_tpu_torch.comm import StackedComm
+    from oktopk_tpu_torch.config import OkTopkConfig
+    from oktopk_tpu_torch.obs.anatomy import (analyze_capture,
+                                              capture_pipeline_anatomy)
+    from oktopk_tpu_torch.obs.events import validate_journal
+    from oktopk_tpu_torch.obs.journal import EventBus, RunJournal
+    from oktopk_tpu_torch.resilience import FaultPlan, FaultSpec
+    from oktopk_tpu_torch.train import main_trainer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="oktopk_anatomy_")
+    out = {"phase": "anatomy", "model": "vgg16", "n": N_VGG16,
+           "workers": 4, "global_batch": 64, "num_buckets": 2}
+    try:
+        # (a) the pipeline capture at the two buckets' sizes
+        sizes = vgg16_bucket_sizes()
+        cfg = OkTopkConfig(n=N_VGG16, num_workers=4, density=0.02)
+        bus = EventBus()
+        journal = RunJournal(None, bus)
+        zero_counts()
+        t0 = time.perf_counter()
+        a = capture_pipeline_anatomy(cfg, StackedComm(4),
+                                     os.path.join(root, "capture"),
+                                     bucket_sizes=sizes, bus=bus,
+                                     device=dev)
+        cap_s = time.perf_counter() - t0
+        cap_launches = read_counts()
+        if a is None:
+            raise AssertionError("anatomy: the pipeline capture could not "
+                                 "start the profiler")
+        lane, _ = device_lane(os.path.join(root, "capture",
+                                           "anatomy.pt.trace.json"))
+        check_step_anatomy(a, lane, "anatomy capture")
+        if cap_launches["compaction"] <= 0 or validate_journal(
+                journal.entries):
+            raise AssertionError(f"anatomy capture: launches "
+                                 f"{cap_launches}, journal "
+                                 f"{validate_journal(journal.entries)}")
+        out["capture"] = {"bucket_sizes": sizes, "phase_ms": phase_ms(a),
+                          "overlap_ratio": a["overlap_ratio"],
+                          "step_ms": a["step_ms"], "ideal_ms": a["ideal_ms"],
+                          "compute_ms": a["compute_ms"],
+                          "comm_ms": a["comm_ms"],
+                          "critical_phase": a["critical_phase"],
+                          "launches": cap_launches, "seconds": cap_s}
+
+        # (b) one real step's trace through main_trainer
+        logdir = os.path.join(root, "cli")
+        argv = ANAT_ARGV + ["--max-iters", str(ANAT_TRACE_AT + 1),
+                            "--log-every", str(ANAT_TRACE_AT + 1),
+                            "--obs", "--trace-at", str(ANAT_TRACE_AT),
+                            "--trace-steps", "1", "--device", str(dev),
+                            "--logdir", logdir]
+        torch.cuda.synchronize(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = main_trainer.main(argv)
+        cli_s = time.perf_counter() - t0
+        launches = read_counts()
+        if rc != 0:
+            raise AssertionError(f"anatomy: main_trainer exit {rc}")
+        assert_launched(launches, SPARSE_KERNELS, "anatomy main_trainer")
+        ccfg, _ = main_trainer.configs(main_trainer.parse_args(argv), 4)
+        trace = os.path.join(logdir, ccfg.experiment_slug(), "trace",
+                             f"trace_steps{ANAT_TRACE_AT}-"
+                             f"{ANAT_TRACE_AT}.json")
+        bus = EventBus()
+        journal = RunJournal(None, bus)
+        a = analyze_capture(trace, bus=bus, step=ANAT_TRACE_AT)
+        lane, kernels = device_lane(trace)
+        check_step_anatomy(a, lane, "anatomy step trace")
+        cover = backward_coverage(lane, kernels)
+        if cover["covered"] != cover["kernels"]:
+            raise AssertionError(f"anatomy: the fwd_bwd ranges cover "
+                                 f"{cover['covered']} of the "
+                                 f"{cover['kernels']} kernels before the "
+                                 "first select")
+        with open(trace) as f:
+            host = [e for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("anat")]
+        out["step"] = {"phase_ms": phase_ms(a),
+                       "overlap_ratio": a["overlap_ratio"],
+                       "step_ms": a["step_ms"], "ideal_ms": a["ideal_ms"],
+                       "compute_ms": a["compute_ms"],
+                       "comm_ms": a["comm_ms"],
+                       "critical_path": a["critical_path"],
+                       "critical_phase": a["critical_phase"],
+                       "device_ranges": len(lane), "host_ranges": len(host),
+                       "host_ranges_by_thread": dict(collections.Counter(
+                           e.get("tid") for e in host)),
+                       "fwd_bwd_coverage": cover, "launches": launches,
+                       "journal_ok": validate_journal(journal.entries) == [],
+                       "seconds": cli_s}
+
+        # (c) the ranges on against off, in turns
+        out["turns"] = anatomy_turns(dev, root)
+        torch.cuda.empty_cache()
+
+        # (d) the anomaly window on a NaN
+        plan = FaultPlan((FaultSpec("nan_grad", step=RES_K, worker=1,
+                                    count=3),))
+        tr, data = res_trainer(dev, plan, [
+            "--resilience", "--obs", "--obs-trace-on-anomaly",
+            "--obs-trace-steps", "1", "--logdir",
+            os.path.join(root, "anomaly")])
+        torch.cuda.synchronize(dev)
+        zero_counts()
+        tr.train(data, 5, log_every=5)
+        res_launches = read_counts()
+        jpath = tr.cfg.obs_journal
+        del tr
+        entries = read_journal(jpath)
+        kinds = [e["event"] for e in entries]
+        caps = [e for e in entries if e["event"] == "trace_captured"]
+        if len(caps) != 1 or "guard_trip" not in kinds or \
+                kinds.index("guard_trip") > kinds.index("trace_captured"):
+            raise AssertionError(f"anatomy: events {kinds}")
+        cap = caps[0]
+        if cap["logdir"] is None or not cap["trigger"].startswith(
+                "guard_trip@"):
+            raise AssertionError(f"anatomy: trace_captured {cap}")
+        tfile = os.path.join(cap["logdir"], "rank0.pt.trace.json")
+        lane, _ = device_lane(tfile)
+        if not lane or validate_journal(entries):
+            raise AssertionError(f"anatomy: {len(lane)} contract events on "
+                                 f"the stream of {tfile}")
+        assert_launched(res_launches, SPARSE_KERNELS, "anatomy anomaly")
+        out["anomaly"] = {"trace_captured": cap,
+                          "guard_trips": [e["step"] for e in entries
+                                          if e["event"] == "guard_trip"],
+                          "device_ranges": len(lane),
+                          "trace_mb": os.path.getsize(tfile) / 1e6,
+                          "launches": res_launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    secs = time.perf_counter() - t_phase
+    turns = out["turns"]
+    out.update(card=smi, seconds=secs,
+               host_ms_on=spread(turns["host_ms"]["on"]),
+               host_ms_off=spread(turns["host_ms"]["off"]),
+               host_ms_profiled_on=spread(turns["host_ms_profiled"]["on"]),
+               host_ms_profiled_off=spread(
+                   turns["host_ms_profiled"]["off"]),
+               bit_identical_on_off=True)
+    emit(out)
+    if secs > ANATOMY_BUDGET_S:
+        raise AssertionError(f"anatomy took {secs:.1f} s, over its "
+                             f"{ANATOMY_BUDGET_S:.0f} s budget")
+    return launches
+
+
+# item 19 on the card: tests/test_torch_convergence.py's settings
+CONV_STEPS = 80
+CONV_LIMIT = 1.10
+
+
+def conv_final_loss(dev, compressor: str, seed: int = 7):
+    """mnistnet on the teacher data, P = 8 stacked, batch 8 a worker, lr
+    0.05, d = 0.05, no warmup: (mean loss of the last quarter, losses,
+    launches)."""
+    import torch
+    from oktopk_tpu_torch.config import TrainConfig
+    from oktopk_tpu_torch.data.synthetic import teacher_iterator
+    from oktopk_tpu_torch.train.trainer import Trainer
+    cfg = TrainConfig(dnn="mnistnet", dataset="synthetic-teacher",
+                      batch_size=8, lr=0.05, compressor=compressor,
+                      density=0.05, num_workers=8)
+    tr = Trainer(cfg, warmup=False, device=dev)
+    it = teacher_iterator("mnistnet", 8 * cfg.num_workers, seed=seed)
+    torch.cuda.synchronize(dev)
+    zero_counts()
+    ms = [tr.train_step(next(it))["loss"] for _ in range(CONV_STEPS)]
+    losses = [float(v) for v in torch.stack(ms).cpu()]
+    launches = read_counts()
+    return (statistics.mean(losses[-CONV_STEPS // 4:]), losses, launches)
+
+
+def phase_convergence(dev) -> dict:
+    """Oktopk tracks dense SGD on the teacher task on the card: the mean
+    loss of the last quarter under 1.10 x dense's, both falling, K1 and
+    the compaction launched on the oktopk run. Returns its launches."""
+    t0 = time.perf_counter()
+    dense, dense_curve, _ = conv_final_loss(dev, "dense")
+    oktopk, oktopk_curve, launches = conv_final_loss(dev, "oktopk")
+    secs = time.perf_counter() - t0
+    assert_launched(launches, SPARSE_KERNELS, "convergence")
+    if not (dense_curve[-1] < dense_curve[0]
+            and oktopk_curve[-1] < oktopk_curve[0]):
+        raise AssertionError(f"convergence: a loss did not fall: dense "
+                             f"{dense_curve[0]} -> {dense_curve[-1]}, "
+                             f"oktopk {oktopk_curve[0]} -> "
+                             f"{oktopk_curve[-1]}")
+    if not math.isfinite(oktopk) or not oktopk < CONV_LIMIT * dense:
+        raise AssertionError(f"convergence: oktopk {oktopk} vs dense "
+                             f"{dense} (limit {CONV_LIMIT}x)")
+    emit({"phase": "convergence", "model": "mnistnet", "workers": 8,
+          "steps": CONV_STEPS, "dense_final": dense,
+          "oktopk_final": oktopk, "ratio": oktopk / dense,
+          "limit": CONV_LIMIT, "dense_first_last": [dense_curve[0],
+                                                    dense_curve[-1]],
+          "oktopk_first_last": [oktopk_curve[0], oktopk_curve[-1]],
+          "launches": launches, "seconds": secs})
     return launches
 
 
@@ -4887,7 +5323,7 @@ def kernel_line(timings, errs, by_path, edge_err, big, tf_timings):
     forms = {nm: {"R": timings[nm]["R"], "cap": timings[nm]["cap"],
                   **times(timings[nm])}
              for nm in ("pack_a", "select_b", "select_local",
-                        "select_nonzero", "pack_static")}
+                        "select_nonzero", "pack_static", "pack_proto")}
     def launches(kernel, path="oktopk"):
         return {"launches": by_path[path][kernel],
                 "launches_by_path": {p: d.get(kernel, 0)
@@ -4970,7 +5406,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     phase_build()
     timings, errs = phase_kernels(dev)
-    edge_err = phase_edges(dev)
+    edge_err, timings["pack_proto"] = phase_edges(dev)
     tf_timings = phase_threefry(dev)
     big = {"bert": ("bert", N_BERT) + phase_big_kernels(
         dev, "bert_kernels", "bert", N_BERT, 0.01, 2.576, SEED + 4)}
@@ -5000,6 +5436,10 @@ def main() -> int:
     by_path["vgg16 resilience"] = phase_resilience(dev)
     torch.cuda.empty_cache()
     by_path["vgg16 autotune"] = phase_autotune(dev)
+    torch.cuda.empty_cache()
+    by_path["vgg16 anatomy"] = phase_anatomy(dev)
+    torch.cuda.empty_cache()
+    by_path["mnistnet convergence"] = phase_convergence(dev)
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
     phase_lstman4_parity(dev)

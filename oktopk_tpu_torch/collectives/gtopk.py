@@ -11,7 +11,10 @@ the error-feedback residual. P must be a power of two.
 
 The merged sums hold many ties from round 2 on (bf16-rounded sums);
 ``exact_topk`` breaks them by lower index, as ``lax.top_k`` does, so the
-card and the CPU keep the same winners.
+card and the CPU keep the same winners. The phase scopes
+(``obs/anatomy.py``) are JAX's: the selection under ``select``, each
+round's wire rounding and exchange under ``exchange``, its merge and the
+final residual and result under ``combine``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from oktopk_tpu_torch.collectives.wire import (
     wire_round,
 )
 from oktopk_tpu_torch.config import OkTopkConfig
+from oktopk_tpu_torch.obs.anatomy import phase_scope
 from oktopk_tpu_torch.ops.select import index_mask, scatter_rows
 from oktopk_tpu_torch.ops.topk import exact_topk
 
@@ -35,25 +39,31 @@ def gtopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
     if P & (P - 1):
         raise ValueError(f"gtopk requires power-of-two workers, got {P}")
     step = state.host_step
-    acc = grad + state.residual
-    vals, idx = exact_topk(acc, k)
-    sel_mask = index_mask(n, idx)
-    residual = residual_after_selection(acc, sel_mask, cfg)
+    bkt = cfg.bucket_index
+    with phase_scope("select", bkt):
+        acc = grad + state.residual
+        vals, idx = exact_topk(acc, k)
+        sel_mask = index_mask(n, idx)
+        residual = residual_after_selection(acc, sel_mask, cfg)
 
     rounds = P.bit_length() - 1
     d = 1
     for _ in range(rounds):
-        vals = wire_round(vals, cfg)
-        pv = comm.ppermute_pair(on_wire(vals, cfg, step), d).to(acc.dtype)
-        pi = comm.ppermute_pair(idx, d)
-        merged = scatter_rows(n, torch.stack([vals, pv], 1),
-                              torch.stack([idx, pi], 1))
-        vals, idx = exact_topk(merged, k)
+        with phase_scope("exchange", bkt):
+            vals = wire_round(vals, cfg)
+            pv = comm.ppermute_pair(on_wire(vals, cfg, step),
+                                    d).to(acc.dtype)
+            pi = comm.ppermute_pair(idx, d)
+        with phase_scope("combine", bkt):
+            merged = scatter_rows(n, torch.stack([vals, pv], 1),
+                                  torch.stack([idx, pi], 1))
+            vals, idx = exact_topk(merged, k)
         d <<= 1
 
-    lost = sel_mask & ~index_mask(n, idx)
-    residual = torch.where(lost, acc, residual)
-    result = scatter_rows(n, vals[:, None], idx[:, None]) / P
+    with phase_scope("combine", bkt):
+        lost = sel_mask & ~index_mask(n, idx)
+        residual = torch.where(lost, acc, residual)
+        result = scatter_rows(n, vals[:, None], idx[:, None]) / P
     return result, bump(state, volume=4.0 * k * rounds,
                         wire_bytes=pair_wire_bytes(2.0 * k * rounds, cfg),
                         residual=residual, local_count=k, global_count=k)

@@ -15,6 +15,11 @@ Counterpart of ``oktopk_tpu/collectives/hierarchical.py:56-210``:
   results to every member's row; ``comm/process_group.py``: nothing to
   do, every rank ran the identical exchange).
 
+The phase scopes (``obs/anatomy.py``) carry the level lanes of
+JAX's (:180, :187): the pod mean is ``exchange`` on level 0, and the
+outer algorithm runs inside a level-1 container (``anat/b000/lvl1``),
+so its own phases land on level 1.
+
 Wire bytes are kept per level (``wire_bytes_intra`` / ``_inter``), so
 ``obs/volume.py`` holds each level against its own budget.
 """
@@ -29,6 +34,7 @@ import torch
 from oktopk_tpu_torch.collectives.state import TENSOR_FIELDS, SparseState
 from oktopk_tpu_torch.collectives.wire import dense_wire_bytes
 from oktopk_tpu_torch.config import OkTopkConfig
+from oktopk_tpu_torch.obs.anatomy import phase_scope
 
 # the JAX package's mesh axis names (comm/mesh.py there); here they name
 # the levels in messages
@@ -140,14 +146,17 @@ def hierarchical(grad: torch.Tensor, state: SparseState,
     ``comm.process_group.hierarchical_process_comm``)."""
     from oktopk_tpu_torch.collectives.registry import get_algorithm
     ocfg = cfg.outer_cfg
+    bkt = ocfg.bucket_index
 
     # level 0: the pod-mean gradient, identical on every pod member
-    g_pod = comm.pod_mean(grad)
+    with phase_scope("exchange", bkt, level=0):
+        g_pod = comm.pod_mean(grad)
 
     # level 1: the outer algorithm across pods, once per pod
     outer_fn = get_algorithm(cfg.outer, warmup=cfg.outer_warmup)
-    out, s2 = outer_fn(comm.leaders(g_pod), map_rows(state, comm.leaders),
-                       ocfg, comm.inter)
+    with phase_scope(None, bkt, level=1):
+        out, s2 = outer_fn(comm.leaders(g_pod),
+                           map_rows(state, comm.leaders), ocfg, comm.inter)
     out, s2 = comm.spread(out), map_rows(s2, comm.spread)
 
     # per-level accounting: the outer algorithm's bump() counted the inter

@@ -20,6 +20,14 @@ mask, count, probe, and the compaction kernel's own count pass). Both
 follow the JAX ``use_pallas=True`` contract: selection thresholds clamped
 to the smallest normal f32, the Newton probe not clamped.
 
+Phase scopes (``obs/anatomy.py``) sit where the JAX form opens them
+(:157-432), on its fused branch: the residual add, the thresholds, the
+fused sweep and the phase-(b) selections under ``select``; the
+repartition and the region pack under ``stage``; the wire casts and the
+comm's ``all_to_all``/``all_gather`` under ``exchange``; the scatters and
+the residual under ``combine``. The volume counts and the two psums of
+phase (b) stay outside every phase, as in JAX.
+
 Phase-(a) combine order: up to P contributions land on one index; they
 are added one source row at a time in rank order, as the JAX scatter does
 on the CPU, so float sums agree bit-for-bit (no atomics collide: the
@@ -38,6 +46,7 @@ from oktopk_tpu_torch.collectives.wire import (
     residual_after_winners,
 )
 from oktopk_tpu_torch.config import OkTopkConfig, scheduled_k, target_k
+from oktopk_tpu_torch.obs.anatomy import phase_scope
 from oktopk_tpu_torch.ops import compaction
 from oktopk_tpu_torch.ops.fused_select import (
     fused_pack_finalize,
@@ -135,10 +144,12 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
     rank = comm.rank(dev)
     hist_mode = cfg.threshold_method == "hist"
     fuse = cfg.fuse_select is not False and grad.dtype == _F32
+    bkt = cfg.bucket_index
 
     if not fuse:
-        acc = grad + state.residual
-        abs_acc = acc.abs()
+        with phase_scope("select", bkt):
+            acc = grad + state.residual
+            abs_acc = acc.abs()
 
     def abs_acc_rows():
         return (grad + state.residual).abs() if fuse else abs_acc
@@ -150,57 +161,68 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
     tkl = target_k(cfg, k, cfg.local_k_target)
 
     # ---- local threshold: exact on the cadence, else drift-predicted
-    if hist_mode:
-        if first_sparse:
+    with phase_scope("select", bkt):
+        if hist_mode:
+            if first_sparse:
+                a = abs_acc_rows()
+                lt = torch.stack([k2threshold_hist(a[w], tkl)
+                                  for w in range(W)]).to(grad.dtype)
+            else:
+                lt = prev_lt * state.drift
+            drift = state.drift
+        elif recompute_local:
             a = abs_acc_rows()
-            lt = torch.stack([k2threshold_hist(a[w], tkl)
-                              for w in range(W)]).to(grad.dtype)
+            lt = torch.stack([
+                k2threshold_method(a[w], tkl, cfg.threshold_method,
+                                   cfg.bisect_iters) for w in range(W)
+            ]).to(grad.dtype)
+            drift = _drift_update(lt, state, cfg)
+            last_exact_lt = lt
         else:
             lt = prev_lt * state.drift
-        drift = state.drift
-    elif recompute_local:
-        a = abs_acc_rows()
-        lt = torch.stack([
-            k2threshold_method(a[w], tkl, cfg.threshold_method,
-                               cfg.bisect_iters) for w in range(W)
-        ]).to(grad.dtype)
-        drift = _drift_update(lt, state, cfg)
-        last_exact_lt = lt
-    else:
-        lt = prev_lt * state.drift
-        drift, last_exact_lt = state.drift, state.last_exact_lt
+            drift, last_exact_lt = state.drift, state.last_exact_lt
 
     # ---- phase (a): select, pack per region, exchange, combine
     repart = step % cfg.repartition_every == 0 or first_sparse
-    probe_t = lt * _f32(cfg.probe_ratio, lt)
     if fuse:
-        stages = [fused_select_stage(grad[w], state.residual[w], lt[w],
-                                     probe_t[w]) for w in range(W)]
-        acc = torch.stack([s.acc for s in stages])
-        boundaries = (_repartition(acc.abs(), lt, cfg, comm) if repart
-                      else state.boundaries)
-        s_vals, s_idx, s_counts = _stack([
-            fused_pack_finalize(stages[w], boundaries[w], P, cfg.cap_pair)
-            for w in range(W)])
-        local_count = torch.stack([s.local_count for s in stages])
-        local_probe = torch.stack([s.probe_count for s in stages])
-        hist = torch.stack([s.hist for s in stages])
+        with phase_scope("select", bkt):
+            probe_t = lt * _f32(cfg.probe_ratio, lt)
+            stages = [fused_select_stage(grad[w], state.residual[w], lt[w],
+                                         probe_t[w]) for w in range(W)]
+            acc = torch.stack([s.acc for s in stages])
+            local_count = torch.stack([s.local_count for s in stages])
+            local_probe = torch.stack([s.probe_count for s in stages])
+            hist = torch.stack([s.hist for s in stages])
+        with phase_scope("stage", bkt):
+            boundaries = (_repartition(acc.abs(), lt, cfg, comm) if repart
+                          else state.boundaries)
+            s_vals, s_idx, s_counts = _stack([
+                fused_pack_finalize(stages[w], boundaries[w], P,
+                                    cfg.cap_pair) for w in range(W)])
         # the bf16 wire's residual update reads the unclamped sent mask
         mask = (acc.abs() >= lt[:, None]
                 if cfg.wire_dtype != "float32" else None)
     else:
-        boundaries = (_repartition(abs_acc, lt, cfg, comm) if repart
-                      else state.boundaries)
-        mask = abs_acc >= lt[:, None]
-        local_count = mask.sum(1, dtype=torch.int32)
-        s_vals, s_idx, s_counts = compaction.pack_rows(
-            acc, lt, boundaries, P, cfg.cap_pair)
-        local_probe = (abs_acc >= probe_t[:, None]).sum(1, dtype=torch.int32)
+        with phase_scope("stage", bkt):
+            boundaries = (_repartition(abs_acc, lt, cfg, comm) if repart
+                          else state.boundaries)
+        with phase_scope("select", bkt):
+            mask = abs_acc >= lt[:, None]
+            local_count = mask.sum(1, dtype=torch.int32)
+        with phase_scope("stage", bkt):
+            s_vals, s_idx, s_counts = compaction.pack_rows(
+                acc, lt, boundaries, P, cfg.cap_pair)
+        with phase_scope("select", bkt):
+            probe_t = lt * _f32(cfg.probe_ratio, lt)
+            local_probe = (abs_acc >= probe_t[:, None]).sum(
+                1, dtype=torch.int32)
         hist = None
 
-    r_vals = comm.all_to_all(on_wire(s_vals, cfg, step)).to(acc.dtype)
-    r_idx = comm.all_to_all(s_idx)
-    reduced = scatter_rows(n, r_vals, r_idx)        # own region only
+    with phase_scope("exchange", bkt):
+        r_vals = comm.all_to_all(on_wire(s_vals, cfg, step)).to(acc.dtype)
+        r_idx = comm.all_to_all(s_idx)
+    with phase_scope("combine", bkt):
+        reduced = scatter_rows(n, r_vals, r_idx)    # own region only
 
     sent_count = s_counts.sum(1, dtype=torch.int32)
     recv_count = (r_idx < n).sum((1, 2), dtype=torch.int32)
@@ -208,54 +230,62 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
     vol_a = 2.0 * (sent_count - own_count) + 2.0 * (recv_count - own_count)
 
     # ---- local threshold feedback for the next step
-    if hist_mode and recompute_local:
-        h = hist if hist is not None else torch.stack(
-            [log2_hist(acc[w]) for w in range(W)])
-        lt_next = torch.stack([hist_to_threshold(h[w], tkl)
-                               for w in range(W)]).to(grad.dtype)
-        drift = _drift_update(lt_next, state, cfg)
-        last_exact_lt = lt_next
-    else:
-        lt_next = _newton_adapt(lt, local_count, local_probe, k, cfg,
-                                target=tkl)
-        if hist_mode:
-            last_exact_lt = state.last_exact_lt
+    with phase_scope("select", bkt):
+        if hist_mode and recompute_local:
+            h = hist if hist is not None else torch.stack(
+                [log2_hist(acc[w]) for w in range(W)])
+            lt_next = torch.stack([hist_to_threshold(h[w], tkl)
+                                   for w in range(W)]).to(grad.dtype)
+            drift = _drift_update(lt_next, state, cfg)
+            last_exact_lt = lt_next
+        else:
+            lt_next = _newton_adapt(lt, local_count, local_probe, k, cfg,
+                                    target=tkl)
+            if hist_mode:
+                last_exact_lt = state.last_exact_lt
 
     # ---- phase (b): global winner selection + allgather
     if recompute_global:
         k_cand = min(cfg.cap_exact, n)
-        absr = reduced.abs()
-        t_cand = torch.stack([
-            k2threshold_method(absr[w], k_cand, cfg.threshold_method,
-                               cfg.bisect_iters) for w in range(W)])
-        vals, idx, cand_count = compaction.select_rows(reduced, t_cand,
-                                                       k_cand)
-        gv = comm.all_gather(on_wire(vals, cfg, step)).to(acc.dtype)
-        gi = comm.all_gather(idx)
+        with phase_scope("select", bkt):
+            absr = reduced.abs()
+            t_cand = torch.stack([
+                k2threshold_method(absr[w], k_cand, cfg.threshold_method,
+                                   cfg.bisect_iters) for w in range(W)])
+            vals, idx, cand_count = compaction.select_rows(reduced, t_cand,
+                                                           k_cand)
+        with phase_scope("exchange", bkt):
+            gv = comm.all_gather(on_wire(vals, cfg, step)).to(acc.dtype)
+            gi = comm.all_gather(idx)
         k_pool = min(k, P * k_cand)
-        agv = gv.abs()
-        gt = torch.stack([
-            k2threshold_method(agv[w].reshape(-1), k_pool,
-                               cfg.threshold_method, cfg.bisect_iters)
-            for w in range(W)]).to(acc.dtype)
-        keep = (agv >= gt[:, None, None]) & (gi < n)
-        zero = torch.zeros((), dtype=acc.dtype, device=dev)
-        # gathered indices are globally distinct: dividing by P at cap
-        # scale equals dividing the dense sum
-        result = scatter_rows(
-            n, torch.where(keep, gv, zero) / P,
-            torch.where(keep, gi, torch.full_like(gi, n)))
+        with phase_scope("select", bkt):
+            agv = gv.abs()
+            gt = torch.stack([
+                k2threshold_method(agv[w].reshape(-1), k_pool,
+                                   cfg.threshold_method, cfg.bisect_iters)
+                for w in range(W)]).to(acc.dtype)
+            keep = (agv >= gt[:, None, None]) & (gi < n)
+        with phase_scope("combine", bkt):
+            zero = torch.zeros((), dtype=acc.dtype, device=dev)
+            # gathered indices are globally distinct: dividing by P at
+            # cap scale equals dividing the dense sum
+            result = scatter_rows(
+                n, torch.where(keep, gv, zero) / P,
+                torch.where(keep, gi, torch.full_like(gi, n)))
         g_count = keep.sum((1, 2), dtype=torch.int32)
         total_c = comm.psum(cand_count)
         vol_b = 2.0 * cand_count + 2.0 * (total_c - cand_count)
         gt_next = gt
     else:
         gt_use = state.global_threshold * drift
-        gvals, gidx, gcount = compaction.select_rows(reduced, gt_use,
-                                                     cfg.cap_gather)
-        gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
-        gi = comm.all_gather(gidx)
-        result = scatter_rows(n, gv / P, gi)
+        with phase_scope("select", bkt):
+            gvals, gidx, gcount = compaction.select_rows(reduced, gt_use,
+                                                         cfg.cap_gather)
+        with phase_scope("exchange", bkt):
+            gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
+            gi = comm.all_gather(gidx)
+        with phase_scope("combine", bkt):
+            result = scatter_rows(n, gv / P, gi)
         probe_c = ((reduced.abs() >= (gt_use * _f32(cfg.probe_ratio,
                                                      gt_use))[:, None])
                    & (reduced != 0.0)).sum(1, dtype=torch.int32)
@@ -269,8 +299,10 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
         g_count = total_g
 
     # ---- residual: zero only at the global winners
-    winner_mask = result != 0.0
-    residual = residual_after_winners(acc, winner_mask, mask, reduced, cfg)
+    with phase_scope("combine", bkt):
+        winner_mask = result != 0.0
+        residual = residual_after_winners(acc, winner_mask, mask, reduced,
+                                          cfg)
     vol = vol_a + vol_b
     wb = pair_wire_bytes(0.5 * vol, cfg)
     return result, bump(state, volume=vol, wire_bytes=wb,

@@ -10,6 +10,10 @@ Every per-worker tensor carries the comm's leading worker dimension
 ``[W, ...]``; the JAX ``lax.cond`` on the step counter is a Python ``if``
 on ``state.host_step``. Gathered rows are added in rank order
 (``ops/select.py::scatter_rows``), as the JAX scatter adds on the CPU.
+The phase scopes (``obs/anatomy.py``) are JAX's: the residual add,
+thresholds and top-k under ``select``, the fixed-capacity selection
+under ``stage``, the gather under ``exchange``, the scatter (and
+topkA2's re-selection) under ``combine``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from oktopk_tpu_torch.collectives.wire import (
     residual_after_selection,
 )
 from oktopk_tpu_torch.config import OkTopkConfig
+from oktopk_tpu_torch.obs.anatomy import phase_scope
 from oktopk_tpu_torch.ops import compaction
 from oktopk_tpu_torch.ops.select import index_mask, scatter_rows
 from oktopk_tpu_torch.ops.topk import exact_topk, k2threshold_method
@@ -55,17 +60,20 @@ def local_threshold(acc, state: SparseState, cfg: OkTopkConfig, k: int):
 def gather_mean(vals, idx, cfg: OkTopkConfig, comm, step, dtype):
     """Allgather [W, m] (values, indices) and scatter-add them in rank
     order, divided by P."""
-    gv = comm.all_gather(on_wire(vals, cfg, step)).to(dtype)
-    gi = comm.all_gather(idx)
-    return scatter_rows(cfg.n, gv, gi) / cfg.num_workers
+    with phase_scope("exchange", cfg.bucket_index):
+        gv = comm.all_gather(on_wire(vals, cfg, step)).to(dtype)
+        gi = comm.all_gather(idx)
+    with phase_scope("combine", cfg.bucket_index):
+        return scatter_rows(cfg.n, gv, gi) / cfg.num_workers
 
 
 def topk_a(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
     """topkA: exact local top-k, allgather, scatter-add, mean."""
     P, n, k = cfg.num_workers, cfg.n, cfg.k
-    acc = grad + state.residual
-    vals, idx = exact_topk(acc, k)
-    residual = residual_after_selection(acc, index_mask(n, idx), cfg)
+    with phase_scope("select", cfg.bucket_index):
+        acc = grad + state.residual
+        vals, idx = exact_topk(acc, k)
+        residual = residual_after_selection(acc, index_mask(n, idx), cfg)
     result = gather_mean(vals, idx, cfg, comm, state.host_step, acc.dtype)
     vol = 2.0 * k + 2.0 * k * (P - 1)
     return result, bump(state, volume=vol,
@@ -77,18 +85,21 @@ def topk_a2(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig,
             comm):
     """topkA2: topkA, then the exact top-k of the reduced result."""
     result, new_state = topk_a(grad, state, cfg, comm)
-    vals, idx = exact_topk(result, cfg.k)
-    return scatter_rows(cfg.n, vals[:, None], idx[:, None]), new_state
+    with phase_scope("combine", cfg.bucket_index):
+        vals, idx = exact_topk(result, cfg.k)
+        return scatter_rows(cfg.n, vals[:, None], idx[:, None]), new_state
 
 
 def topk_a_opt(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig,
                comm):
     """topkAopt: predicted local threshold, fixed-capacity allgather."""
     n, k = cfg.n, cfg.k
-    acc = grad + state.residual
-    lt = local_threshold(acc, state, cfg, k)
-    vals, idx, count = compaction.select_rows(acc, lt, cfg.cap_local)
-    residual = residual_after_selection(acc, index_mask(n, idx), cfg)
+    with phase_scope("select", cfg.bucket_index):
+        acc = grad + state.residual
+        lt = local_threshold(acc, state, cfg, k)
+    with phase_scope("stage", cfg.bucket_index):
+        vals, idx, count = compaction.select_rows(acc, lt, cfg.cap_local)
+        residual = residual_after_selection(acc, index_mask(n, idx), cfg)
     result = gather_mean(vals, idx, cfg, comm, state.host_step, acc.dtype)
     total = comm.psum(count)
     return result, bump(state, volume=2.0 * total,

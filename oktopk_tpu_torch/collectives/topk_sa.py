@@ -17,6 +17,13 @@ psum would be an all_gather of (P-1)·n floats on every sparse step, so
 the branch is taken on the host instead: ``total_nnz`` is an integer
 psum, equal on every rank, so every rank takes the same branch, and
 reading it costs one wait for phase (a). Both forms give the same bits.
+
+The phase scopes (``obs/anatomy.py``) are JAX's (:52-148): the residual
+add, the threshold, the mask and the nonzero selection under ``select``;
+the region pack under ``stage``; the ``all_to_all`` and the sparse
+gather under ``exchange``; the scatters and the residual under
+``combine``. The nonzero count, its psum and the dense fallback's psum
+stay outside every phase, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from oktopk_tpu_torch.collectives.wire import (
     residual_after_winners,
 )
 from oktopk_tpu_torch.config import OkTopkConfig
+from oktopk_tpu_torch.obs.anatomy import phase_scope
 from oktopk_tpu_torch.ops import compaction
 from oktopk_tpu_torch.ops.gaussian import gaussian_threshold
 from oktopk_tpu_torch.ops.select import scatter_rows
@@ -49,13 +57,18 @@ def _split_allreduce(acc, lt, state: SparseState, cfg: OkTopkConfig, comm,
     step = state.host_step
     f32 = torch.float32
     rank = comm.rank(acc.device)
-    mask = acc.abs() >= lt[:, None]
-    local_count = mask.sum(1, dtype=torch.int32)
-    s_vals, s_idx, s_counts = compaction.pack_rows(
-        acc, lt, state.boundaries, P, cfg.cap_pair)
-    r_vals = comm.all_to_all(on_wire(s_vals, cfg, step)).to(acc.dtype)
-    r_idx = comm.all_to_all(s_idx)
-    reduced = scatter_rows(n, r_vals, r_idx)
+    bkt = cfg.bucket_index
+    with phase_scope("select", bkt):
+        mask = acc.abs() >= lt[:, None]
+        local_count = mask.sum(1, dtype=torch.int32)
+    with phase_scope("stage", bkt):
+        s_vals, s_idx, s_counts = compaction.pack_rows(
+            acc, lt, state.boundaries, P, cfg.cap_pair)
+    with phase_scope("exchange", bkt):
+        r_vals = comm.all_to_all(on_wire(s_vals, cfg, step)).to(acc.dtype)
+        r_idx = comm.all_to_all(s_idx)
+    with phase_scope("combine", bkt):
+        reduced = scatter_rows(n, r_vals, r_idx)
 
     sent_count = s_counts.sum(1, dtype=torch.int32)
     recv_count = (r_idx < n).sum((1, 2), dtype=torch.int32)
@@ -80,10 +93,14 @@ def _split_allreduce(acc, lt, state: SparseState, cfg: OkTopkConfig, comm,
         owner_scale = torch.zeros((W,), dtype=f32, device=acc.device)
     else:
         # sparse gather: each owner's nonzeros, allgathered
-        gvals, gidx, gcount = compaction.select_nonzero_rows(reduced,
-                                                             cfg.cap_local)
-        gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
-        result = scatter_rows(n, gv, comm.all_gather(gidx))
+        with phase_scope("select", bkt):
+            gvals, gidx, gcount = compaction.select_nonzero_rows(
+                reduced, cfg.cap_local)
+        with phase_scope("exchange", bkt):
+            gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
+            gi = comm.all_gather(gidx)
+        with phase_scope("combine", bkt):
+            result = scatter_rows(n, gv, gi)
         total = comm.psum(gcount)
         vol_b = 2.0 * gcount + 2.0 * (total - gcount)
         wb_b = pair_wire_bytes(total, cfg)
@@ -97,9 +114,11 @@ def _split_allreduce(acc, lt, state: SparseState, cfg: OkTopkConfig, comm,
             owner_scale = torch.where(dense, torch.zeros_like(owner_scale),
                                       owner_scale)
 
-    result = result / P
-    residual = residual_after_winners(acc, result != 0.0, mask, reduced,
-                                      cfg, owner_scale=owner_scale[:, None])
+    with phase_scope("combine", bkt):
+        result = result / P
+        residual = residual_after_winners(acc, result != 0.0, mask, reduced,
+                                          cfg,
+                                          owner_scale=owner_scale[:, None])
     wb = pair_wire_bytes(0.5 * vol_a, cfg) + wb_b
     return result, residual, vol_a + vol_b, wb, local_count, total_nnz
 
@@ -108,8 +127,9 @@ def topk_sa(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig,
             comm):
     """topkSA / "topkDSA": predicted top-k threshold, static split
     allreduce, dense fallback."""
-    acc = grad + state.residual
-    lt = local_threshold(acc, state, cfg, cfg.k)
+    with phase_scope("select", cfg.bucket_index):
+        acc = grad + state.residual
+        lt = local_threshold(acc, state, cfg, cfg.k)
     result, residual, vol, wb, lc, gc = _split_allreduce(
         acc, lt, state, cfg, comm, dense_fallback=True)
     return result, bump(state, volume=vol, wire_bytes=wb, residual=residual,
@@ -121,8 +141,9 @@ def gaussian_k_sa(grad: torch.Tensor, state: SparseState,
                   cfg: OkTopkConfig, comm):
     """gaussiankSA: Gaussian per-step threshold, static split
     allreduce."""
-    acc = grad + state.residual
-    t = gaussian_threshold(acc, cfg.k, cfg.gaussian_refine_iters)
+    with phase_scope("select", cfg.bucket_index):
+        acc = grad + state.residual
+        t = gaussian_threshold(acc, cfg.k, cfg.gaussian_refine_iters)
     result, residual, vol, wb, lc, gc = _split_allreduce(
         acc, t, state, cfg, comm, dense_fallback=False)
     return result, bump(state, volume=vol, wire_bytes=wb, residual=residual,

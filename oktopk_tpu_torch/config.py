@@ -274,6 +274,17 @@ class TrainConfig:
     obs: bool = False
     # the journal's path; None keeps it in memory only
     obs_journal: Optional[str] = None
+    # arm a bounded torch.profiler window on guard_trip, fallback and
+    # breached quality_rollup events (obs/tracing.py AnomalyTracer)
+    obs_trace_on_anomaly: bool = False
+    # steps per anomaly-triggered trace window
+    obs_trace_steps: int = 3
+    # the anomaly traces' directory; None: "traces" beside the journal
+    # (a temporary directory when the journal is in memory)
+    obs_trace_dir: Optional[str] = None
+    # at most this many anomaly windows a run (a flapping guard must not
+    # fill the disk)
+    obs_max_traces: int = 3
     # BENCH_r*.json key of the step-time regression baseline
     # (obs/regress.py); None: no regression checks
     obs_regress_key: Optional[str] = None

@@ -16,6 +16,11 @@ without the PTB corpus or the AN4 manifests
 for ``mnistnet``, ImageNet's [224, 224, 3] and 1,000 classes for
 ``resnet50``, and CIFAR's [32, 32, 3] for every other name, as in the JAX
 package.
+
+``finite_pool_iterator`` and ``teacher_iterator`` (:98-149) are copied:
+the convergence data, a finite pool recycled in a seeded order, the
+teacher's labels ``argmax(W @ flatten(image))`` from a fixed random
+linear map, so a dense-versus-sparse gap measures the compression.
 """
 
 from __future__ import annotations
@@ -92,3 +97,49 @@ def synthetic_iterator(dnn: str, batch_size: int, seed: int = 0,
     rng = np.random.RandomState(seed)
     while True:
         yield synthetic_batch(dnn, batch_size, rng, seq_len)
+
+
+def finite_pool_iterator(dnn: str, batch_size: int, num_examples: int = 256,
+                         seed: int = 0, seq_len: Optional[int] = None
+                         ) -> Iterator[Dict[str, np.ndarray]]:
+    """Finite synthetic dataset, shuffled and recycled forever: the
+    convergence data of the token workloads (BERT, LSTM, CTC), where a
+    linear teacher over pixels does not apply. A finite pool is
+    memorizable, so the loss trend is an optimization signal."""
+    if batch_size > num_examples:
+        raise ValueError(f"batch_size {batch_size} > pool size "
+                         f"{num_examples}: the cycle would never yield")
+    rng = np.random.RandomState(seed)
+    pool = synthetic_batch(dnn, num_examples, rng, seq_len)
+    order_rng = np.random.RandomState(seed + 1)
+    while True:
+        order = order_rng.permutation(num_examples)
+        for i in range(0, num_examples - batch_size + 1, batch_size):
+            sel = order[i:i + batch_size]
+            yield {k: v[sel] for k, v in pool.items()}
+
+
+def teacher_iterator(dnn: str, batch_size: int, num_examples: int = 512,
+                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Finite image dataset with *learnable* labels from a fixed random
+    linear teacher (label = argmax(W @ flatten(image))): random labels
+    are unfittable in expectation, so every optimizer gets the same
+    structured task and a dense-vs-sparse gap measures the compression
+    (the stand-in for the reference's accuracy-log runs,
+    VGG/dl_trainer.py:606-616)."""
+    rng = np.random.RandomState(seed)
+    proto = synthetic_batch(dnn, num_examples, rng)
+    if "image" not in proto:
+        raise ValueError(f"teacher_iterator supports image workloads, "
+                         f"not {dnn}")
+    images = proto["image"]
+    nclass = int(proto["label"].max()) + 1
+    w = rng.randn(images[0].size, nclass).astype(np.float32)
+    logits = images.reshape(num_examples, -1) @ w
+    labels = np.argmax(logits, axis=1).astype(np.int32)
+    order_rng = np.random.RandomState(seed + 1)
+    while True:
+        order = order_rng.permutation(num_examples)
+        for i in range(0, num_examples - batch_size + 1, batch_size):
+            sel = order[i:i + batch_size]
+            yield {"image": images[sel], "label": labels[sel]}

@@ -26,7 +26,10 @@ directly:
   - :mod:`oktopk_tpu_torch.obs.rollup` — windowed rollups of flushed
     quality events with breach detection;
   - :mod:`oktopk_tpu_torch.obs.export` — Prometheus-textfile export of
-    the latest rollups.
-
-Not ported yet (ROADMAP.md): ``anatomy.py`` and ``tracing.py``.
+    the latest rollups;
+  - :mod:`oktopk_tpu_torch.obs.anatomy` — the step anatomy: the phase
+    ranges' naming contract, the ``torch.profiler`` trace analyser and
+    the pipeline capture;
+  - :mod:`oktopk_tpu_torch.obs.tracing` — the anomaly-triggered profiler
+    window and the Chrome trace sink.
 """

@@ -14,7 +14,10 @@ between.
 ``fused_select_plain`` is the counterpart of ``fused_select_reference``
 (:276-296): the same outputs from separate plain passes. The wrapper
 takes it only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises.
+kernel or raises. The sweep runs under the ``select`` phase scope and the
+finalisation under ``stage`` (``obs/anatomy.py``), as JAX's (:204,
+:251); inside a caller's scope of the same phase they open no range of
+their own.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from oktopk_tpu_torch.obs.anatomy import phase_scope
 from oktopk_tpu_torch.ops import _build, compaction
 from oktopk_tpu_torch.ops.hist_threshold import HIST_BINS, log2_hist
 
@@ -83,20 +87,22 @@ def fused_select_stage(grad: torch.Tensor, residual: torch.Tensor, thresh,
     if grad.dim() != 1 or grad.shape != residual.shape:
         raise ValueError(f"grad {tuple(grad.shape)} and residual "
                          f"{tuple(residual.shape)} must be equal 1-D")
-    if grad.device.type == "cpu":
-        return fused_select_plain(grad, residual, thresh, probe_thresh)
-    if grad.device.type != "cuda":
+    if grad.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused select kernel for device {grad.device}")
-    return _fused_cuda(grad, residual,
-                       compaction.threshold_tensor(thresh, grad),
-                       compaction.threshold_tensor(probe_thresh, grad))
+    with phase_scope("select"):
+        if grad.device.type == "cpu":
+            return fused_select_plain(grad, residual, thresh, probe_thresh)
+        return _fused_cuda(grad, residual,
+                           compaction.threshold_tensor(thresh, grad),
+                           compaction.threshold_tensor(probe_thresh, grad))
 
 
 def fused_pack_finalize(st: FusedStage, boundaries: torch.Tensor,
                         num_regions: int, cap: int):
     """Per-region (values, indices, counts) of the stage's survivors."""
-    return compaction.pack_by_region(st.acc, st.t, boundaries, num_regions,
-                                     cap)
+    with phase_scope("stage"):
+        return compaction.pack_by_region(st.acc, st.t, boundaries,
+                                         num_regions, cap)
 
 
 def fused_select(grad, residual, thresh, probe_thresh, boundaries,

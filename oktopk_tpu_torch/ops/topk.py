@@ -1,8 +1,9 @@
 """Exact top-k, k-th-value thresholds and the sort-free count bisection.
 
 Counterparts: ``oktopk_tpu/ops/topk.py`` (``exact_topk``, ``k2threshold``,
-``k2threshold_method``) and ``oktopk_tpu/ops/pallas_topk.py:29-91``
-(``k2threshold_bisect``, plain XLA there, not a Pallas kernel).
+``k2threshold_method``, ``ratio2threshold``) and
+``oktopk_tpu/ops/pallas_topk.py:29-91`` (``k2threshold_bisect``, plain XLA
+there, not a Pallas kernel).
 
 The bisection's bracket arithmetic uses ``log2``/``exp2``, whose last bit
 differs between XLA and PyTorch (and again on the card), so its threshold
@@ -116,3 +117,11 @@ def k2threshold_method(x_abs: torch.Tensor, k, method: str = "sort",
     if method == "hist":
         return k2threshold_hist(x_abs, k)
     return k2threshold(x_abs, k)
+
+
+def ratio2threshold(x: torch.Tensor, density: float) -> torch.Tensor:
+    """The exact threshold such that ``|x| >= t`` selects ~density·n
+    elements (``oktopk_tpu/ops/topk.py:53-60``; the reference's
+    ``TopKCompressor.ratio2threshold``, VGG/compression.py:86-106)."""
+    k = max(1, int(density * x.numel()))
+    return k2threshold(x.abs(), k)

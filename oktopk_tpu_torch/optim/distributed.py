@@ -42,6 +42,11 @@ skip flag is returned, so the caller rolls back what it owns (the
 parameters, the optimizer, the BatchNorm statistics): nothing here
 reads it on the host.
 
+Each bucket's algorithm runs inside the bucket's container scope
+(``obs/anatomy.py``; JAX's :347), so the algorithm's phase ranges carry
+the bucket's index, and its work outside every phase lands on phase
+``other`` of that bucket.
+
 The flat gradient [W, n] is laid out in the JAX package's leaf order and
 layout (the trainer builds it), so that buckets, region boundaries and
 selections are the same as the reference's. Buckets are contiguous leaf
@@ -62,6 +67,7 @@ from oktopk_tpu_torch.collectives.registry import (
 from oktopk_tpu_torch.collectives.state import (SKIP_ADVANCES, SparseState,
                                               init_state)
 from oktopk_tpu_torch.config import OkTopkConfig
+from oktopk_tpu_torch.obs.anatomy import phase_scope
 from oktopk_tpu_torch.obs.metrics_buffer import init_buffer
 from oktopk_tpu_torch.obs.quality import commit, measure_bucket
 from oktopk_tpu_torch.resilience import guard as _guard
@@ -220,8 +226,9 @@ class SparseGradStep:
                 # the compressor plus its residual, pmean'd
                 dense_q = self.comm.pmean(g + self.states[bi].residual)
             olds.append(self.states[bi])
-            out, st = self.algos[bi](g, self.states[bi], self.cfgs[bi],
-                                     self.comm)
+            with phase_scope(bucket=bi):
+                out, st = self.algos[bi](g, self.states[bi], self.cfgs[bi],
+                                         self.comm)
             reduced[s:e] = out[0]
             self.states[bi] = st
             if self.qualities is not None:

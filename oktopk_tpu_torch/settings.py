@@ -16,8 +16,12 @@ is built:
 - ``PROFILING_GRAD`` -> ``main_trainer`` dumps the gradient stream's
   sparse state (``grad_dumps/iter_<step>.npz``) after each chunk.
 
+- ``ANATOMY`` -> ``obs/anatomy.py``'s phase ranges (on unless
+  ``OKTOPK_ANATOMY`` is ``0``, ``false`` or ``off``, as the JAX
+  package's ``obs/anatomy.py`` reads it).
+
 Env overrides: OKTOPK_DEBUG / OKTOPK_PROFILING / OKTOPK_PROFILING_NORM /
-OKTOPK_PROFILING_GRAD / OKTOPK_TENSORBOARD.
+OKTOPK_PROFILING_GRAD / OKTOPK_TENSORBOARD / OKTOPK_ANATOMY.
 """
 
 import os
@@ -33,3 +37,5 @@ PROFILING = _env_flag("OKTOPK_PROFILING")
 PROFILING_NORM = _env_flag("OKTOPK_PROFILING_NORM")
 PROFILING_GRAD = _env_flag("OKTOPK_PROFILING_GRAD")
 TENSORBOARD = _env_flag("OKTOPK_TENSORBOARD")
+ANATOMY = os.environ.get("OKTOPK_ANATOMY", "1").lower() not in (
+    "0", "false", "off")

@@ -9,7 +9,8 @@ Counterpart of ``oktopk_tpu/train/main_trainer.py``: the flags of its
 checkpoint and preemption flags of :148-169 (``--ckpt-dir``,
 ``--ckpt-every``, ``--ckpt-async``, ``--ckpt-keep``, ``--ckpt-force``,
 ``--resume``, ``--handle-preemption``), the run journal's of :95-139
-(``--obs``, ``--obs-journal``, ``--obs-quality``,
+(``--obs``, ``--obs-journal``, ``--obs-trace-on-anomaly``,
+``--obs-trace-steps``, ``--obs-quality``,
 ``--obs-quality-every``, ``--obs-regress-key``, ``--sigma-scale``,
 ``--logdir``, ``--trace-at``, ``--trace-steps``, ``--phase-timers``),
 the resilience flags of :63-105 (``--resilience``,
@@ -212,6 +213,13 @@ def parse_args(argv=None):
     p.add_argument("--obs-journal", default=None,
                    help="run-journal path (default: "
                         "<logdir>/<slug>/run_journal.jsonl, rank 0 only)")
+    p.add_argument("--obs-trace-on-anomaly", action="store_true",
+                   help="arm a bounded torch.profiler window on "
+                        "guard_trip/fallback events and breached quality "
+                        "rollups (obs/tracing.py): a Chrome trace per "
+                        "rank under traces/ beside the journal")
+    p.add_argument("--obs-trace-steps", type=int, default=3,
+                   help="steps per anomaly-triggered trace window")
     p.add_argument("--obs-regress-key", default=None,
                    help="BENCH_r*.json key (e.g. oktopk_ms; the JAX "
                         "package's records) to baseline step-time "
@@ -301,6 +309,8 @@ def configs(args, workers: int):
         autotune_retune_every=args.autotune_retune_every,
         autotune_journal=args.autotune_journal,
         obs=args.obs, obs_regress_key=args.obs_regress_key,
+        obs_trace_on_anomaly=args.obs_trace_on_anomaly,
+        obs_trace_steps=args.obs_trace_steps,
         obs_quality=args.obs_quality,
         obs_quality_every=args.obs_quality_every,
         resilience=args.resilience,
@@ -333,7 +343,9 @@ def build_trainer(args, config_overrides=None, algo_overrides=None,
     True without the files). With ``--obs`` rank 0's journal is
     ``--obs-journal``, else ``<logdir>/<slug>/run_journal.jsonl``; the
     health journal (``--resilience-journal``) is rank 0's alone too.
-    So is the decision journal (``--autotune-journal``).
+    So is the decision journal (``--autotune-journal``). The anomaly
+    traces of every rank go to ``traces/`` beside rank 0's journal, one
+    file a rank.
     ``config_overrides`` / ``algo_overrides`` replace fields of the
     ``TrainConfig`` / ``OkTopkConfig`` the flags give (a drill's
     cadences), and ``fault_plan`` goes to the Trainer."""
@@ -352,10 +364,13 @@ def build_trainer(args, config_overrides=None, algo_overrides=None,
     cfg, algo_cfg = configs(args, workers)
     cfg = dataclasses.replace(cfg, **(config_overrides or {}))
     algo_cfg = algo_cfg.replace(**(algo_overrides or {}))
+    journal = args.obs_journal or os.path.join(run_dir(args, cfg),
+                                               "run_journal.jsonl")
     if args.obs and penv.is_coordinator:
-        cfg = dataclasses.replace(cfg, obs_journal=(
-            args.obs_journal or os.path.join(run_dir(args, cfg),
-                                             "run_journal.jsonl")))
+        cfg = dataclasses.replace(cfg, obs_journal=journal)
+    if args.obs_trace_on_anomaly and cfg.obs_trace_dir is None:
+        cfg = dataclasses.replace(cfg, obs_trace_dir=os.path.join(
+            os.path.dirname(os.path.abspath(journal)), "traces"))
     if not penv.is_coordinator:
         cfg = dataclasses.replace(cfg, resilience_journal=None,
                                   autotune_journal=None)

@@ -8,22 +8,36 @@ Counterpart of the parts of ``oktopk_tpu/train/trainer.py`` and
 ``nsteps_update``, ``grad_clip``, momentum correction and
 ``profile_norm``, the workload dispatch of :44-53, :98-107, :558-624
 for the CNN zoo, BERT pretraining, the PTB LSTM and DeepSpeech on AN4,
-the run journal with its quality taps, the resilience surface and the
-autotuner with its fault feedback loop, each below). Not ported yet
-(ROADMAP.md item 17d): step anatomy and anomaly tracing.
+the run journal with its quality taps and anomaly tracer, the step's
+anatomy scopes, the resilience surface and the autotuner with its fault
+feedback loop, each below).
 
 With ``cfg.obs`` the Trainer runs the JAX Trainer's run journal
-(:121-170, less the anomaly tracer): an ``EventBus`` and a
+(:121-170): an ``EventBus`` and a
 ``RunJournal`` (``cfg.obs_journal``, in memory when None), then, with
 ``cfg.obs_quality``, the step's quality taps (``SparseGradStep``'s
 rings) and a ``RollupEngine`` built after the journal, so each
 ``quality_rollup`` lands directly after its ``quality`` event; with
-``cfg.obs_regress_key`` a ``RegressionDetector``. ``train`` journals a
+``cfg.obs_regress_key`` a ``RegressionDetector``; with
+``cfg.obs_trace_on_anomaly`` an ``obs.tracing.AnomalyTracer`` on the bus
+(:152-163: its directory ``cfg.obs_trace_dir``, else ``traces`` beside
+the journal, else a temporary directory), stepped before each step and
+closed at the end of ``train`` (:678-682, :746-747). ``train`` journals a
 ``step`` event per step on the log cadence from a pending list (one
 device-to-host copy a flush, no per-step sync), a ``phase`` event from
 its ``PhaseTimers``, the quality flush every ``cfg.obs_quality_every``
 steps (``_flush_quality``: one copy of the rings to the host), and at
 the end the tail flush and one ``volume_report`` per bucket.
+
+The step opens JAX's phase scopes (``obs/anatomy.py``): ``fwd_bwd``
+around every worker's forward and backward, the flat copy and the clip
+(JAX's :273, which scopes the gradient and the clip), the bucket
+containers in ``SparseGradStep``, and ``optimizer`` around the update
+(:401). They are host-side ranges, opened only while a profiler runs;
+the step is bit-identical with them on and off. Each backward goes
+through ``anatomy.backward_scope``, so that on the card the kernels
+autograd launches from its device thread land in an ``anat/fwd_bwd``
+range too.
 
 The train state goes in and out as the JAX package's ``DistTrainState``
 state dict (``train_state`` / ``load_train_state``, over
@@ -160,6 +174,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
+import tempfile
 import time
 import warnings
 from typing import Any, Dict, Iterable, Optional
@@ -177,11 +193,13 @@ from oktopk_tpu_torch.models import create_model
 from oktopk_tpu_torch.models.deepspeech import CONV_TIME_STRIDE
 from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
 from oktopk_tpu_torch.obs import volume as obs_volume
+from oktopk_tpu_torch.obs.anatomy import backward_scope, phase_scope
 from oktopk_tpu_torch.obs.journal import EventBus, RunJournal
 from oktopk_tpu_torch.obs.metrics_buffer import rows_since
 from oktopk_tpu_torch.obs.quality import QualityConfig, quality_event
 from oktopk_tpu_torch.obs.regress import RegressionDetector
 from oktopk_tpu_torch.obs.rollup import RollupEngine
+from oktopk_tpu_torch.obs.tracing import AnomalyTracer
 from oktopk_tpu_torch.ops import prng
 from oktopk_tpu_torch.optim import SGD, BertAdam
 from oktopk_tpu_torch.optim.distributed import SparseGradStep, flat_size
@@ -323,6 +341,7 @@ class Trainer:
         self.run_journal = None
         self.regress = None
         self.rollup = None
+        self.tracer = None
         self._quality_cfg = None
         self.quality_flushes = 0   # host drains of the quality rings
         self._q_cursors = {}       # bucket -> last drained ring cursor
@@ -343,6 +362,17 @@ class Trainer:
                     churn_limit=cfg.obs_quality_churn_limit,
                     comp_err_limit=cfg.obs_quality_comp_err_limit,
                     on_breach=self._on_quality_breach)
+            if cfg.obs_trace_on_anomaly:
+                tdir = cfg.obs_trace_dir
+                if tdir is None:
+                    tdir = (os.path.join(os.path.dirname(
+                                os.path.abspath(cfg.obs_journal)), "traces")
+                            if cfg.obs_journal
+                            else tempfile.mkdtemp(prefix="oktopk_traces_"))
+                self.tracer = AnomalyTracer(
+                    tdir, bus=self.bus, num_steps=cfg.obs_trace_steps,
+                    max_captures=cfg.obs_max_traces,
+                    rank=self.comm.first_worker)
             if cfg.obs_regress_key:
                 self.regress = RegressionDetector.from_bench_records(
                     key=cfg.obs_regress_key, bus=self.bus,
@@ -591,31 +621,34 @@ class Trainer:
         self._rng = pair[0]
         mb_keys = self.microbatch_keys(pair[1])
         worker = []
-        for i in range(W):
-            for p in self.params:
-                p.grad = None
-            sums = {}
-            for j in range(ns):      # autograd adds the microbatch grads
-                rows = slice((i * ns + j) * b, (i * ns + j + 1) * b)
-                loss, aux = self._loss({k: v[rows] for k, v in data.items()},
-                                       first + i, mb_keys[i, j])
-                loss.backward()
-                for k, v in {"loss": loss, **aux}.items():
-                    sums[k] = sums.get(k, 0.0) + v.detach()
-            self._write_flat_grad(i)
-            worker.append({k: v / ns for k, v in sums.items()})
-        if ns > 1:
-            self.flat.div_(ns)
-        if self.cfg.grad_clip is not None:
-            norm = torch.sqrt(torch.sum(self.flat * self.flat, 1,
-                                        keepdim=True))
-            self.flat.mul_(torch.clamp(self.cfg.grad_clip / (norm + 1e-12),
-                                       max=1.0))
+        with phase_scope("fwd_bwd"):
+            for i in range(W):
+                for p in self.params:
+                    p.grad = None
+                sums = {}
+                for j in range(ns):  # autograd adds the microbatch grads
+                    rows = slice((i * ns + j) * b, (i * ns + j + 1) * b)
+                    loss, aux = self._loss(
+                        {k: v[rows] for k, v in data.items()}, first + i,
+                        mb_keys[i, j])
+                    backward_scope(loss).backward()
+                    for k, v in {"loss": loss, **aux}.items():
+                        sums[k] = sums.get(k, 0.0) + v.detach()
+                self._write_flat_grad(i)
+                worker.append({k: v / ns for k, v in sums.items()})
+            if ns > 1:
+                self.flat.div_(ns)
+            if self.cfg.grad_clip is not None:
+                norm = torch.sqrt(torch.sum(self.flat * self.flat, 1,
+                                            keepdim=True))
+                self.flat.mul_(torch.clamp(
+                    self.cfg.grad_clip / (norm + 1e-12), max=1.0))
         reduced, metrics, skip = self.grad_step(self.flat)
         if skip is not None:
             params_old = [p.detach().clone() for p in self.params]
             opt_old = self._opt_snapshot()
-        self._apply_update(reduced)
+        with phase_scope("optimizer"):
+            self._apply_update(reduced)
         if skip is not None:
             self._roll_back(skip, params_old, opt_old, stats_old)
         for p in self.params:
@@ -678,6 +711,11 @@ class Trainer:
             self.maybe_autotune(step)
             if trace is not None:
                 trace.on_step(step)
+            if self.tracer is not None:
+                # the anomaly-armed window opens on the step after a
+                # guard_trip / fallback / breached rollup and closes
+                # num_steps later with a trace_captured event
+                self.tracer.on_step(step)
             if timers is not None:
                 with timers.phase("data"):
                     batch = next(data_iter)
@@ -729,6 +767,8 @@ class Trainer:
             if timers is not None and logger is not None:
                 timers.maybe_log(step, logger)
         flush_pending()
+        if self.tracer is not None:
+            self.tracer.finish(self.last_step)
         if self._quality_cfg is not None:
             # the tail of the run, a partial window
             self._flush_quality(self.last_step)

@@ -34,13 +34,28 @@ the quality taps (``TrainConfig.obs`` and ``obs_quality``) and without,
 two trainers in turns (taps, none, none, taps; ``--steps`` steps each,
 after the warmup and first sparse step), then profiles ``--steps``
 steady steps of each: the ``obs_ab`` line and a ``kernels`` line each
-(``oktopk+taps``, ``oktopk``). Needs a CUDA device. Example:
+(``oktopk+taps``, ``oktopk``). Needs a CUDA device.
+
+``--anatomy`` instead captures one step anatomy with
+``obs/anatomy.py::capture_pipeline_anatomy`` (the counterpart of
+``scripts/profile_step.py``'s ``--anatomy``): over a
+``StackedComm(--anatomy-workers)``, a flat gradient of ``--anatomy-n``
+split in ``--anatomy-buckets``, each phase timed under its range,
+``step_anatomy`` and ``overlap_report`` journalled to
+``--anatomy-journal``, the trace under ``--anatomy-logdir`` (a fresh
+temporary directory by default), each ``--phase-limit PHASE=MS``
+checked; one ``ANATOMY {...}`` line. On the card unless ``--device
+cpu``. Examples:
 
     python3 scripts/port_profile.py --steps 4 --compressors oktopk,topkA
     python3 scripts/port_profile.py --model bert_base --steps 3
     python3 scripts/port_profile.py --model lstman4 --steps 4
     python3 scripts/port_profile.py --cudnn-ab --steps 6
     python3 scripts/port_profile.py --obs-ab --steps 6
+    python3 scripts/port_profile.py --anatomy --anatomy-n 14728266 \
+        --anatomy-buckets 2 --anatomy-workers 4
+    python3 scripts/port_profile.py --anatomy --device cpu \
+        --anatomy-n 262144 --phase-limit select=50
 """
 
 from __future__ import annotations
@@ -157,6 +172,8 @@ def profile_window(trainer, batches, args, comp, window):
     """Emit the ``kernels`` line of ``batches`` run under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from oktopk_tpu_torch.obs.anatomy import parse_scope_level
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -170,7 +187,9 @@ def profile_window(trainer, batches, args, comp, window):
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
             dt = getattr(e, "self_cuda_time_total", 0)
-        if dt and e.device_type == torch.autograd.DeviceType.CUDA:
+        # the phase ranges' spans on the stream are not kernels
+        if (dt and e.device_type == torch.autograd.DeviceType.CUDA
+                and parse_scope_level(e.key) is None):
             kern[e.key] = (kern.get(e.key, (0.0, 0))[0] + dt / 1e3,
                            kern.get(e.key, (0.0, 0))[1] + e.count)
     busy = sum(v[0] for v in kern.values())
@@ -242,6 +261,60 @@ def obs_ab(args):
     torch.cuda.empty_cache()
 
 
+def _parse_phase_limits(specs):
+    """``["select=5", ...]`` -> ``{"select": 5.0}``."""
+    limits = {}
+    for spec in specs or []:
+        name, _, val = spec.partition("=")
+        if not name or not val:
+            raise SystemExit(f"--phase-limit wants PHASE=MS, got {spec!r}")
+        limits[name.strip()] = float(val)
+    return limits
+
+
+def anatomy_main(args) -> int:
+    """--anatomy: capture one step anatomy over stacked workers, journal
+    it and check the phase limits."""
+    import tempfile
+
+    from oktopk_tpu_torch.comm import StackedComm
+    from oktopk_tpu_torch.config import OkTopkConfig
+    from oktopk_tpu_torch.obs.anatomy import (capture_pipeline_anatomy,
+                                              phase_totals)
+    from oktopk_tpu_torch.obs.journal import EventBus, RunJournal
+    from oktopk_tpu_torch.obs.regress import RegressionDetector
+
+    P = args.anatomy_workers
+    cfg = OkTopkConfig(n=args.anatomy_n, num_workers=P,
+                       density=args.density, warmup_steps=0)
+    bus = EventBus()
+    RunJournal(args.anatomy_journal, bus)
+    logdir = args.anatomy_logdir or tempfile.mkdtemp(
+        prefix="oktopk_anatomy_")
+    analysis = capture_pipeline_anatomy(
+        cfg, StackedComm(P), logdir, num_buckets=args.anatomy_buckets,
+        iters=max(2, min(args.steps, 5)), bus=bus, step=0,
+        device=args.device)
+    out = {"journal": args.anatomy_journal, "logdir": logdir,
+           "workers": P, "buckets": args.anatomy_buckets,
+           "n": args.anatomy_n, "device": args.device}
+    limits = _parse_phase_limits(args.phase_limit)
+    if analysis is None:
+        out["anatomy_unavailable"] = "profiler capture failed"
+    else:
+        out.update({k: analysis[k] for k in
+                    ("compute_ms", "comm_ms", "overlap_ms",
+                     "overlap_ratio", "step_ms", "ideal_ms",
+                     "serialization_ms", "critical_phase")})
+        out["phase_totals_ms"] = phase_totals(analysis)
+        if limits:
+            det = RegressionDetector(None, bus=bus, phase_limits=limits)
+            breaches = det.observe_phases(0, out["phase_totals_ms"])
+            out["phase_breaches"] = [b["key"] for b in breaches]
+    print("ANATOMY " + json.dumps(out), flush=True)
+    return 0
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="vgg16",
@@ -264,6 +337,25 @@ def main():
     p.add_argument("--obs-ab", action="store_true",
                    help="time VGG-16's oktopk step with the quality taps "
                         "and without, in turns")
+    p.add_argument("--anatomy", action="store_true",
+                   help="capture, analyse and journal a step anatomy "
+                        "(obs/anatomy.py) instead of the step profile")
+    p.add_argument("--anatomy-journal", default="anatomy_journal.jsonl",
+                   metavar="PATH", help="run-journal JSONL for --anatomy")
+    p.add_argument("--anatomy-buckets", type=int, default=4)
+    p.add_argument("--anatomy-workers", type=int, default=8,
+                   help="stacked workers for --anatomy")
+    p.add_argument("--anatomy-n", type=int, default=1 << 18,
+                   help="flat gradient length for the --anatomy probes")
+    p.add_argument("--anatomy-logdir", default=None,
+                   help="profiler trace dir (default: fresh tempdir)")
+    p.add_argument("--phase-limit", action="append", default=[],
+                   metavar="PHASE=MS",
+                   help="journal a regression when a phase-family total "
+                        "exceeds MS (repeatable; --anatomy mode)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="--anatomy's device (the step profiles need the "
+                        "card)")
     args = p.parse_args()
     bert = args.model.startswith("bert")
     if args.batch is None:
@@ -278,6 +370,8 @@ def main():
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
+    if args.anatomy and args.device == "cpu":
+        return anatomy_main(args)
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
         return 2
@@ -285,6 +379,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     emit({"card": smi, "torch": torch.__version__, **vars(args)})
+    if args.anatomy:
+        return anatomy_main(args)
     if args.cudnn_ab:
         cudnn_ab(args)
         return 0

@@ -44,6 +44,7 @@ def _sources():
                 "train/durable.py", "train/checkpoint.py",
                 "train/preemption.py", "train/evaluate.py",
                 "train/glue.py", "obs/events.py", "obs/journal.py",
+                "obs/anatomy.py", "obs/tracing.py",
                 "obs/rollup.py", "obs/export.py", "obs/regress.py",
                 "autotune/journal.py", "utils/logging.py",
                 "utils/profiling.py", "resilience/__init__.py",

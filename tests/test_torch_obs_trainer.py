@@ -384,3 +384,212 @@ def test_launch_lines_parse_as_jax(script, extra):
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert dataclasses.asdict(algo) == dataclasses.asdict(jalgo)
+
+
+# ---- the anomaly tracer (obs/tracing.py) -----------------------------------
+
+def _tracer_pair(tmp_path, **kw):
+    """The port's AnomalyTracer and JAX's, each on its own bus and
+    journal (JAX's profiler seam stubbed: a CPU jax.profiler capture is
+    not what is held here)."""
+    from oktopk_tpu.obs.journal import EventBus as JBus
+    from oktopk_tpu.obs.journal import RunJournal as JJournal
+    from oktopk_tpu.obs.tracing import AnomalyTracer as JTracer
+    from oktopk_tpu_torch.obs.journal import EventBus, RunJournal
+    from oktopk_tpu_torch.obs.tracing import AnomalyTracer
+    bus, jbus = EventBus(), JBus()
+    journals = RunJournal(None, bus), JJournal(None, jbus)
+    tracers = (AnomalyTracer(str(tmp_path / "port"), bus=bus, **kw),
+               JTracer(str(tmp_path / "jax"), bus=jbus, **kw))
+    return (bus, jbus), journals, tracers
+
+
+def _captures(journal):
+    return [dict(e, logdir=e["logdir"] and os.path.basename(e["logdir"]))
+            for e in journal.entries if e["event"] == "trace_captured"]
+
+
+def test_tracer_arms_on_breached_rollup_only(tmp_path):
+    buses, _, tracers = _tracer_pair(tmp_path)
+    for b in buses:
+        b.emit("quality_rollup", step=8, bucket=0, breaches=[])
+    assert [t._armed for t in tracers] == [None, None]
+    for b in buses:
+        b.emit("quality_rollup", step=16, bucket=0,
+               breaches=["residual_growth"])
+    assert [t._armed for t in tracers] == ["quality_rollup@step16"] * 2
+
+
+def test_tracer_windows_journal_like_jax(tmp_path, monkeypatch):
+    monkeypatch.setattr(jax.profiler, "start_trace", lambda d: None)
+    monkeypatch.setattr(jax.profiler, "stop_trace", lambda: None)
+    buses, journals, tracers = _tracer_pair(tmp_path, num_steps=2,
+                                            max_captures=2)
+    for step in range(1, 16):
+        for b in buses:
+            if step in (3, 4, 9, 12):      # 4 and 10 land inside windows
+                b.emit("guard_trip", step=step, buckets=[0],
+                       consecutive_skips=1, strikes=[1])
+            if step == 10:
+                b.emit("fallback", step=step, bucket=0, algo="dense",
+                       strikes=3)
+        for t in tracers:
+            t.on_step(step)
+    for t in tracers:
+        t.finish(16)
+    got, want = (_captures(j) for j in journals)
+    assert got == want
+    assert [c["trigger"] for c in got] == ["guard_trip@step3",
+                                           "guard_trip@step9"]
+    assert [c["logdir"] for c in got] == ["anomaly_step3",
+                                          "anomaly_step9"]
+    for j in journals:
+        assert jax_validate(j.entries) == []
+        assert validate_journal(j.entries) == []
+    # the port's window wrote a real Chrome trace, named by rank
+    for c in got:
+        path = tmp_path / "port" / c["logdir"] / "rank0.pt.trace.json"
+        assert json.load(open(path))["traceEvents"]
+
+
+def test_tracer_profiler_busy_journals_null_logdir(tmp_path):
+    from oktopk_tpu_torch.obs.journal import EventBus, RunJournal
+    from oktopk_tpu_torch.obs.tracing import AnomalyTracer
+    from oktopk_tpu_torch.utils.profiling import TraceWindow
+    bus = EventBus()
+    journal = RunJournal(None, bus)
+    tracer = AnomalyTracer(str(tmp_path), bus=bus, num_steps=1, rank=3)
+    window = TraceWindow(str(tmp_path / "trace"), start_step=1,
+                         num_steps=3)
+    window.on_step(1)                     # --trace-at's window is open
+    bus.emit("fallback", step=1, bucket=0, algo="dense", strikes=3)
+    tracer.on_step(2)
+    tracer.on_step(3)
+    window.close()
+    cap = [e for e in journal.entries if e["event"] == "trace_captured"]
+    assert len(cap) == 1 and cap[0]["logdir"] is None
+    assert cap[0]["trigger"] == "fallback@step1"
+    assert jax_validate(journal.entries) == []
+    assert window.path is not None
+
+
+# ---- the unified journal (tests/test_obs.py:159-235) in both packages ------
+
+UNIFIED_STEPS = 30
+
+
+@pytest.fixture(scope="module")
+def unified_runs(mesh4, tmp_path_factory):
+    """JAX's ``test_unified_journal_end_to_end`` run and the port's: the
+    same config, fault plan (a wire bit-flip from worker 2 at step 5 for
+    two steps), fake trial timings and batches; each package's profiler
+    seam stubbed."""
+    from oktopk_tpu.autotune.journal import read_journal as jread
+    from oktopk_tpu.collectives import wire as jwire
+    from oktopk_tpu.config import OkTopkConfig as JCfg
+    from oktopk_tpu.config import TrainConfig as JTrain
+    from oktopk_tpu.data.synthetic import synthetic_batch as jbatch
+    from oktopk_tpu.resilience import faults as jfaults
+    from oktopk_tpu.train.trainer import Trainer as JTrainer
+    from oktopk_tpu_torch.collectives import wire
+    from oktopk_tpu_torch.data.synthetic import synthetic_batch
+    from oktopk_tpu_torch.resilience import faults
+    from oktopk_tpu_torch.utils import profiling
+
+    d = tmp_path_factory.mktemp("unified")
+    common = dict(dnn="mnistnet", dataset="mnist", batch_size=8, lr=0.05,
+                  compressor="oktopk", density=0.05, resilience=True,
+                  resilience_cooldown=0, autotune=True, obs=True,
+                  obs_quality=True, obs_quality_every=8,
+                  obs_trace_on_anomaly=True, obs_trace_steps=2,
+                  obs_regress_key="oktopk_ms")
+    algo = dict(warmup_steps=0, local_recompute_every=2,
+                global_recompute_every=4, repartition_every=4)
+    spec = dict(step=5, duration=2, worker=2)
+
+    def fake(algo_name, n, density):
+        return 5.0 if algo_name == "dense" else 1.0
+
+    out = {"prof": [], "jprof": []}
+    jplan = jfaults.FaultPlan((jfaults.FaultSpec("wire_bitflip", **spec),))
+    prev = jwire.install_wire_fault(jfaults.make_wire_hook(jplan))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.profiler, "start_trace",
+                   lambda t: out["jprof"].append(("start", t)))
+        mp.setattr(jax.profiler, "stop_trace",
+                   lambda: out["jprof"].append(("stop", None)))
+        try:
+            jt = JTrainer(JTrain(**common,
+                                 obs_journal=str(d / "jax.jsonl"),
+                                 obs_trace_dir=str(d / "jax_traces")),
+                          mesh=mesh4, warmup=False, algo_cfg=JCfg(**algo),
+                          fault_plan=jplan)
+            jt.autotune(step=0, fake_ms=fake)
+            rng = np.random.RandomState(9)
+            jt.train(iter([jbatch("mnistnet", 8, rng)
+                           for _ in range(UNIFIED_STEPS)]), UNIFIED_STEPS,
+                     log_every=10)
+        finally:
+            jwire.install_wire_fault(prev)
+
+        mp.setattr(profiling, "_start_profiler",
+                   lambda: out["prof"].append("start") or "prof")
+        mp.setattr(profiling, "_stop_profiler",
+                   lambda prof, path: out["prof"].append(path) or path)
+        plan = faults.FaultPlan((faults.FaultSpec("wire_bitflip", **spec),))
+        tt = Trainer(TrainConfig(**common, num_workers=4,
+                                 obs_journal=str(d / "port.jsonl"),
+                                 obs_trace_dir=str(d / "port_traces")),
+                     warmup=False, algo_cfg=OkTopkConfig(**algo),
+                     fault_plan=plan, device="cpu")
+        prev = wire.install_wire_fault(faults.make_wire_hook(plan, tt.comm))
+        try:
+            tt.autotune(step=0, fake_ms=fake)
+            rng = np.random.RandomState(9)
+            tt.train(iter([synthetic_batch("mnistnet", 8, rng)
+                           for _ in range(UNIFIED_STEPS)]), UNIFIED_STEPS,
+                     log_every=10)
+        finally:
+            wire.install_wire_fault(prev)
+    out.update(port=read_journal(str(d / "port.jsonl")),
+               jax=jread(str(d / "jax.jsonl")), dir=d)
+    return out
+
+
+def test_unified_journal_matches_jax(unified_runs):
+    r = unified_runs
+    port, jx = r["port"], r["jax"]
+    events = [e["event"] for e in port]
+    assert events == [e["event"] for e in jx]
+    assert events[0] == "header" and events.count("header") == 1
+    for name in ("autotune_decision", "step", "fault_seen", "guard_trip",
+                 "volume_report", "trace_captured"):
+        assert name in events, name
+    trips = [e["step"] for e in port if e["event"] == "guard_trip"]
+    assert trips == [e["step"] for e in jx if e["event"] == "guard_trip"]
+    assert trips
+    # the trip armed a window that closed in the same journal, after it
+    assert events.index("guard_trip") < events.index("trace_captured")
+    cap = [e for e in port if e["event"] == "trace_captured"]
+    jcap = [e for e in jx if e["event"] == "trace_captured"]
+    assert [(c["trigger"], c["start_step"], c["step"]) for c in cap] == \
+        [(c["trigger"], c["start_step"], c["step"]) for c in jcap]
+    assert cap[0]["trigger"].startswith("guard_trip@")
+    assert cap[0]["logdir"] == os.path.join(
+        str(r["dir"] / "port_traces"), f"anomaly_step{cap[0]['start_step']}")
+    assert r["prof"][0] == "start" and r["prof"][-1] == os.path.join(
+        cap[0]["logdir"], "rank0.pt.trace.json")
+    assert r["jprof"][0][0] == "start" and r["jprof"][-1][0] == "stop"
+    assert sum(e["event"] == "step" for e in port) == UNIFIED_STEPS
+    assert all(e.get("wire_bytes", 0) > 0 for e in port
+               if e["event"] == "step")
+    assert jax_validate(port) == [] and validate_journal(port) == []
+
+
+def test_unified_journal_renders(unified_runs):
+    spec = importlib.util.spec_from_file_location(
+        "obs_report", os.path.join(ROOT, "scripts", "obs_report.py"))
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    text = report.render_report(unified_runs["port"])
+    assert "schema: OK" in text, text
