@@ -344,7 +344,33 @@ directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
               settings (P = 8, batch 8 a worker, lr 0.05, d = 0.05, 80
               steps, no warmup): the mean loss of the last quarter of
               oktopk under 1.10 x dense's, both falling, K1 and the
-              compaction launched (``mnistnet convergence``).
+              compaction launched (``mnistnet convergence``);
+43. pipeline_kernels — (after ``vgg16_bucket_kernels``) K1 and the
+              compaction's two oktopk forms at the pipeline's buckets of
+              BERT-base at pp = 2, each reduced over a data group of dp =
+              2 (R = 2 packs): a stage, n = 42,527,232
+              (``bert_pp_stage_sweep``, ``_pack_a``, ``_select_b``), and
+              the shared bucket, n = 25,051,964 (``bert_pp_shared_*``),
+              bit-equal and timed as above;
+44. pipeline — (after ``bert_trainer``) item 16a on the main path:
+              ``main_bert --model bert_base --pipeline-stages 2
+              --num-workers 4 --num-microbatches 4 --batch-size 8
+              --compressor oktopk --density 0.01`` through its
+              ``build_pipeline``: a data x pipe grid of 2 x 2 stacked on
+              the card, five steps (the exact one, four steady), K1, the
+              compaction and threefry launched (``launches_by_path``
+              ``bert pipeline``), host ms a step, one profiled step
+              (device busy ms), peak memory; the same with ``--remat``,
+              losses, volumes and parameters bit-identical; two
+              ``--compressor dense`` steps; one ``bert_tiny`` step card
+              against CPU (loss within rtol 1e-5, thresholds within
+              ``PIPE_TINY_ULPS``); its own budget, ``PIPELINE_BUDGET_S``;
+45. dist_pipeline — (after ``dist_bert``) the pipeline as four gloo
+              ranks on the card, pp = 2 x dp = 2 over ``dist.new_group``
+              groups, ``bert_tiny`` with dropout 0.1, three oktopk steps:
+              losses and volumes equal, and each rank's stage, shared
+              parameters, BertAdam moments and sparse-state row bit-equal
+              (sha1) to the stacked grid's.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -2846,6 +2872,241 @@ def phase_bert_trainer(dev, steps: int = 5):
     return launches
 
 
+# ---- the pipeline slice: BERT-base over a data x pipe grid (item 16a) ----
+
+PIPELINE_BUDGET_S = 90.0      # the pipeline phase's own budget
+N_PP_STAGE = 42527232         # a BERT-base stage bucket at pp = 2 (6 layers)
+N_PP_SHARED = 25051964        # its shared bucket (embeddings, pooler, heads)
+PIPELINE_ARGV = ["--model", "bert_base", "--pipeline-stages", "2",
+                 "--num-workers", "4", "--num-microbatches", "4",
+                 "--batch-size", "8", "--compressor", "oktopk",
+                 "--density", "0.01"]
+PIPELINE_STEPS = 5            # the exact step, then four steady ones
+PIPE_TINY_ARGV = ["--model", "bert_tiny", "--pipeline-stages", "2",
+                  "--num-workers", "4", "--num-microbatches", "2",
+                  "--batch-size", "2", "--density", "0.02"]
+PIPE_TINY_ULPS = 64
+
+
+def pipeline_params_digest(staged) -> dict:
+    """sha1 of each stage's and of the shared parameters, in state_dict
+    order."""
+    import hashlib
+    out = {}
+    for k, v in staged.state_dict().items():
+        part = k.split(".")[1] if k.startswith("stages.") else "shared"
+        h = out.setdefault(f"stage{part}" if part != "shared" else part,
+                           hashlib.sha1())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return {k: h.hexdigest() for k, h in out.items()}
+
+
+def pipeline_run(dev, argv, steps: int, profile: bool = False,
+                 digests: bool = False):
+    """``steps`` steps of the pipeline path built by the CLI's own
+    ``main_bert.build_pipeline``, launch counters set to 0 just before
+    and read just after: per-step metrics and host ms (with ``digests``
+    each step's parameter digests, outside the timed span), the
+    launches, peak memory, the parameters' digests, and with ``profile``
+    one more step under the profiler (device busy ms and launches)."""
+    import torch
+    from oktopk_tpu_torch.train import main_bert
+
+    args = main_bert.parse_args(argv + ["--num-minibatches", str(steps),
+                                        "--seed", str(SEED), "--device",
+                                        str(dev)])
+    t0 = time.perf_counter()
+    run = main_bert.build_pipeline(args)
+    build_s = time.perf_counter() - t0
+    batches = [next(run.data) for _ in range(steps + 1)]
+    keys = [run.next_key() for _ in range(steps + 1)]
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    recs = []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        m = run.step(batches[s], keys[s])
+        if cuda:
+            torch.cuda.synchronize()
+        recs.append({**{k: float(v) for k, v in m.items()}, "step": s + 1,
+                     "ms": (time.perf_counter() - t0) * 1e3})
+        if digests:
+            recs[-1]["digest"] = pipeline_params_digest(run.staged)
+    launches = read_counts()
+    out = {"run": run, "recs": recs, "launches": launches,
+           "build_s": build_s, "digest": pipeline_params_digest(run.staged),
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                       if cuda else None)}
+    if profile:
+        counts, by_op = profile_window(
+            lambda: run.step(batches[steps], keys[steps]), 1)
+        out["profiled"] = {"busy_ms": sum(by_op.values()),
+                           "launches": sum(counts.values()),
+                           "top": dict(sorted(by_op.items(),
+                                              key=lambda kv: -kv[1])[:8])}
+    for r in recs:
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"pipeline step {r['step']}: loss "
+                                 f"{r['loss']}")
+    return out
+
+
+def embedding_repeats(dev, reps: int = 8) -> dict:
+    """The lookup gradients of a pipeline data row's 32 x 128 ids, ``reps``
+    times from the same inputs: the word table's (random ids, the [MASK]
+    id every 7th) and the token-type table's (every id 0: one segment of
+    4,096). How many distinct results CUDA's own embedding backward
+    gives, and the port's ``embedding_grad`` (chunks of
+    ``EMBED_GRAD_CHUNK``), which must give one."""
+    import hashlib
+
+    import torch
+    from oktopk_tpu_torch.models.layers import embedding_grad
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    word = torch.randint(0, N_VOCAB_BASE, (32, 128), generator=gen,
+                         device=dev)
+    word[:, ::7] = 103
+    g = torch.randn((32, 128, 768), generator=gen, device=dev)
+
+    def distinct(fn):
+        return len({hashlib.sha1(fn().cpu().numpy().tobytes()).hexdigest()
+                    for _ in range(reps)})
+
+    out = {"reps": reps}
+    for name, ids, rows in (("word", word, N_VOCAB_BASE),
+                            ("token_type", torch.zeros_like(word), 2)):
+        out[name] = {
+            "torch_distinct": distinct(
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    g, ids, rows, -1, False)),
+            "port_distinct": distinct(lambda: embedding_grad(g, ids, rows))}
+        if out[name]["port_distinct"] != 1:
+            raise AssertionError(f"embedding_grad does not repeat: {out}")
+    return out
+
+
+def pipeline_thresholds(run) -> dict:
+    """Each bucket's local and global thresholds, [W_d] rows."""
+    states, shared = run.step.sstates
+    out = {f"stage{s}": st for s, st in zip(run.staged.stage_ids, states)}
+    out["shared"] = shared
+    return {b: {f: getattr(st, f).detach().cpu() for f in
+                ("local_threshold", "global_threshold")}
+            for b, st in out.items()}
+
+
+def phase_pipeline(dev) -> dict:
+    """The pipeline slice at full width through ``main_bert``'s pipeline
+    path: BERT-base (n = 110,106,428) over a data x pipe grid of dp = 2 x
+    pp = 2 stacked on the card (6 layers a stage), M = 4 microbatches of
+    8, seq 128, dropout 0.1, each stage bucket (42,527,232) and the
+    shared bucket (25,051,964) through oktopk at d = 0.01 over its data
+    group, BertAdam on each: five steps (the exact recompute, then four
+    steady ones), counters set to 0 just before and read just after (K1,
+    the compaction and threefry launched), per-step host ms, one profiled
+    step (device busy ms), peak memory; the same five steps with
+    ``--remat``, losses, volumes and parameters bit-identical; two
+    ``--compressor dense`` steps; one ``bert_tiny`` step on the card and
+    on the CPU from one seed: losses within rtol 1e-5, each bucket's
+    thresholds within ``PIPE_TINY_ULPS`` ulps; first, the word table's
+    lookup gradient at a data row's 32 x 128 ids repeated
+    (``embedding_repeats``). Its own budget,
+    ``PIPELINE_BUDGET_S``. Returns the five steps' launches."""
+    import torch
+    t_phase = time.perf_counter()
+    embed = embedding_repeats(dev)
+    main = pipeline_run(dev, PIPELINE_ARGV, PIPELINE_STEPS, profile=True,
+                        digests=True)
+    grid, step = main["run"].grid, main["run"].step
+    if (grid.dp, grid.pp) != (2, 2):
+        raise AssertionError(f"pipeline grid {grid.dp} x {grid.pp}")
+    sizes = [b.n for b in step.stage_buckets] + [step.shared_bucket.n]
+    if sizes != [N_PP_STAGE, N_PP_STAGE, N_PP_SHARED]:
+        raise AssertionError(f"pipeline bucket sizes {sizes}")
+    del step
+    assert_launched(main["launches"], DROPOUT_KERNELS, "pipeline")
+    profiled = main.pop("profiled")
+    del main["run"]
+    torch.cuda.empty_cache()
+    remat = pipeline_run(dev, PIPELINE_ARGV + ["--remat"], PIPELINE_STEPS,
+                         digests=True)
+    del remat["run"]
+    torch.cuda.empty_cache()
+    same = {key: [r[key] for r in main["recs"]] == [r[key] for r in
+                                                      remat["recs"]]
+            for key in ("loss", "comm_volume", "digest")}
+    if not all(same.values()):
+        # which step and bucket parted first, and whether a second run
+        # without --remat parts from the first too (run to run)
+        again = pipeline_run(dev, PIPELINE_ARGV, PIPELINE_STEPS,
+                             digests=True)
+        del again["run"]
+        torch.cuda.empty_cache()
+
+        def first(a, b):
+            for r, w in zip(a["recs"], b["recs"]):
+                bad = [k for k in r["digest"] if r["digest"][k] !=
+                       w["digest"][k]]
+                if bad or r["loss"] != w["loss"]:
+                    return {"step": r["step"], "buckets": bad,
+                            "loss": [r["loss"], w["loss"]]}
+            return None
+
+        emit({"phase": "pipeline_remat_mismatch", "equal": same,
+              "remat_vs_plain": first(remat, main),
+              "plain_vs_plain": first(again, main)})
+        raise AssertionError(f"pipeline --remat: not bit-identical {same}")
+    dense = pipeline_run(dev, [a if a != "oktopk" else "dense"
+                               for a in PIPELINE_ARGV], 2)
+    del dense["run"]
+    torch.cuda.empty_cache()
+    tiny = {w: pipeline_run(w, PIPE_TINY_ARGV, 1) for w in (str(dev), "cpu")}
+    lc, lg = tiny["cpu"]["recs"][0]["loss"], tiny[str(dev)]["recs"][0]["loss"]
+    if abs(lg - lc) > 1e-5 * abs(lc):
+        raise AssertionError(f"pipeline bert_tiny card vs CPU: loss {lg} vs "
+                             f"{lc}")
+    thr = {w: pipeline_thresholds(t["run"]) for w, t in tiny.items()}
+    ulps = {b: {f: max_ulps(thr[str(dev)][b][f], thr["cpu"][b][f])
+                for f in thr["cpu"][b]} for b in thr["cpu"]}
+    worst = max(max(v.values()) for v in ulps.values())
+    if worst > PIPE_TINY_ULPS:
+        raise AssertionError(f"pipeline bert_tiny thresholds card vs CPU: "
+                             f"{ulps} ulps")
+    del tiny
+    ms = [r["ms"] for r in main["recs"]]
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "pipeline", "model": "bert_base", "n": N_BERT,
+          "grid": "dp 2 x pp 2 stacked", "microbatches": 4,
+          "microbatch": 8, "global_batch": 64, "seq": 128, "density": 0.01,
+          "buckets": {"stage": N_PP_STAGE, "shared": N_PP_SHARED},
+          "build_s": main["build_s"],
+          "losses": [r["loss"] for r in main["recs"]],
+          "comm_volume": [r["comm_volume"] for r in main["recs"]],
+          "step_ms": ms, "steady_step_ms": spread(ms[1:]),
+          "exact_step_ms": ms[0], "profiled_step": profiled,
+          "max_memory_allocated_gb": main["peak_gb"],
+          "launches": main["launches"],
+          "launches_per_step": {k: v / PIPELINE_STEPS
+                                for k, v in main["launches"].items()},
+          "remat": {"bit_identical": True,
+                    "step_ms": [r["ms"] for r in remat["recs"]],
+                    "max_memory_allocated_gb": remat["peak_gb"]},
+          "dense": {"losses": [r["loss"] for r in dense["recs"]],
+                    "step_ms": [r["ms"] for r in dense["recs"]],
+                    "launches": dense["launches"]},
+          "tiny_card_vs_cpu": {"loss_card": lg, "loss_cpu": lc,
+                               "threshold_ulps": ulps},
+          "embedding_grad_repeats": embed,
+          "seconds": secs})
+    if secs > PIPELINE_BUDGET_S:
+        raise AssertionError(f"pipeline took {secs:.1f} s of its "
+                             f"{PIPELINE_BUDGET_S:.0f} s budget")
+    return main["launches"]
+
+
 # ---- the LSTM slice: DeepSpeech on AN4 (CTC) and the PTB LSTM ------------
 
 def lstman4_tiny_weights(seed: int):
@@ -3783,6 +4044,130 @@ def phase_dist_bert(dev):
     emit({"phase": "dist_bert", "model": "bert_tiny", "dropout": 0.1,
           "ranks": DIST_P, "placement": f"4 gloo ranks on {dev}",
           "steps": 3, "bit_equal_to_stacked": True,
+          "losses": [w["loss"] for w in want],
+          "comm_volume": [w["comm_volume"] for w in want],
+          "stacked_step_ms": [w["ms"] for w in want],
+          "per_rank_step_ms": [[s["ms"] for s in res["steps"]]
+                               for res in ranks],
+          "stacked_launches": want_launches,
+          "per_rank_launches": [res["launches"] for res in ranks]})
+    return ranks[0]["launches"]
+
+
+PIPE_DIST_ARGV = ["--model", "bert_tiny", "--pipeline-stages", "2",
+                  "--num-microbatches", "2", "--batch-size", "2",
+                  "--density", "0.02", "--num-minibatches", "3", "--seed",
+                  str(SEED)]
+
+
+def run_pipeline_steps(run, steps: int = 3):
+    """``steps`` pipeline steps, counters set to 0 just before and read
+    just after: per-step metrics and host ms, the launches, and sha1
+    digests of each held stage's and the shared flat parameters and
+    BertAdam moments and of every sparse state field, by data row."""
+    import hashlib
+
+    import torch
+    batches = [next(run.data) for _ in range(steps)]
+    keys = [run.next_key() for _ in range(steps)]
+    torch.cuda.synchronize()
+    zero_counts()
+    recs = []
+    for b, k in zip(batches, keys):
+        t0 = time.perf_counter()
+        m = run.step(b, k)
+        torch.cuda.synchronize()
+        recs.append({**{k: float(v) for k, v in m.items()},
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    launches = read_counts()
+
+    def sha(t):
+        return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+    step = run.step
+    opt_stage, opt_shared = step.opt_states
+    states, shared_state = step.sstates
+    digests = {}
+    for i, d in enumerate(run.grid.data_rows):
+        for w, s in enumerate(run.grid.stages):
+            b = step.stage_buckets[w]
+            digests[f"row{d} stage{s}"] = {
+                "params": sha(b.flat(b.params)), "m": sha(opt_stage[w].m),
+                "v": sha(opt_stage[w].v),
+                **{f: sha(t[i]) for f, t in states[w].__dict__.items()
+                   if isinstance(t, torch.Tensor)}}
+        sb = step.shared_bucket
+        digests[f"row{d} shared"] = {
+            "params": sha(sb.flat(sb.params)), "m": sha(opt_shared.m),
+            "v": sha(opt_shared.v),
+            **{f: sha(t[i]) for f, t in shared_state.__dict__.items()
+               if isinstance(t, torch.Tensor)}}
+    return recs, launches, digests
+
+
+def _pipe_rank(rank: int, tmp: str, world: int, dev: str):
+    from oktopk_tpu_torch.train import main_bert
+    dist_join(rank, world, tmp, "gloo", dev)
+    run = main_bert.build_pipeline(main_bert.parse_args(
+        PIPE_DIST_ARGV + ["--device", dev, "--backend", "gloo"]))
+    if not run.grid.distributed:
+        raise AssertionError("main_bert did not take the multi-process "
+                             "pipeline")
+    recs, launches, digests = run_pipeline_steps(run)
+    return {"steps": recs, "launches": launches, "digests": digests,
+            "row": list(run.grid.data_rows), "stage": list(run.grid.stages)}
+
+
+def pipe_rank(rank, tmp, world, dev):
+    """Spawn target: the pipeline (bert_tiny, pp = 2) as one gloo rank of
+    ``world``, built by ``main_bert.build_pipeline``."""
+    dist_guard(_pipe_rank, rank, tmp, world, dev)
+
+
+def phase_dist_pipeline(dev):
+    """The pipeline across processes: ``bert_tiny`` with dropout 0.1
+    through ``main_bert.build_pipeline`` as four gloo ranks on the card,
+    pp = 2 x dp = 2 (rank d * 2 + s data row d, stage s, over
+    ``dist.new_group`` groups), against the stacked grid on the card from
+    the same seed; oktopk at d = 0.02, M = 2, three steps: losses and
+    volumes equal and each rank's stage and shared parameters, BertAdam
+    moments and sparse-state rows bit-equal (sha1) to the stacked grid's.
+    Returns rank 0's launches."""
+    import torch
+    from oktopk_tpu_torch.train import main_bert
+
+    run = main_bert.build_pipeline(main_bert.parse_args(
+        PIPE_DIST_ARGV + ["--device", str(dev), "--num-workers",
+                          str(DIST_P)]))
+    if run.grid.distributed:
+        raise AssertionError("the stacked pipeline was not built")
+    want, want_launches, want_digests = run_pipeline_steps(run)
+    del run
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(pipe_rank, DIST_P, (DIST_P, str(dev)),
+                        "dist_pipeline")
+    for r, res in enumerate(ranks):
+        d, s = divmod(r, 2)
+        if (res["row"], res["stage"]) != ([d], [s]):
+            raise AssertionError(f"dist_pipeline rank {r}: row "
+                                 f"{res['row']} stage {res['stage']}")
+        for i, (g, w) in enumerate(zip(res["steps"], want)):
+            for k in ("loss", "comm_volume"):
+                if g[k] != w[k]:
+                    raise AssertionError(f"dist_pipeline rank {r} step {i}:"
+                                         f" {k} {g[k]} vs stacked {w[k]}")
+        for part in (f"row{d} stage{s}", f"row{d} shared"):
+            bad = sorted(k for k, v in want_digests[part].items()
+                         if res["digests"][part][k] != v)
+            if bad:
+                raise AssertionError(f"dist_pipeline rank {r} {part}: "
+                                     f"{bad} differ from the stacked grid")
+        assert_launched(res["launches"], DROPOUT_KERNELS,
+                        f"dist_pipeline rank {r}")
+    emit({"phase": "dist_pipeline", "model": "bert_tiny", "dropout": 0.1,
+          "ranks": DIST_P, "grid": "dp 2 x pp 2, one worker per process",
+          "placement": f"4 gloo ranks on {dev}", "steps": 3,
+          "bit_equal_to_stacked": True,
           "losses": [w["loss"] for w in want],
           "comm_volume": [w["comm_volume"] for w in want],
           "stacked_step_ms": [w["ms"] for w in want],
@@ -5299,7 +5684,9 @@ def kernel_line(timings, errs, by_path, edge_err, big, tf_timings):
     BERT-base's at n = 110,106,428 (``bert_sweep``, ``bert_pack_a``,
     ``bert_select_b``) and DeepSpeech's at n = 54,791,168
     (``lstman4_sweep``, ...), VGG-16's two buckets' (``vgg16_b0_sweep``,
-    ...). ``ms``, ``plain_ms`` and ``library_ms`` are call
+    ...), the pipeline's stage and shared buckets of BERT-base
+    (``bert_pp_stage_sweep``, ``bert_pp_shared_sweep``, ...). ``ms``,
+    ``plain_ms`` and ``library_ms`` are call
     times, CUDA events around one call; the ``*device_ms`` keys are the
     device times of the same calls under the profiler. ``launches`` counts
     the main path's run (oktopk on VGG-16; a larger model's forms: that
@@ -5424,6 +5811,12 @@ def main() -> int:
         big[f"vgg16_b{b}"] = ("vgg16 resilience", n_b) + phase_big_kernels(
             dev, "vgg16_bucket_kernels", f"vgg16_b{b}", n_b, 0.02, 2.326,
             SEED + 8 + b)
+    # the pipeline's buckets at BERT-base, pp = 2: a stage's and the
+    # shared one, each over its data group of dp = 2
+    for prefix, n_b, sd in (("bert_pp_stage", N_PP_STAGE, SEED + 10),
+                            ("bert_pp_shared", N_PP_SHARED, SEED + 11)):
+        big[prefix] = ("bert pipeline", n_b) + phase_big_kernels(
+            dev, "pipeline_kernels", prefix, n_b, 0.01, 2.576, sd, P=2)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
     phase_hier_allreduce(dev)
@@ -5442,6 +5835,9 @@ def main() -> int:
     by_path["mnistnet convergence"] = phase_convergence(dev)
     torch.cuda.empty_cache()
     by_path["bert"] = phase_bert_trainer(dev)
+    torch.cuda.empty_cache()
+    by_path["bert pipeline"] = phase_pipeline(dev)
+    torch.cuda.empty_cache()
     phase_lstman4_parity(dev)
     phase_zoo_parity(dev)
     by_path["lstman4"] = phase_lstman4_trainer(dev)
@@ -5462,6 +5858,8 @@ def main() -> int:
         phase_dist_trainer(dev)
     by_path["bert, one worker per process (rank 0 of 4)"] = \
         phase_dist_bert(dev)
+    by_path["bert pipeline, one worker per process (rank 0 of 4)"] = \
+        phase_dist_pipeline(dev)
     kernels = kernel_line(timings, errs, by_path, edge_err, big,
                           tf_timings)
     smi = subprocess.run(

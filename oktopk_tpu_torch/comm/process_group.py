@@ -21,9 +21,9 @@ Every result is bit-equal to ``StackedComm``'s row for this rank:
 - ``all_to_all`` is one ``all_to_all_single`` on the ``[P, ...]`` buffer;
   row q of the result is what rank q addressed here, in source-rank
   order (``ops/select.py::scatter_rows`` adds them in that order, H2).
-- ``ppermute_pair`` (gtopk's XOR butterfly) is one
-  ``all_to_all_single`` whose split sizes are nonzero only for the
-  partner: gloo has no send/recv of CUDA tensors.
+- ``ppermute_pair`` (gtopk's XOR butterfly) and ``ppermute_ring`` (the
+  pipeline's hop) are one ``all_to_all_single`` whose split sizes are
+  nonzero only for the partners: gloo has no send/recv of CUDA tensors.
 - ``gather`` is one ``dist.gather`` to the group's rank 0 (a
   checkpoint's per-worker rows, which rank 0 alone writes).
 - The data-moving verbs carry bf16 values as they are; no verb does
@@ -159,6 +159,26 @@ class ProcessGroupComm:
                                output_split_sizes=splits,
                                input_split_sizes=splits,
                                group=self.group)
+        return out
+
+    def ppermute_ring(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Ring shift: receive the row of rank ``(rank - shift) mod P``
+        while this rank's row goes to ``(rank + shift) mod P`` (the
+        pipeline's hop). One ``all_to_all_single`` whose split sizes are
+        nonzero only for those two partners, as ``ppermute_pair``: gloo
+        has no send/recv of CUDA tensors, and the one code path serves
+        both backends."""
+        self._check(x)
+        P, r = self.size, self.first_worker
+        dst, src = (r + shift) % P, (r - shift) % P
+        if dst == r:
+            return x.clone()
+        send, recv = [0] * P, [0] * P
+        send[dst], recv[src] = 1, 1
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(),
+                               output_split_sizes=recv,
+                               input_split_sizes=send, group=self.group)
         return out
 
     def replicate_(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -89,6 +89,13 @@ class StackedComm:
                              f"{self.size} workers")
         return x[src]
 
+    def ppermute_ring(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Ring shift: row i receives row ``(i - shift) mod P``
+        (``lax.ppermute`` with the permutation ``[(i, (i + shift) % P)]``,
+        the pipeline's hop)."""
+        self._check(x)
+        return torch.roll(x, shift, 0)
+
 
 class HierarchicalStackedComm:
     """``num_pods`` pods of ``pod_size`` workers, all stacked on one device:

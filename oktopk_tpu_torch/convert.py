@@ -494,3 +494,107 @@ def _load_opt(trainer, opt_state: dict, bert_adam_cls) -> None:
             a = _get(opt_state["momentum_buf"], path)
             _copy(buf, from_jax_layout(_as_tensor(a), layout),
                   f"opt_state/momentum_buf/{path}")
+
+
+# ---- the staged BERT of the pipeline (models/bert_staged.py) -------------
+
+def _stack_tensor(a, layout: str) -> torch.Tensor:
+    """A [S, ...] JAX leaf as the torch layout of each stage's row."""
+    a = np.asarray(a)
+    if layout == "linear":
+        a = np.swapaxes(a, -1, -2)
+    return torch.from_numpy(np.array(a, np.float32, copy=True, order="C"))
+
+
+def staged_from_jax(stage_stack_np, shared_np
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+    """The JAX ``StagedBertPretrain.split`` trees (``stage_stack``: leaves
+    [S, ...] under ``sub_j``; ``shared``) -> the port's (stage_stack,
+    shared), the layout of ``models.bert_staged.StagedBertPretrain.
+    split``."""
+    stage = {}
+    for path, a in _walk(stage_stack_np):
+        key, layout = torch_key(path)
+        stage[key] = _stack_tensor(a, layout)
+    shared = {}
+    for path, a in _walk(shared_np):
+        key, layout = torch_key(path)
+        shared[key] = _tensor(a, layout)
+    return stage, shared
+
+
+def staged_to_jax(stage_stack: Dict[str, torch.Tensor],
+                  shared: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """Inverse of ``staged_from_jax``: the JAX (stage_stack, shared)
+    trees as numpy arrays."""
+    stage, sh = {}, {}
+    for key, t in stage_stack.items():
+        path, layout = flax_path(key)
+        a = t.detach().cpu().numpy()
+        _set(stage, path, np.ascontiguousarray(
+            np.swapaxes(a, -1, -2) if layout == "linear" else a))
+    for key, t in shared.items():
+        path, layout = flax_path(key)
+        a = t.detach().cpu().numpy()
+        _set(sh, path, np.ascontiguousarray(a.T if layout == "linear"
+                                            else a))
+    return _nest(_walk(stage)), _nest(_walk(sh))
+
+
+def _bucket_tree(bucket, flat: torch.Tensor) -> dict:
+    """A bucket's flat [n] buffer (JAX layout) as its JAX tree of numpy
+    arrays."""
+    return _nest(("/".join(path), x.numpy().copy()) for path, x in
+                 zip(bucket.paths, bucket.jax_views(flat.detach().cpu())))
+
+
+def _opt_to_jax(opt, bucket) -> dict:
+    return {"step": np.asarray(opt.step.cpu().numpy()),
+            "m": _bucket_tree(bucket, opt.m),
+            "v": _bucket_tree(bucket, opt.v)}
+
+
+def pipeline_opt_to_jax(staged, opt_states) -> Tuple[dict, dict]:
+    """``init_pipeline_opt_state``'s BertAdams as the JAX package's outer
+    layout: (the stage states stacked [S] — ``step`` [S], ``m`` and ``v``
+    trees with leaves [S, ...] — and the shared ``{step, m, v}``), numpy.
+    ``staged`` must hold every stage (the stacked grid)."""
+    from oktopk_tpu_torch.parallel.bert_pipeline import Bucket
+    stage_opts, shared_opt = opt_states
+    rows = [_opt_to_jax(o, Bucket(staged.stage_leaves(w)))
+            for w, o in enumerate(stage_opts)]
+    stage = {"step": np.stack([r["step"] for r in rows]),
+             "m": _nest((p, np.stack([_get(r["m"], p) for r in rows]))
+                        for p, _ in _walk(rows[0]["m"])),
+             "v": _nest((p, np.stack([_get(r["v"], p) for r in rows]))
+                        for p, _ in _walk(rows[0]["v"]))}
+    return stage, _opt_to_jax(shared_opt, Bucket(staged.shared_leaves()))
+
+
+@torch.no_grad()
+def pipeline_opt_from_jax(staged, opt_states, stage_tree: dict,
+                          shared_tree: dict) -> None:
+    """Load JAX's outer-layout BertAdam states (``pipeline_opt_to_jax``'s
+    layout) into ``opt_states``, each held stage its own row."""
+    from oktopk_tpu_torch.parallel.bert_pipeline import Bucket
+    from oktopk_tpu_torch.utils.flatten import flatten_tree
+
+    def load(opt, bucket, tree, row=None):
+        def flat(sub):
+            t = {p: _as_tensor(a if row is None else np.asarray(a)[row])
+                 for p, a in _walk(sub)}
+            return flatten_tree(_nest(t.items()))[0]
+        step = np.asarray(tree["step"])
+        opt.step = torch.tensor(int(step if row is None else step[row]),
+                                dtype=torch.int32, device=opt.m.device)
+        opt.m = flat(tree["m"]).to(opt.m.device)
+        opt.v = flat(tree["v"]).to(opt.v.device)
+        if opt.m.numel() != bucket.n:
+            raise ValueError(f"optimizer state of {opt.m.numel()} for a "
+                             f"bucket of {bucket.n}")
+
+    stage_opts, shared_opt = opt_states
+    for w, s in enumerate(staged.stage_ids):
+        load(stage_opts[w], Bucket(staged.stage_leaves(w)), stage_tree, s)
+    load(shared_opt, Bucket(staged.shared_leaves()), shared_tree)

@@ -333,12 +333,8 @@ class _FlaxInitMixin:
         layer_0, layer_1, layer_10, layer_11, layer_2, ..., and the
         embeddings LayerNorm_0, position_, token_type_, word_embeddings.
         The tied decoder has no leaf of its own."""
-        leaves = []
-        for key, p in self.named_parameters():
-            path, layout = flax_path(key)
-            leaves.append((tuple(path.split("/")), path, p, layout))
-        leaves.sort(key=lambda t: t[0])
-        return [(path, p, layout) for _, path, p, layout in leaves]
+        return [("/".join(path), p, layout)
+                for path, p, layout in sorted_leaves(self.named_parameters())]
 
 
 class BertForPreTraining(_FlaxInitMixin, nn.Module):
@@ -404,6 +400,19 @@ class BertForSequenceClassification(_FlaxInitMixin, nn.Module):
                               train, keys)
         x = dropout(pooled, self.cfg.dropout, train, keys)
         return self.Dense_0(x).to(torch.float32)
+
+def sorted_leaves(named_parameters
+                  ) -> List[Tuple[Tuple[str, ...], nn.Parameter, str]]:
+    """(flax path as a tuple, parameter, layout) of (state_dict key,
+    parameter) pairs in ``jax.tree.flatten`` order (by the tuple of path
+    components)."""
+    leaves = []
+    for key, p in named_parameters:
+        path, layout = flax_path(key)
+        leaves.append((tuple(path.split("/")), p, layout))
+    leaves.sort(key=lambda t: t[0])
+    return leaves
+
 
 def flax_path(key: str) -> Tuple[str, str]:
     """(flax path, layout) of a ``state_dict`` key of

@@ -105,6 +105,50 @@ class Linear(Mixed, nn.Linear):
         return y if b is None else y + b
 
 
+# CUDA's embedding backward adds the rows' gradients with a kernel that
+# repeats bit for bit up to this many indices; above it, it takes a
+# sort-based kernel whose sums differ from run to run (seen on the H100
+# at BERT-base's 32 x 128 pipeline rows). ``embedding_grad`` keeps to the
+# first: it adds chunks of at most this many indices in order.
+EMBED_GRAD_CHUNK = 3072
+
+
+def embedding_grad(g: torch.Tensor, ids: torch.Tensor,
+                   rows: int) -> torch.Tensor:
+    """The table's gradient [rows, H] from the rows' gradients ``g`` [...,
+    H] at ``ids`` [...]: one ``embedding_dense_backward`` on the CPU or
+    for at most ``EMBED_GRAD_CHUNK`` indices; on a card above that, one a
+    chunk of that many, the chunks added in order."""
+    n = ids.numel()
+    if g.device.type != "cuda" or n <= EMBED_GRAD_CHUNK:
+        return torch.ops.aten.embedding_dense_backward(g, ids, rows, -1,
+                                                       False)
+    ids, g = ids.reshape(-1), g.reshape(n, -1)
+    grad = None
+    for s in range(0, n, EMBED_GRAD_CHUNK):
+        part = torch.ops.aten.embedding_dense_backward(
+            g[s:s + EMBED_GRAD_CHUNK], ids[s:s + EMBED_GRAD_CHUNK], rows,
+            -1, False)
+        grad = part if grad is None else grad.add_(part)
+    return grad
+
+
+class _Embed(torch.autograd.Function):
+    """The rows ``ids`` of ``table`` (``F.embedding``), its backward
+    ``embedding_grad``."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return None, embedding_grad(g, ids, ctx.rows)
+
+
 class _CastEmbed(torch.autograd.Function):
     """The rows ``ids`` of ``table`` cast to ``dtype``, and its backward:
     flax's bfloat16 scatter-add of the rows' gradients into the table,
@@ -121,18 +165,19 @@ class _CastEmbed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        grad = torch.ops.aten.embedding_dense_backward(
-            g.to(torch.float32), ids, ctx.rows, -1, False)
+        grad = embedding_grad(g.to(torch.float32), ids, ctx.rows)
         return None, grad.to(ctx.dtype).to(torch.float32), None
 
 
 class Embedding(Mixed, nn.Embedding):
     """``nn.Embedding`` with flax ``nn.Embed``'s ``dtype``: the table is
-    cast, then the rows are taken (``_CastEmbed``)."""
+    cast, then the rows are taken (``_CastEmbed``). Either way the
+    table's gradient is ``embedding_grad``'s, which repeats bit for
+    bit."""
 
     def forward(self, ids):
         if self.compute_dtype is None:
-            return super().forward(ids)
+            return _Embed.apply(ids, self.weight)
         return _CastEmbed.apply(ids, self.weight, self.compute_dtype)
 
 
@@ -183,6 +228,14 @@ class SiteKeys:
                              "apply's dropout rng)")
         self.keys = prng.site_keys(rng, hashes)
         self.used = 0
+
+    @classmethod
+    def of(cls, keys: np.ndarray) -> "SiteKeys":
+        """Hand out ``keys`` ([S, 2] uint32, already derived) in order: one
+        per module apply, so a recomputed apply redraws the same masks."""
+        out = cls.__new__(cls)
+        out.keys, out.used = keys, 0
+        return out
 
     def next(self) -> np.ndarray:
         key = self.keys[self.used]

@@ -19,9 +19,23 @@ the JAX package, H20); ``--handle-preemption`` stops between steps on a
 signal, parks the state and exits with code 3, and resumes a parked
 state on start; ``--ckpt-dir`` takes a checkpoint at the end, at step
 ``--num-minibatches`` (rank 0 writes; the state is gathered from every
-rank first). The pipeline, sequence- and expert-parallel paths are not
-ported yet: their flags raise ``NotImplementedError`` unless left at
-their defaults (ROADMAP.md).
+rank first). The sequence- and expert-parallel paths are not ported
+yet: their flags raise ``NotImplementedError`` unless left at their
+defaults (ROADMAP.md).
+
+``--pipeline-stages N`` (N > 1) takes the pipeline path
+(``run_pipeline``, JAX's :185-290): the encoder split into N stages over
+a data x pipe grid of dp = workers / N data rows (``--num-workers``
+stacked, default N; the world size across processes, worker ``d * N +
+s`` data row d and stage s), GPipe with ``--num-microbatches`` M
+(default 4) per flush and ``--remat``, a global batch of ``batch_size *
+dp * M``; each stage bucket and the shared bucket (embeddings, pooler,
+heads) through ``--compressor`` over its data group (dp >= 2;
+``dense``: the JAX package's dense pipeline step), then BertAdam on each
+bucket. It computes in float32, as the JAX path does
+(``--compute-dtype`` is ignored there); ``--resume`` is a params-only
+warm start from a single-module checkpoint, and ``--ckpt-dir`` takes one
+at the end (rank 0 writes ``staged.merge``'s single-module layout).
 
 One process holds its P workers stacked on its device
 (``--num-workers``, default 1); a multi-process launch runs one worker
@@ -38,6 +52,9 @@ Examples:
         --num-workers 4 --num-minibatches 2048 --resume ckpts
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
         --num-workers 4 --compute-dtype bfloat16 --num-minibatches 100
+    python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
+        --pipeline-stages 2 --num-workers 4 --num-microbatches 4 \\
+        --batch-size 8 --compressor oktopk --density 0.01
 """
 
 from __future__ import annotations
@@ -54,7 +71,7 @@ from oktopk_tpu_torch.collectives.registry import (
 )
 
 # flag: its default; any other value needs a path the port lacks
-UNPORTED = {"pipeline_stages": 1, "seq_shards": 1, "expert_shards": 1}
+UNPORTED = {"seq_shards": 1, "expert_shards": 1}
 
 
 def parse_args(argv=None):
@@ -94,8 +111,15 @@ def parse_args(argv=None):
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="process-group backend across processes (default: "
                         "nccl on a card, gloo on the CPU)")
+    p.add_argument("--pipeline-stages", type=int, default=1,
+                   help="pipeline depth: split the encoder over a data x "
+                        "pipe grid (run_pipeline); 1 = pure DP")
+    p.add_argument("--num-microbatches", type=int, default=4,
+                   help="GPipe microbatches per flush when pipelining")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute stage activations in backward (the "
+                        "pipeline path)")
     # the JAX package's other paths, not ported yet
-    p.add_argument("--pipeline-stages", type=int, default=1)
     p.add_argument("--seq-shards", type=int, default=1)
     p.add_argument("--expert-shards", type=int, default=1)
     p.add_argument("--ckpt-dir", default=None,
@@ -126,6 +150,14 @@ def _bert_algo_cfg(args, **kw):
         wire_dtype=args.wire_dtype, **kw)
 
 
+def _refuse_unported(args) -> None:
+    for flag, default in UNPORTED.items():
+        if getattr(args, flag) != default:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to "
+                "oktopk_tpu_torch yet (ROADMAP.md)")
+
+
 def build_trainer(args, model_kwargs=None):
     """(Trainer, batch iterator) of the data-parallel path; joins the
     process group on a multi-process launch. The iterator is
@@ -136,11 +168,11 @@ def build_trainer(args, model_kwargs=None):
     from oktopk_tpu_torch.launch import data_parallel
     from oktopk_tpu_torch.train.trainer import Trainer
 
-    for flag, default in UNPORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to "
-                "oktopk_tpu_torch yet (ROADMAP.md)")
+    _refuse_unported(args)
+    if args.pipeline_stages > 1:
+        raise ValueError("--pipeline-stages runs the pipeline path "
+                         "(build_pipeline / run_pipeline), not the "
+                         "data-parallel Trainer")
     _, dev, comm, workers = data_parallel(args.num_workers, args.device,
                                           args.backend)
     cfg = TrainConfig(
@@ -164,6 +196,9 @@ def build_trainer(args, model_kwargs=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    _refuse_unported(args)
+    if args.pipeline_stages > 1:
+        return run_pipeline(args)
     trainer, data = build_trainer(args)
     rank = trainer.comm.first_worker if trainer.distributed else 0
     logger = (logging.getLogger("oktopk_tpu_torch.bert") if rank == 0
@@ -226,6 +261,179 @@ def main(argv=None) -> int:
             logger.info("checkpoint %s: %d B in %.3f s", path,
                         os.path.getsize(path), time.perf_counter() - t0)
     return 0
+
+
+# ---- the pipeline path ---------------------------------------------------
+
+class PipelineRun:
+    """What ``build_pipeline`` builds: the grid, the staged model, the
+    step and the batch iterator, and the step keys' chain (JAX's
+    ``PRNGKey(seed + 1)``, split once a step, :258-260)."""
+
+    def __init__(self, args, grid, staged, step, data, device, rank):
+        from oktopk_tpu_torch.ops import prng
+        self.args, self.grid, self.staged = args, grid, staged
+        self.step, self.data, self.device, self.rank = step, data, \
+            device, rank
+        self._rng = prng.prng_key(args.seed + 1)
+
+    def next_key(self):
+        from oktopk_tpu_torch.ops import prng
+        pair = prng.split(self._rng)
+        self._rng = pair[0]
+        return pair[1]
+
+    def train_step(self):
+        """One pipeline step on the next global batch; device metrics."""
+        return self.step(next(self.data), self.next_key())
+
+
+def build_pipeline(args, logger=None) -> PipelineRun:
+    """The pipeline path's pieces (JAX's ``run_pipeline`` :185-256); joins
+    the process group on a multi-process launch. ``logger`` logs on rank 0
+    only."""
+    import torch
+
+    from oktopk_tpu_torch.convert import (bert_from_jax_params,
+                                          bert_to_jax_params)
+    from oktopk_tpu_torch.data import make_dataset
+    from oktopk_tpu_torch.launch import data_parallel
+    from oktopk_tpu_torch.models.bert import BertConfig
+    from oktopk_tpu_torch.models.bert_staged import StagedBertPretrain
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel.bert_pipeline import (
+        build_pipeline_sparse_train_step, build_pipeline_train_step,
+        make_pipeline_grid)
+
+    _refuse_unported(args)
+    pp = args.pipeline_stages
+    _, dev, comm, workers = data_parallel(args.num_workers, args.device,
+                                          args.backend)
+    if comm is None:
+        workers = args.num_workers or pp
+    grid = make_pipeline_grid(pp, workers)
+    rank = comm.first_worker if comm is not None else 0
+    if rank != 0:
+        logger = None               # only rank 0 logs
+    if logger and args.compute_dtype != "float32":
+        logger.warning("--compute-dtype %s is ignored on the pipeline "
+                       "path: it computes in float32, as the JAX "
+                       "package's does", args.compute_dtype)
+    cfg = {"bert_base": BertConfig.base, "bert_large": BertConfig.large,
+           "bert_tiny": BertConfig.tiny}[args.model]()
+    if logger:
+        logger.info("pipeline BERT: %s over data=%d x pipe=%d on %s%s, "
+                    "M=%d", args.model, grid.dp, pp, dev,
+                    f" ({workers} processes)" if grid.distributed else "",
+                    args.num_microbatches)
+    staged = StagedBertPretrain(cfg, pp, stages=grid.stages)
+    sd = staged.init_weights(torch.Generator().manual_seed(args.seed))
+    if args.resume:
+        tree = _maybe_warm_start(
+            args, logger, {"params": bert_to_jax_params(sd),
+                           "model_state": {}})
+        staged.load_split(*staged.split(bert_from_jax_params(
+            tree["params"])))
+    del sd
+    staged.to(dev)
+    opt = BertAdam(lr=args.lr, warmup=args.warmup_proportion,
+                   t_total=args.num_minibatches)
+    M = args.num_microbatches
+    if args.compressor != "dense":
+        if grid.dp < 2:
+            raise SystemExit("sparse pipeline composition needs a data "
+                             "axis (more workers than --pipeline-stages) "
+                             "— or pass --compressor dense")
+        step = build_pipeline_sparse_train_step(
+            staged, grid, M, opt, _bert_algo_cfg(args, density=args.density),
+            compressor=args.compressor, warmup=False, remat=args.remat)
+        if logger:
+            logger.info("sparse pipeline: compressor=%s density=%g",
+                        args.compressor, args.density)
+    else:
+        step = build_pipeline_train_step(staged, grid, M, opt,
+                                         remat=args.remat)
+    global_bs = args.batch_size * grid.dp * M
+    data, args.data_meta = make_dataset(
+        "wikipedia", args.model, global_bs,
+        path=getattr(args, "data_dir", None) or "./data", seed=args.seed,
+        seq_len=args.max_seq_length)
+    if logger and args.data_meta["synthetic"]:
+        logger.warning("Wikipedia corpus not found under %s: synthetic "
+                       "MLM/NSP data", args.data_dir)
+    return PipelineRun(args, grid, staged, step, data, dev, rank)
+
+
+def run_pipeline(args) -> int:
+    """The pipeline-parallel pretraining path (JAX's :185-290): the
+    reference StageRuntime's GPipe-with-flushes mode over a data x pipe
+    grid, every stage's gradient through the sparse allreduce."""
+    from oktopk_tpu_torch.convert import bert_to_jax_params
+    from oktopk_tpu_torch.parallel.bert_pipeline import gather_stage_stack
+    from oktopk_tpu_torch.train.checkpoint import save_checkpoint
+
+    log = logging.getLogger("oktopk_tpu_torch.bert")
+    run = build_pipeline(args, log)
+    logger = log if run.rank == 0 else None
+    t0 = time.time()
+    m = None
+    for i in range(args.num_minibatches):
+        m = run.train_step()
+        if (i + 1) % args.log_every == 0 and logger:
+            logger.info("iter %d loss %.4f %.3fs/it", i + 1,
+                        float(m["loss"]), (time.time() - t0)
+                        / args.log_every)
+            t0 = time.time()
+    if m is not None and logger:
+        logger.info("done: loss %r%s", float(m["loss"]),
+                    f" comm volume/step {float(m['comm_volume']):.0f} "
+                    "elems" if "comm_volume" in m else "")
+    if args.ckpt_dir and run.grid.data_rows[0] == 0:
+        # data row 0's pipe group gathers its stages to rank 0, which
+        # writes the single-module layout
+        stack = gather_stage_stack(run.staged, run.grid)
+        if run.rank == 0:
+            sd = run.staged.merge(stack, run.staged.shared_state())
+            path = save_checkpoint(
+                args.ckpt_dir, {"params": bert_to_jax_params(sd),
+                                "model_state": {}}, args.num_minibatches)
+            logger.info("saved single-module-layout checkpoint %s", path)
+    return 0
+
+
+def _maybe_warm_start(args, logger, template):
+    """Params-only warm start (JAX's :302-338): the saved payload restored
+    into ``template``; every leaf must keep its shape, and a file that
+    restores nothing (another path's payload layout) is refused.
+    Optimizer and sparse state start fresh."""
+    if not args.resume:
+        return template
+    import numpy as np
+
+    from oktopk_tpu_torch.train.checkpoint import restore_checkpoint
+    from oktopk_tpu_torch.utils.flatten import tree_items
+    try:
+        restored, rstep = restore_checkpoint(args.resume, template)
+    except ValueError as e:          # another path's payload layout
+        raise SystemExit(f"--resume {args.resume}: {e}") from e
+    changed = False
+    for (pa, a), (_, b) in zip(tree_items(template), tree_items(restored)):
+        if np.shape(a) != np.shape(b):
+            raise SystemExit(
+                f"--resume leaf {'/'.join(pa)} has shape {np.shape(b)} but "
+                f"this model expects {np.shape(a)} (wrong --model for the "
+                "checkpoint?)")
+        if not changed and not np.array_equal(np.asarray(a),
+                                              np.asarray(b)):
+            changed = True
+    if not changed:
+        raise SystemExit(
+            f"--resume {args.resume} restored nothing — its payload layout "
+            "does not match this path's checkpoint format")
+    if logger:
+        logger.info("warm-started from %s (saved at step %d; optimizer "
+                    "and sparse state start fresh)", args.resume, rstep)
+    return restored
 
 
 if __name__ == "__main__":

@@ -45,9 +45,15 @@ module, and each test reads what its part wrote:
 - the two-level ``hierarchical`` step as 2 pods x 2 over
   ``dist.new_group`` groups, with the ``dense``, ``oktopk`` and ``topkA``
   outers: results and every state field bit-equal on every rank to the
-  two-level stacked comm's row.
+  two-level stacked comm's row;
+- the pipeline (``parallel/``) on a data x pipe grid of 2 x 2 over
+  ``dist.new_group`` groups: the ring hop, the broadcast from the last
+  stage and ``to_rows``, values and gradients, and two sparse (oktopk)
+  pipeline steps of ``bert_tiny`` with dropout, bit-equal on every rank
+  to the stacked grid's row.
 
-Two more spawns run ``main_trainer`` and ``main_bert`` as two ranks.
+Three more spawns run ``main_trainer`` and ``main_bert`` as two ranks,
+and ``main_bert --pipeline-stages 2`` as two stages of one data row.
 """
 
 import os
@@ -167,6 +173,11 @@ def dist(tmp_path_factory, mesh4):
                     None, weights, str(d / "restore_stacked"))
                 stacked_bert = child.run_bert_trainer(None)
                 stacked_resnet = child.run_resnet(None)
+                from oktopk_tpu_torch.parallel.bert_pipeline import \
+                    make_pipeline_grid
+                pgrid = make_pipeline_grid(child.PIPE, P)
+                stacked_pipe = (child.pipe_verbs(pgrid),
+                                child.run_pipeline(pgrid))
             finally:
                 torch.set_num_threads(threads)
             jax_metrics = [jt.train_step(child.train_batch(s))
@@ -188,6 +199,7 @@ def dist(tmp_path_factory, mesh4):
             "stacked_guarded": stacked_guarded,
             "stacked_restore": stacked_restore,
             "stacked_bert": stacked_bert, "stacked_resnet": stacked_resnet,
+            "stacked_pipe": stacked_pipe,
             "jax_trainer": (jax_metrics, jax_final)}
 
 
@@ -404,6 +416,46 @@ def test_bert_with_dropout_matches_stacked(dist):
     assert float(want_m[0]["loss"]) != float(want_m[1]["loss"])
 
 
+def test_pipeline_grid_and_verbs_match_stacked(dist):
+    """The data x pipe grid over ``new_group``s (rank d * 2 + s is data row
+    d and stage s), and the pipeline's ring hop, broadcast from the last
+    stage and stage-order psum of ``to_rows``, values and gradients,
+    bit-equal on every rank to the stacked pipe comm's row."""
+    want, _ = dist["stacked_pipe"]
+    for r, res in enumerate(dist["ranks"]):
+        d, s = divmod(r, child.PIPE)
+        assert res["pipe_grid"] == (2, child.PIPE, [d], [s], 2, child.PIPE)
+        for name, (y, g) in res["pipe_verbs"].items():
+            wy, wg = want[name]
+            bits(y, wy[r:r + 1], f"{name} value, rank {r}")
+            row = r if name != "to_rows" else d
+            bits(g, wg[row:row + 1], f"{name} gradient, rank {r}")
+
+
+def test_sparse_pipeline_matches_stacked(dist):
+    """Two sparse pipeline steps (bert_tiny, dropout 0.1, oktopk, pp = 2
+    x dp = 2, M = 2): every rank's metrics, its stage's and the shared
+    parameters, BertAdam moments and sparse states bit-equal to the
+    stacked grid's (its stage's, its data row's)."""
+    _, want = dist["stacked_pipe"]
+    assert float(want["metrics"][0]["loss"]) != float(
+        want["metrics"][1]["loss"])
+    for r, res in enumerate(dist["ranks"]):
+        d, s = divmod(r, child.PIPE)
+        got = res["pipeline"]
+        for i, (gm, wm) in enumerate(zip(got["metrics"], want["metrics"])):
+            assert gm.keys() == wm.keys()
+            for k in gm:
+                bits(gm[k], wm[k], f"rank {r} step {i}: {k}")
+        for what, g, w in (("stage", got["stages"][s], want["stages"][s]),
+                           ("shared", got["shared"], want["shared"])):
+            for j, nm in enumerate(("params", "m", "v")):
+                bits(g[j], w[j], f"rank {r} {what} {nm}")
+            for f, a in g[3].items():
+                bits(torch.from_numpy(a), torch.from_numpy(w[3][f][d:d + 1]),
+                     f"rank {r} {what} state {f}")
+
+
 def test_resnet_step_matches_stacked(dist):
     want_m, want_sd = dist["stacked_resnet"]
     for r, res in enumerate(dist["ranks"]):
@@ -523,6 +575,40 @@ def test_main_trainer_two_ranks(tmp_path):
     assert "iter 3 loss" in log0 and "done: 3 iterations" in log0, log0
     assert (tmp_path / "rank1.log").read_text() == ""
     assert not os.environ.get("WORLD_SIZE")
+
+
+def test_main_bert_pipeline_two_ranks(tmp_path):
+    """``main_bert --pipeline-stages 2 --compressor dense`` on a 2-rank
+    CPU launch: one data row of two stages, one per process; both ranks
+    exit 0, rank 0 logs, and writes the single-module checkpoint with
+    rank 1's stage gathered in."""
+    argv = ["--model", "bert_tiny", "--device", "cpu", "--batch-size", "2",
+            "--pipeline-stages", "2", "--num-microbatches", "2",
+            "--compressor", "dense", "--num-minibatches", "2",
+            "--log-every", "1", "--ckpt-dir", str(tmp_path / "ckpt")]
+    codes = child.join(child.start(child.cli_worker, 2,
+                                   (str(tmp_path), 2, argv, "main_bert")),
+                       SPAWN_TIMEOUT_S)
+    errors = [(tmp_path / f"rank{r}.err").read_text() for r in range(2)
+              if (tmp_path / f"rank{r}.err").exists()]
+    assert codes == [0, 0], errors
+    log0 = (tmp_path / "rank0.log").read_text()
+    assert "data=1 x pipe=2" in log0 and "(2 processes)" in log0, log0
+    assert "iter 2 loss" in log0 and "saved single-module" in log0, log0
+    assert (tmp_path / "rank1.log").read_text() == ""
+    from oktopk_tpu_torch.convert import bert_to_jax_params
+    from oktopk_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from oktopk_tpu_torch.train.checkpoint import restore_checkpoint
+    fresh = bert_to_jax_params(BertForPreTraining(
+        BertConfig.tiny()).state_dict())
+    tree, step = restore_checkpoint(str(tmp_path / "ckpt"),
+                                    {"params": fresh, "model_state": {}})
+    assert step == 2
+    enc = tree["params"]["bert"]["encoder"]
+    assert sorted(enc) == ["layer_0", "layer_1"]
+    assert not np.array_equal(enc["layer_1"]["intermediate"]["kernel"],
+                              fresh["bert"]["encoder"]["layer_1"]
+                              ["intermediate"]["kernel"])
 
 
 def test_main_bert_two_ranks(tmp_path):

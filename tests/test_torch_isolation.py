@@ -1,6 +1,6 @@
 """The port stands alone: neither ``oktopk_tpu_torch/`` (its launch
-layer, process-group comm, resilience layer, autotuner, settings and
-micro-benchmarks included) nor
+layer, process-group comm, resilience layer, autotuner, settings,
+micro-benchmarks and pipeline included) nor
 ``chip_smoke.py`` (nor the port's profiling, A/B and drill scripts,
 ``psum_ab.py``, ``bf16_card_yardstick.py`` and ``port_chaos_drill.py``
 among them, nor the worker module that the process-group tests spawn)
@@ -55,7 +55,10 @@ def _sources():
                 "autotune/calibrate.py", "autotune/trial.py",
                 "autotune/policy.py", "utils/cost_model.py",
                 "utils/flops.py", "settings.py", "benchmarks/__init__.py",
-                "benchmarks/collectives.py"):
+                "benchmarks/collectives.py", "parallel/__init__.py",
+                "parallel/pipeline.py", "parallel/bert_pipeline.py",
+                "models/bert_staged.py", "optim/stashing.py",
+                "utils/flatten.py"):
         assert PKG / mod in files
     return files
 

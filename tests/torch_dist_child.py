@@ -52,6 +52,10 @@ def verb_inputs():
         "psum f32 n=7": rng.randn(P, 7).astype(f32),
         "psum f32 n=3": rng.randn(P, 3).astype(f32),
         "psum f64 n=1001": rng.randn(P, 1001),
+        # the pipeline's hop on the world ring, both ways
+        "ppermute_ring s=1": rng.randn(P, 2, 3).astype(f32),
+        "ppermute_ring s=-1 i64": rng.randint(0, 99, (P, 4)).astype(
+            np.int64),
     }
 
 
@@ -86,6 +90,8 @@ def apply_verb(name: str, comm, x: torch.Tensor) -> torch.Tensor:
     verb = name.split()[0]
     if verb == "ppermute_pair":
         return comm.ppermute_pair(x, int(name.split()[1][2:]))
+    if verb == "ppermute_ring":
+        return comm.ppermute_ring(x, int(name.split()[1][2:]))
     if verb == "rank":
         return comm.rank(x.device)
     return getattr(comm, verb)(x)
@@ -246,6 +252,84 @@ def run_bert_trainer(comm, steps: int = 2):
                             np.random.RandomState(20 + s))).items()})
     return (metrics, {k: v.clone() for k, v in tt.model.state_dict().items()},
             keys)
+
+
+# ---- the pipeline: dp = 2 data rows x pp = 2 stages --------------------
+# worker d * PIPE + s is data row d and stage s (the JAX device order)
+
+PIPE = 2
+PIPE_M = 2
+
+
+def pipe_verbs(grid):
+    """The pipeline's autograd verbs on the pipe comm, on seeded [P, 3, 2]
+    inputs (row w = worker w): each verb's value and its input's
+    gradient under a seeded cotangent, for this process's rows (the
+    stacked grid runs every data row's pipe comm in turn)."""
+    from oktopk_tpu_torch.parallel import pipeline as pl
+    rng = np.random.RandomState(5)
+    x_all = torch.from_numpy(rng.randn(P, 3, 2).astype(np.float32))
+    ct_all = torch.from_numpy(rng.randn(P, 3, 2).astype(np.float32))
+    out = {}
+    for d in grid.data_rows:
+        rows = slice(d * PIPE + grid.pipe.first_worker,
+                     d * PIPE + grid.pipe.first_worker
+                     + grid.pipe.local_workers)
+        for name, fn in (("ring_hop", pl.ring_hop),
+                         ("bcast_from_last", pl.bcast_from_last)):
+            x = x_all[rows].clone().requires_grad_()
+            y = fn(x, grid.pipe)
+            y.backward(ct_all[rows])
+            out.setdefault(name, []).append((y.detach(), x.grad))
+        x = x_all[d * PIPE].clone().requires_grad_()
+        y = pl.to_rows(x, grid.pipe)
+        y.backward(ct_all[rows])
+        out.setdefault("to_rows", []).append((y.detach(),
+                                              x.grad.unsqueeze(0)))
+    return {k: (torch.cat([a for a, _ in v]), torch.cat([b for _, b in v]))
+            for k, v in out.items()}
+
+
+def run_pipeline(grid, steps: int = 2):
+    """``bert_tiny`` with dropout 0.1 through the sparse pipeline step
+    (oktopk, cadence 2, BertAdam) from the seed's weights, ``steps``
+    steps on seeded batches under JAX's step-key chain: per step the
+    metrics, then each held stage's and the shared flat parameters and
+    BertAdam moments, and every sparse state, with this process's data
+    rows."""
+    from oktopk_tpu_torch.config import OkTopkConfig
+    from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.models.bert import BertConfig
+    from oktopk_tpu_torch.models.bert_staged import StagedBertPretrain
+    from oktopk_tpu_torch.ops import prng
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel import bert_pipeline as bp
+
+    st = StagedBertPretrain(BertConfig.tiny(), PIPE, stages=grid.stages)
+    st.init_weights(torch.Generator().manual_seed(3))
+    step = bp.build_pipeline_sparse_train_step(
+        st, grid, PIPE_M, BertAdam(lr=1e-3, warmup=0.0, t_total=-1),
+        OkTopkConfig(density=0.05, warmup_steps=0, local_recompute_every=2,
+                     global_recompute_every=2),
+        compressor="oktopk", warmup=False)
+    rng, metrics = prng.prng_key(11), []
+    for s in range(steps):
+        pair = prng.split(rng)
+        rng = pair[0]
+        b = synthetic_batch("bert_tiny", 2 * PIPE_M * 2,
+                            np.random.RandomState(30 + s), seq_len=16)
+        metrics.append({k: v.clone() for k, v in step(b, pair[1]).items()})
+    opt_stage, opt_shared = step.opt_states
+    states, shared_state = step.sstates
+    stages = {s: (step.stage_buckets[w].flat(step.stage_buckets[w].params)
+                  .detach().clone(), opt_stage[w].m.clone(),
+                  opt_stage[w].v.clone(), states[w].to_numpy())
+              for w, s in enumerate(grid.stages)}
+    sb = step.shared_bucket
+    return {"metrics": metrics, "stages": stages,
+            "shared": (sb.flat(sb.params).detach().clone(),
+                       opt_shared.m.clone(), opt_shared.v.clone(),
+                       shared_state.to_numpy())}
 
 
 RESNET_TRAIN = dict(dnn="resnet20", batch_size=2, lr=0.05, density=0.05,
@@ -589,6 +673,13 @@ def _checks(rank: int, out_dir: str):
     res["bert_trainer"] = run_bert_trainer(comm)
     res["resnet"] = run_resnet(comm)
     res["autotune"] = run_autotune(comm)
+    # the pipeline's grid: every rank creates every group in one order
+    from oktopk_tpu_torch.parallel.bert_pipeline import make_pipeline_grid
+    grid = make_pipeline_grid(PIPE)
+    res["pipe_grid"] = (grid.dp, grid.pp, list(grid.data_rows),
+                        list(grid.stages), grid.data.size, grid.pipe.size)
+    res["pipe_verbs"] = pipe_verbs(grid)
+    res["pipeline"] = run_pipeline(grid)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -598,8 +689,9 @@ def checks_worker(rank, out_dir):
     and a checkpoint of them, saved and restored, a run stopped by one
     rank and parked, three guarded steps with a NaN on rank 2, a
     divergence restore of a checkpoint, two BERT steps with dropout,
-    one resnet20 step and an autotuned run whose regression rank 2 alone
-    sees over a 4-rank gloo group.
+    one resnet20 step, an autotuned run whose regression rank 2 alone
+    sees, and the pipeline's verbs and two sparse pipeline steps on a
+    2 x 2 data x pipe grid over a 4-rank gloo group.
     The cases held to JAX start from the JAX states the parent writes to
     ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
     while these run."""
