@@ -370,7 +370,39 @@ directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
               groups, ``bert_tiny`` with dropout 0.1, three oktopk steps:
               losses and volumes equal, and each rank's stage, shared
               parameters, BertAdam moments and sparse-state row bit-equal
-              (sha1) to the stacked grid's.
+              (sha1) to the stacked grid's;
+46. seq_tp_kernels — (after ``pipeline_kernels``) K1 and the
+              compaction's two oktopk forms over a data group of dp = 2
+              (R = 2 packs) at the sequence-parallel bucket, BERT-base's
+              whole gradient: n = 110,106,428 (``bert_seq_pack_a``,
+              ``_select_b``; K1 is ``bert_sweep``'s shape) and, with 2,048
+              position rows, 111,286,076 (``bert_seq_2048_*``); and at the
+              tensor-parallel buckets at tp = 2: a shard, 42,499,584
+              (``bert_tp_shard_*``), the shared copy, 25,107,260
+              (``bert_tp_shared_*``); bit-equal and timed as above;
+47. seq_parallel — (after ``pipeline``) item 16b-1 on the main path:
+              ``main_bert --model bert_base --seq-shards 2
+              --seq-data-shards 2 --batch-size 2 --compressor oktopk
+              --density 0.01`` through its ``build_seq``: a data x seq
+              grid of 2 x 2 stacked on the card, ring attention, three
+              steps at T = 512 and three at T = 2048 (the exact step
+              apart), K1 and the compaction launched, no threefry
+              (``launches_by_path`` ``bert seq``), host ms a step, peak
+              memory, the workers' copies bit-identical after every step;
+              one fwd+bwd at T = 2048 at sp = 1 and sp = 4 (the stacked
+              peak and its share a worker, the bytes autograd saves);
+              ``bert_tiny`` card against CPU (losses within rtol 1e-5,
+              thresholds within ``TINY_ULPS``), its oktopk through
+              ``card_vs_cpu``; one ``--compute-dtype bfloat16`` step; its
+              own budget, ``SEQ_BUDGET_S``;
+48. tensor_parallel — item 16b-3: BERT-base over a data x model grid of
+              2 x 2 stacked, ``build_tp_sparse_train_step`` with oktopk
+              at d = 0.01 on each worker's tp shard and shared copy, 8 x
+              128 a data row, three steps (``bert tp``): host ms, peak
+              memory, launches, the shared copies bit-identical across
+              model ranks and data rows after every step, the first loss
+              against the single module's (rtol 1e-5); ``bert_tiny`` card
+              against CPU; its own budget, ``TP_BUDGET_S``.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -3107,6 +3139,367 @@ def phase_pipeline(dev) -> dict:
     return main["launches"]
 
 
+# ---- sequence and tensor parallelism (item 16b) ---------------------------
+
+SEQ_BUDGET_S = 90.0           # the seq_parallel phase's own budget
+TP_BUDGET_S = 60.0            # the tensor_parallel phase's own budget
+N_BERT_2048 = 111286076       # BERT-base with 2,048 position rows
+N_TP_SHARD = 42499584         # a BERT-base tp shard at tp = 2
+N_TP_SHARED = 25107260        # its shared bucket (replicated parameters)
+SEQ_ARGV = ["--model", "bert_base", "--seq-shards", "2",
+            "--seq-data-shards", "2", "--batch-size", "2", "--compressor",
+            "oktopk", "--density", "0.01"]
+SEQ_STEPS = 3                 # the exact step, then two steady ones
+SEQ_TINY_ARGV = ["--model", "bert_tiny", "--seq-shards", "2",
+                 "--seq-data-shards", "2", "--batch-size", "2",
+                 "--density", "0.05"]
+TINY_ULPS = 64
+TP_STEPS = 3
+TP_BATCH = 8                  # sequences a data row, seq 128
+
+
+def seq_run(dev, argv, steps: int):
+    """``steps`` steps of the seq path built by the CLI's own
+    ``main_bert.build_seq``, launch counters set to 0 just before and read
+    just after: per-step metrics, host ms and replica check, the
+    launches and peak memory."""
+    import torch
+    from oktopk_tpu_torch.train import main_bert
+
+    args = main_bert.parse_args(argv + ["--num-minibatches", str(steps),
+                                        "--seed", str(SEED),
+                                        "--device", str(dev)])
+    t0 = time.perf_counter()
+    run = main_bert.build_seq(args)
+    build_s = time.perf_counter() - t0
+    batches = [next(run.data) for _ in range(steps)]
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    recs = []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        m = run.step(batches[s])
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not run.step.replicas_equal():
+            raise AssertionError(f"seq step {s + 1}: the workers' copies "
+                                 "differ")
+        recs.append({**{k: float(v) for k, v in m.items()}, "step": s + 1,
+                     "ms": ms})
+        if not math.isfinite(recs[-1]["loss"]):
+            raise AssertionError(f"seq step {s + 1}: loss {recs[-1]}")
+    out = {"run": run, "recs": recs, "launches": read_counts(),
+           "build_s": build_s,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                       if cuda else None)}
+    return out
+
+
+def seq_memory(dev, flat, layout, cfg, sp: int, T: int = 2048,
+               batch: int = 2) -> dict:
+    """One fwd+bwd of a BERT-base data row of ``batch`` sequences of ``T``
+    tokens at ``sp`` shards (dp = 1) from the flat parameters ``flat``
+    (JAX order, ``layout``), the workers stacked on the card: the peak
+    allocated, the parameter rows held before it, and the bytes autograd
+    saves (the parameter rows left out), each also per worker."""
+    import numpy as np
+    import torch
+    from oktopk_tpu_torch.data import synthetic_batch
+    from oktopk_tpu_torch.parallel import bert_seq as bs
+
+    grid = bs.make_seq_grid(sp)
+    row = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        "bert_base", batch, np.random.RandomState(SEED), seq_len=T).items()}
+    p = flat.expand(sp, -1).clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    own = p.untyped_storage().data_ptr()
+    saved = 0
+
+    def pack(t):
+        nonlocal saved
+        if t.untyped_storage().data_ptr() != own:
+            saved += t.numel() * t.element_size()
+        return t
+
+    t0 = time.perf_counter()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = bs._row_loss(p, layout, bs.shard_batch(row, grid), cfg, grid)
+    loss.backward(torch.ones_like(loss))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not bool(torch.isfinite(p.grad).all()):
+        raise AssertionError(f"seq memory sp={sp}: non-finite gradient")
+    out = {"sp": sp, "T": T, "batch": batch, "fwd_bwd_ms": ms,
+           "loss": float(loss[0].detach()), "peak_gb": peak / 1e9,
+           "params_gb": before / 1e9,
+           "peak_per_worker_gb": peak / sp / 1e9,
+           "above_params_per_worker_gb": (peak - before) / sp / 1e9,
+           "saved_per_worker_gb": saved / sp / 1e9}
+    del p, loss, row
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_thresholds(run) -> dict:
+    """Each shard's sparse state's local and global thresholds."""
+    return {s: {f: getattr(st, f).detach().cpu() for f in
+                ("local_threshold", "global_threshold")}
+            for s, st in enumerate(run.step.sstates)}
+
+
+def tiny_card_vs_cpu(dev, runs, thresholds, what: str) -> dict:
+    """Losses within rtol 1e-5 and thresholds within ``TINY_ULPS`` of a
+    bert_tiny run on the card and on the CPU (``runs``: {where: recs})."""
+    lc = [r["loss"] for r in runs["cpu"]]
+    lg = [r["loss"] for r in runs[str(dev)]]
+    for a, b in zip(lg, lc):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"{what} bert_tiny card vs CPU: loss "
+                                 f"{lg} vs {lc}")
+    ulps = {b: {f: max_ulps(thresholds[str(dev)][b][f],
+                            thresholds["cpu"][b][f])
+                for f in thresholds["cpu"][b]} for b in thresholds["cpu"]}
+    worst = max(max(v.values()) for v in ulps.values())
+    if worst > TINY_ULPS:
+        raise AssertionError(f"{what} bert_tiny thresholds card vs CPU: "
+                             f"{ulps} ulps")
+    return {"loss_card": lg, "loss_cpu": lc, "threshold_ulps": ulps}
+
+
+def phase_seq_parallel(dev) -> dict:
+    """Item 16b-1 on the main path: ``main_bert --model bert_base
+    --seq-shards 2 --seq-data-shards 2 --batch-size 2 --compressor oktopk
+    --density 0.01`` through its ``build_seq``: a data x seq grid of 2 x 2
+    stacked on the card, ring attention over the shards, each worker's
+    whole gradient (n = 110,106,428; 111,286,076 at T = 2048) through
+    oktopk over its data group, BertAdam, float32: three steps at T = 512
+    and three at T = 2048 (the exact step, two steady), counters set to
+    0 just before and read just after each (K1 and the compaction
+    launched), host ms a step, peak memory, the four workers' copies
+    bit-identical after every step; one fwd+bwd at T = 2048 at sp = 1 and
+    sp = 4 (dp = 1), the stacked peak and its share a worker; one
+    ``bert_tiny`` run card against CPU (losses within rtol 1e-5,
+    thresholds within ``TINY_ULPS``) and its oktopk at the tiny n through
+    ``card_vs_cpu`` (fields bit-equal); one ``--compute-dtype bfloat16``
+    step. Its own budget, ``SEQ_BUDGET_S``. Returns the T = 512 run's
+    launches."""
+    import torch
+    from oktopk_tpu_torch.config import OkTopkConfig
+    t_phase = time.perf_counter()
+    runs = {}
+    for T, n in ((512, N_BERT), (2048, N_BERT_2048)):
+        r = seq_run(dev, SEQ_ARGV + ["--max-seq-length", str(T)], SEQ_STEPS)
+        run = r.pop("run")
+        step = run.step
+        if step.layout.n != n or (step.grid.dp, step.grid.sp) != (2, 2):
+            raise AssertionError(f"seq T={T}: n {step.layout.n}, grid "
+                                 f"{step.grid.dp} x {step.grid.sp}")
+        if T == 2048:       # its trained weights feed the memory runs
+            flat = step.params[0].detach()[0].clone()
+            layout, cfg = step.layout, run.cfg
+        del step, run
+        torch.cuda.empty_cache()
+        assert_launched(r["launches"], SPARSE_KERNELS, f"seq T={T}")
+        if r["launches"]["threefry"]:
+            raise AssertionError(f"seq T={T}: the deterministic forward "
+                                 "launched threefry")
+        runs[T] = r
+    memory = [seq_memory(dev, flat, layout, cfg, sp) for sp in (1, 4)]
+    del flat
+    tiny = {w: seq_run(w, SEQ_TINY_ARGV, 2) for w in (str(dev), "cpu")}
+    tiny_cmp = tiny_card_vs_cpu(
+        dev, {w: t["recs"] for w, t in tiny.items()},
+        {w: seq_thresholds(t["run"]) for w, t in tiny.items()}, "seq")
+    n_tiny = tiny["cpu"]["run"].step.layout.n
+    del tiny
+    worst, _ = card_vs_cpu("oktopk", OkTopkConfig(
+        n=n_tiny, num_workers=2, density=0.05, warmup_steps=0), 3, dev,
+        TINY_ULPS)
+    bf16 = seq_run(dev, SEQ_ARGV + ["--max-seq-length", "512",
+                                    "--compute-dtype", "bfloat16"], 1)
+    if bf16.pop("run").cfg.dtype != torch.bfloat16:
+        raise AssertionError("seq --compute-dtype bfloat16 did not reach "
+                             "the config")
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    rec = {"phase": "seq_parallel", "model": "bert_base",
+           "grid": "dp 2 x sp 2 stacked", "batch_per_data_row": 2,
+           "density": 0.01, "replicas_bit_identical": True}
+    for T, r in runs.items():
+        ms = [x["ms"] for x in r["recs"]]
+        rec[f"T{T}"] = {"n": N_BERT if T == 512 else N_BERT_2048,
+                        "build_s": r["build_s"],
+                        "losses": [x["loss"] for x in r["recs"]],
+                        "comm_volume": [x["comm_volume"] for x in r["recs"]],
+                        "step_ms": ms, "exact_step_ms": ms[0],
+                        "steady_step_ms": spread(ms[1:]),
+                        "max_memory_allocated_gb": r["peak_gb"],
+                        "launches": r["launches"],
+                        "launches_per_step": {k: v / SEQ_STEPS for k, v in
+                                              r["launches"].items()}}
+    rec.update({
+        "memory_T2048": memory,
+        "memory_note": "one card holds every stacked worker: the T/P "
+                       "claim shows in the share a worker, not the total",
+        "tiny_card_vs_cpu": tiny_cmp, "tiny_oktopk_threshold_ulps": worst,
+        "bf16": {"loss": bf16["recs"][0]["loss"],
+                 "step_ms": bf16["recs"][0]["ms"],
+                 "launches": bf16["launches"]},
+        "seconds": secs})
+    emit(rec)
+    if secs > SEQ_BUDGET_S:
+        raise AssertionError(f"seq_parallel took {secs:.1f} s of its "
+                             f"{SEQ_BUDGET_S:.0f} s budget")
+    return runs[512]["launches"]
+
+
+def tp_batches(model: str, steps: int, seq: int):
+    """Seeded synthetic MLM/NSP batches of 2 data rows of ``TP_BATCH``."""
+    import numpy as np
+    from oktopk_tpu_torch.data import synthetic_batch
+    return [synthetic_batch(model, 2 * TP_BATCH, np.random.RandomState(
+        SEED + s), seq_len=seq) for s in range(steps)]
+
+
+def tp_run(dev, model: str, steps: int, density: float, seq: int):
+    """``steps`` steps of ``build_tp_sparse_train_step`` (oktopk, BertAdam)
+    over a dp 2 x tp 2 grid stacked on ``dev``, the single module's weights
+    from the seed, counters set to 0 just before and read just after:
+    per-step metrics and host ms, the shared copies checked after every
+    step, the launches, peak memory, and the step-0 loss of the single
+    module (no dropout) on the same rows."""
+    import torch
+    from oktopk_tpu_torch.config import OkTopkConfig
+    from oktopk_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel import bert_seq as bs
+    from oktopk_tpu_torch.parallel import bert_tp as bt
+
+    cfg = {"bert_base": BertConfig.base,
+           "bert_tiny": BertConfig.tiny}[model](dropout=0.0)
+    m = BertForPreTraining(cfg)
+    m.init_weights(torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    step = bt.build_tp_sparse_train_step(
+        cfg, bt.make_tp_grid(2, 2), *bt.split_tp(bs.jax_tree(m), 2),
+        BertAdam(lr=2e-4, warmup=0.01, t_total=steps),
+        OkTopkConfig(density=density, warmup_steps=0),
+        compressor="oktopk", warmup=False, device=dev)
+    build_s = time.perf_counter() - t0
+    batches = tp_batches(model, steps, seq)
+    m.to(dev)
+    with torch.no_grad():
+        ref = []
+        for d in range(2):
+            b = {k: torch.from_numpy(v[d * TP_BATCH:(d + 1) * TP_BATCH]
+                                     ).to(dev)
+                 for k, v in batches[0].items()}
+            mlm, nsp = m(b["input_ids"], b["token_type_ids"],
+                         b["attention_mask"], train=False)
+            lab = b["mlm_labels"]
+            mask = (lab >= 0).float()
+            tok = torch.nn.functional.cross_entropy(
+                mlm.flatten(0, 1), lab.clamp(min=0).long().flatten(),
+                reduction="none").view(lab.shape)
+            ref.append(float((tok * mask).sum() / mask.sum().clamp(min=1)
+                             + torch.nn.functional.cross_entropy(
+                                 nsp, b["nsp_labels"].long())))
+    del m
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    recs = []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        met = step(batches[s])
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not (step.shared_equal()
+                and torch.equal(step.tp[0].detach(), step.tp[1].detach())):
+            raise AssertionError(f"tp step {s + 1}: the shared copies or "
+                                 "the data replicas differ")
+        recs.append({**{k: float(v) for k, v in met.items()},
+                     "step": s + 1, "ms": ms})
+        if not math.isfinite(recs[-1]["loss"]):
+            raise AssertionError(f"tp step {s + 1}: loss {recs[-1]}")
+    return {"step": step, "recs": recs, "launches": read_counts(),
+            "build_s": build_s, "single_module_loss": sum(ref) / 2,
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if cuda else None)}
+
+
+def phase_tensor_parallel(dev) -> dict:
+    """Item 16b-3 on the card: BERT-base over a data x model grid of 2 x 2
+    stacked on the card, Megatron's two psums a layer,
+    ``build_tp_sparse_train_step`` with oktopk at d = 0.01 on each
+    worker's tp shard (n = 42,499,584) and its shared copy (25,107,260)
+    over its data group, BertAdam, 8 sequences of 128 a data row: three
+    steps, counters set to 0 just before and read just after (K1 and the
+    compaction launched), host ms a step, peak memory, the shared copies
+    bit-identical across model ranks and data rows and the tp shards
+    across data rows after every step, the first loss against the single
+    module's (rtol 1e-5); one ``bert_tiny`` run card against CPU (losses
+    within rtol 1e-5, thresholds within ``TINY_ULPS``). Its own budget,
+    ``TP_BUDGET_S``. Returns the BERT-base run's launches."""
+    import torch
+    t_phase = time.perf_counter()
+    main = tp_run(dev, "bert_base", TP_STEPS, 0.01, 128)
+    step = main.pop("step")
+    if (step.tp_layout.n, step.shared_layout.n) != (N_TP_SHARD, N_TP_SHARED):
+        raise AssertionError(f"tp buckets {step.tp_layout.n}, "
+                             f"{step.shared_layout.n}")
+    del step
+    torch.cuda.empty_cache()
+    assert_launched(main["launches"], SPARSE_KERNELS, "tensor_parallel")
+    l0, ref = main["recs"][0]["loss"], main["single_module_loss"]
+    if abs(l0 - ref) > 1e-5 * abs(ref):
+        raise AssertionError(f"tp step-0 loss {l0} vs the single module's "
+                             f"{ref}")
+    tiny = {w: tp_run(w, "bert_tiny", 2, 0.05, 32) for w in (str(dev),
+                                                            "cpu")}
+    thr = {w: {f"{name}{m}": {f: getattr(st, f).detach().cpu() for f in
+                              ("local_threshold", "global_threshold")}
+               for name, states in zip(("tp", "shared"),
+                                       t["step"].sstates)
+               for m, st in enumerate(states)}
+           for w, t in tiny.items()}
+    tiny_cmp = tiny_card_vs_cpu(dev, {w: t["recs"] for w, t in tiny.items()},
+                                thr, "tp")
+    del tiny
+    ms = [r["ms"] for r in main["recs"]]
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "tensor_parallel", "model": "bert_base",
+          "grid": "dp 2 x tp 2 stacked", "batch_per_data_row": TP_BATCH,
+          "seq": 128, "density": 0.01,
+          "buckets": {"tp_shard": N_TP_SHARD, "shared": N_TP_SHARED},
+          "build_s": main["build_s"],
+          "losses": [r["loss"] for r in main["recs"]],
+          "single_module_loss_step0": ref,
+          "comm_volume": [r["comm_volume"] for r in main["recs"]],
+          "step_ms": ms, "exact_step_ms": ms[0],
+          "steady_step_ms": spread(ms[1:]),
+          "max_memory_allocated_gb": main["peak_gb"],
+          "launches": main["launches"],
+          "launches_per_step": {k: v / TP_STEPS
+                                for k, v in main["launches"].items()},
+          "shared_bit_identical": True, "tiny_card_vs_cpu": tiny_cmp,
+          "seconds": secs})
+    if secs > TP_BUDGET_S:
+        raise AssertionError(f"tensor_parallel took {secs:.1f} s of its "
+                             f"{TP_BUDGET_S:.0f} s budget")
+    return main["launches"]
+
+
 # ---- the LSTM slice: DeepSpeech on AN4 (CTC) and the PTB LSTM ------------
 
 def lstman4_tiny_weights(seed: int):
@@ -5685,7 +6078,10 @@ def kernel_line(timings, errs, by_path, edge_err, big, tf_timings):
     ``bert_select_b``) and DeepSpeech's at n = 54,791,168
     (``lstman4_sweep``, ...), VGG-16's two buckets' (``vgg16_b0_sweep``,
     ...), the pipeline's stage and shared buckets of BERT-base
-    (``bert_pp_stage_sweep``, ``bert_pp_shared_sweep``, ...). ``ms``,
+    (``bert_pp_stage_sweep``, ``bert_pp_shared_sweep``, ...), the seq
+    path's bucket (``bert_seq_pack_a``, ``bert_seq_2048_sweep``, ...) and
+    the tp path's (``bert_tp_shard_sweep``, ``bert_tp_shared_sweep``,
+    ...). ``ms``,
     ``plain_ms`` and ``library_ms`` are call
     times, CUDA events around one call; the ``*device_ms`` keys are the
     device times of the same calls under the profiler. ``launches`` counts
@@ -5817,6 +6213,17 @@ def main() -> int:
                             ("bert_pp_shared", N_PP_SHARED, SEED + 11)):
         big[prefix] = ("bert pipeline", n_b) + phase_big_kernels(
             dev, "pipeline_kernels", prefix, n_b, 0.01, 2.576, sd, P=2)
+    # the seq path's one bucket over a data group of dp = 2: at T <= 512
+    # (K1's shape is bert_sweep's) and with 2,048 position rows; the tp
+    # path's shard and shared buckets at tp = 2, dp = 2
+    for prefix, path, n_b, sd, sweep in (
+            ("bert_seq", "bert seq", N_BERT, SEED + 12, False),
+            ("bert_seq_2048", "bert seq", N_BERT_2048, SEED + 13, True),
+            ("bert_tp_shard", "bert tp", N_TP_SHARD, SEED + 14, True),
+            ("bert_tp_shared", "bert tp", N_TP_SHARED, SEED + 15, True)):
+        big[prefix] = (path, n_b) + phase_big_kernels(
+            dev, "seq_tp_kernels", prefix, n_b, 0.01, 2.576, sd, P=2,
+            sweep=sweep)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
     phase_hier_allreduce(dev)
@@ -5837,6 +6244,10 @@ def main() -> int:
     by_path["bert"] = phase_bert_trainer(dev)
     torch.cuda.empty_cache()
     by_path["bert pipeline"] = phase_pipeline(dev)
+    torch.cuda.empty_cache()
+    by_path["bert seq"] = phase_seq_parallel(dev)
+    torch.cuda.empty_cache()
+    by_path["bert tp"] = phase_tensor_parallel(dev)
     torch.cuda.empty_cache()
     phase_lstman4_parity(dev)
     phase_zoo_parity(dev)

@@ -598,3 +598,19 @@ def pipeline_opt_from_jax(staged, opt_states, stage_tree: dict,
     for w, s in enumerate(staged.stage_ids):
         load(stage_opts[w], Bucket(staged.stage_leaves(w)), stage_tree, s)
     load(shared_opt, Bucket(staged.shared_leaves()), shared_tree)
+
+
+def tp_from_jax(tp_stack_np, shared_np, device=None):
+    """The JAX package's tensor-parallel pair (``split_tp``'s ``tp_stack``
+    with its leading [P] shard axis, and ``shared``), numpy, as the
+    port's: the same JAX-layout trees of float32 tensors
+    (``parallel/bert_tp.py``)."""
+    from oktopk_tpu_torch.parallel.bert_seq import tree_to_torch
+    return (tree_to_torch(tp_stack_np, device),
+            tree_to_torch(shared_np, device))
+
+
+def tp_to_jax(tp_stack, shared):
+    """Inverse of ``tp_from_jax``: the pair as numpy trees."""
+    from oktopk_tpu_torch.parallel.bert_seq import tree_to_numpy
+    return tree_to_numpy(tp_stack), tree_to_numpy(shared)

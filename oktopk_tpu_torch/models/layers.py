@@ -149,6 +149,12 @@ class _Embed(torch.autograd.Function):
         return None, embedding_grad(g, ids, ctx.rows)
 
 
+def lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The rows ``ids`` of ``table``; the table's gradient is
+    ``embedding_grad``'s, which repeats bit for bit."""
+    return _Embed.apply(ids, table)
+
+
 class _CastEmbed(torch.autograd.Function):
     """The rows ``ids`` of ``table`` cast to ``dtype``, and its backward:
     flax's bfloat16 scatter-add of the rows' gradients into the table,

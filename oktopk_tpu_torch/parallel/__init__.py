@@ -1,6 +1,11 @@
 """Parallelism beyond data-parallel (``oktopk_tpu/parallel/__init__.py``):
-the GPipe pipeline (``pipeline.py``) and BERT pretraining through it over
-a data x pipe grid (``bert_pipeline.py``). Ring attention, tensor,
-expert and sequence parallelism are not ported yet (ROADMAP.md)."""
+the data x inner grid they share (``grid.py``), the GPipe pipeline
+(``pipeline.py``) and BERT pretraining through it (``bert_pipeline.py``),
+ring attention (``ring_attention.py``) and sequence-parallel BERT
+(``bert_seq.py``), tensor-parallel BERT (``bert_tp.py``), and the
+shard_map transposes of replicated values (``transposes.py``). Expert
+parallelism is not ported yet (ROADMAP.md)."""
 
 from oktopk_tpu_torch.parallel.pipeline import gpipe_apply  # noqa: F401
+from oktopk_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention, ring_self_attention)

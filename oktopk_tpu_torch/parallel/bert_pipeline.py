@@ -43,18 +43,17 @@ vector of a bucket is in the JAX leaf order (``utils/flatten.py``).
 
 from __future__ import annotations
 
-import copy
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from oktopk_tpu_torch.comm import ProcessGroupComm, StackedComm
 from oktopk_tpu_torch.models.bert_staged import StagedBertPretrain
 from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
 from oktopk_tpu_torch.ops import prng
-from oktopk_tpu_torch.optim.bert_adam import BertAdam
+from oktopk_tpu_torch.optim.flat import apply_opt, init_opt
+from oktopk_tpu_torch.parallel.grid import PipelineGrid, make_grid
 from oktopk_tpu_torch.parallel.pipeline import gpipe_apply
 
 BATCH_KEYS = ("input_ids", "token_type_ids", "attention_mask", "mlm_labels",
@@ -63,29 +62,6 @@ BATCH_KEYS = ("input_ids", "token_type_ids", "attention_mask", "mlm_labels",
 
 # ---- the grid ------------------------------------------------------------
 
-class PipelineGrid:
-    """``dp`` data rows x ``pp`` stages: ``data`` spans this process's
-    stage(s) over the data rows, ``pipe`` this process's data row(s) over
-    the stages."""
-
-    def __init__(self, dp: int, pp: int, data, pipe):
-        self.dp, self.pp, self.data, self.pipe = dp, pp, data, pipe
-
-    @property
-    def distributed(self) -> bool:
-        return self.pipe.local_workers < self.pp
-
-    @property
-    def data_rows(self) -> range:
-        f = self.data.first_worker
-        return range(f, f + self.data.local_workers)
-
-    @property
-    def stages(self) -> range:
-        f = self.pipe.first_worker
-        return range(f, f + self.pipe.local_workers)
-
-
 def make_pipeline_grid(num_stages: int,
                        num_workers: Optional[int] = None) -> PipelineGrid:
     """The data x pipe grid of ``num_workers`` workers (dp = workers //
@@ -93,27 +69,9 @@ def make_pipeline_grid(num_stages: int,
     one worker per process over the world (``num_workers`` None or the
     world size). Across processes every rank creates every group in the
     same order: the pipe groups of data rows 0..dp-1, then the data
-    groups of stages 0..pp-1."""
-    import torch.distributed as dist
-
-    procs = dist.is_initialized() and dist.get_world_size() > 1
-    world = dist.get_world_size() if procs else (num_workers or num_stages)
-    if procs and num_workers not in (None, world):
-        raise ValueError(f"{num_workers} workers on a launch of {world} "
-                         "processes: one worker per process")
-    if world % num_stages != 0:
-        raise ValueError(f"{world} workers not divisible by pipeline depth "
-                         f"{num_stages}")
-    dp, pp = world // num_stages, num_stages
-    if not procs:
-        return PipelineGrid(dp, pp, StackedComm(dp), StackedComm(pp))
-    d, s = divmod(dist.get_rank(), pp)
-    pipes = [dist.new_group([r * pp + j for j in range(pp)])
-             for r in range(dp)]
-    datas = [dist.new_group([r * pp + j for r in range(dp)])
-             for j in range(pp)]
-    return PipelineGrid(dp, pp, ProcessGroupComm(datas[s]),
-                        ProcessGroupComm(pipes[d]))
+    groups of stages 0..pp-1 (``parallel/grid.py``)."""
+    return make_grid(PipelineGrid, num_stages, num_workers,
+                     "pipeline depth")
 
 
 def _microbatch(x: torch.Tensor, M: int) -> torch.Tensor:
@@ -159,7 +117,7 @@ def _global_pretrain_loss(mlm, nsp, batch, dens=None):
             torch.stack([mlm_num.detach(), nsp_num.detach()]))
 
 
-def _row_batch(batch, d: int, dp: int, device) -> Dict[str, torch.Tensor]:
+def row_batch(batch, d: int, dp: int, device) -> Dict[str, torch.Tensor]:
     total = len(batch["input_ids"])
     b = total // dp
     if b * dp != total:
@@ -212,7 +170,7 @@ def build_pipeline_loss(staged: StagedBertPretrain, grid: PipelineGrid,
     def loss_fn(batch, rng=None):
         sums = []
         for d in grid.data_rows:
-            row = _row_batch(batch, d, grid.dp, dev)
+            row = row_batch(batch, d, grid.dp, dev)
             key = prng.fold_in(rng, d) if train else None
             mlm, nsp = _row_logits(staged, grid, row, key, M, train, remat)
             sums.append(torch.stack(_pretrain_sums(mlm, nsp, row)))
@@ -263,35 +221,13 @@ class Bucket:
         return [p.grad for p in self.params]
 
 
-def _init_opt(optimizer, bucket: Bucket):
-    opt = copy.deepcopy(optimizer)
-    if isinstance(opt, BertAdam):
-        opt.init(bucket.n, bucket.params[0].device)
-    else:
-        opt.init(bucket.params)
-    return opt
-
-
-@torch.no_grad()
-def _apply(opt, bucket: Bucket, grad: torch.Tensor) -> None:
-    """One optimizer step of ``bucket`` on its flat gradient ``grad``:
-    BertAdam on flat buffers (it clips by this bucket's norm), SGD on the
-    parameters."""
-    if isinstance(opt, BertAdam):
-        upd = opt.update(grad, bucket.flat(bucket.params))
-        for p, u in zip(bucket.params, bucket.views(upd)):
-            p.add_(u)
-    else:
-        opt.update(bucket.params, bucket.views(grad))
-
-
 def init_pipeline_opt_state(optimizer, staged: StagedBertPretrain):
     """(one optimizer per held stage, one for the shared bucket), each a
     copy of ``optimizer`` initialised on its bucket (JAX's outer layout:
     stage states stacked [S], the shared state alone)."""
-    stage = [_init_opt(optimizer, Bucket(staged.stage_leaves(w)))
+    stage = [init_opt(optimizer, Bucket(staged.stage_leaves(w)).params)
              for w in range(len(staged.stages))]
-    return stage, _init_opt(optimizer, Bucket(staged.shared_leaves()))
+    return stage, init_opt(optimizer, Bucket(staged.shared_leaves()).params)
 
 
 def init_pipeline_sparse_states(staged: StagedBertPretrain, algo_cfg,
@@ -370,7 +306,7 @@ class PipelineTrainStep:
         """Each held data row's flat stage and shared gradients (into
         ``g_stage`` and ``g_shared``) and its loss terms."""
         staged, grid = self.staged, self.grid
-        rows = [_row_batch(batch, d, grid.dp, self.device)
+        rows = [row_batch(batch, d, grid.dp, self.device)
                 for d in grid.data_rows]
         dens = None if self.sparse else self._dens(rows)
         terms = []
@@ -419,9 +355,11 @@ class PipelineTrainStep:
             metrics = {"loss": s[0] / torch.clamp(dens[0], min=1.0)
                        + s[1] / dens[1]}
         opt_stage, opt_shared = self.opt_states
-        for opt, b, g in zip(opt_stage, self.stage_buckets, red_s):
-            _apply(opt, b, g)
-        _apply(opt_shared, self.shared_bucket, red_h)
+        for opt, b, g in zip([*opt_stage, opt_shared],
+                             [*self.stage_buckets, self.shared_bucket],
+                             [*red_s, red_h]):
+            # BertAdam clips each bucket by its own norm (H28)
+            apply_opt(opt, b.params, g, b.views, b.flat)
         return metrics
 
     def _clip(self, red_s, red_h):

@@ -19,9 +19,9 @@ the JAX package, H20); ``--handle-preemption`` stops between steps on a
 signal, parks the state and exits with code 3, and resumes a parked
 state on start; ``--ckpt-dir`` takes a checkpoint at the end, at step
 ``--num-minibatches`` (rank 0 writes; the state is gathered from every
-rank first). The sequence- and expert-parallel paths are not ported
-yet: their flags raise ``NotImplementedError`` unless left at their
-defaults (ROADMAP.md).
+rank first). The expert-parallel path is not ported yet:
+``--expert-shards`` raises ``NotImplementedError`` unless left at 1
+(ROADMAP.md).
 
 ``--pipeline-stages N`` (N > 1) takes the pipeline path
 (``run_pipeline``, JAX's :185-290): the encoder split into N stages over
@@ -36,6 +36,22 @@ bucket. It computes in float32, as the JAX path does
 (``--compute-dtype`` is ignored there); ``--resume`` is a params-only
 warm start from a single-module checkpoint, and ``--ckpt-dir`` takes one
 at the end (rank 0 writes ``staged.merge``'s single-module layout).
+
+``--seq-shards S`` (S > 1) takes the sequence-parallel path
+(``run_seq_parallel``, JAX's :374-463): the token axis sharded over S
+shards with ring attention, over a data x seq grid of ``--seq-data-shards``
+D data rows (S x D workers stacked, or the world size across processes,
+worker ``d * S + s`` data row d and shard s). A sparse ``--compressor``
+needs D > 1 and reduces each worker's whole flat gradient over its data
+group (``--gradient-accumulation-steps`` microsteps into one collective);
+``dense`` is the global loss over every shard and data row, one copy of
+the parameters. ``--batch-size`` is per data row and microstep;
+``--max-seq-length`` must divide by S, and past the model's position
+table (512) widens it; ``--compute-dtype bfloat16`` rounds the tied MLM
+table (the rest of this path computes in float32, as JAX's does); no
+dropout. ``--ckpt-dir`` writes the single-module layout, ``--resume``
+warm-starts the parameters. ``--seq-data-shards`` without
+``--seq-shards`` is refused, as in JAX.
 
 One process holds its P workers stacked on its device
 (``--num-workers``, default 1); a multi-process launch runs one worker
@@ -52,6 +68,9 @@ Examples:
         --num-workers 4 --num-minibatches 2048 --resume ckpts
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
         --num-workers 4 --compute-dtype bfloat16 --num-minibatches 100
+    python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
+        --seq-shards 2 --seq-data-shards 2 --max-seq-length 2048 \\
+        --batch-size 2 --compressor oktopk --density 0.01
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
         --pipeline-stages 2 --num-workers 4 --num-microbatches 4 \\
         --batch-size 8 --compressor oktopk --density 0.01
@@ -71,7 +90,7 @@ from oktopk_tpu_torch.collectives.registry import (
 )
 
 # flag: its default; any other value needs a path the port lacks
-UNPORTED = {"seq_shards": 1, "expert_shards": 1}
+UNPORTED = {"expert_shards": 1}
 
 
 def parse_args(argv=None):
@@ -119,8 +138,15 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true",
                    help="recompute stage activations in backward (the "
                         "pipeline path)")
-    # the JAX package's other paths, not ported yet
-    p.add_argument("--seq-shards", type=int, default=1)
+    p.add_argument("--seq-shards", type=int, default=1,
+                   help="sequence parallelism: shard the token axis over a "
+                        "seq grid with ring attention (run_seq_parallel); "
+                        "1 = off")
+    p.add_argument("--seq-data-shards", type=int, default=1,
+                   help="data axis of the composed data x seq grid: the "
+                        "sparse allreduce (any --compressor) under sequence "
+                        "parallelism; 1 = pure seq grid (dense only)")
+    # the JAX package's expert-parallel path, not ported yet
     p.add_argument("--expert-shards", type=int, default=1)
     p.add_argument("--ckpt-dir", default=None,
                    help="write a checkpoint here at the end")
@@ -169,9 +195,9 @@ def build_trainer(args, model_kwargs=None):
     from oktopk_tpu_torch.train.trainer import Trainer
 
     _refuse_unported(args)
-    if args.pipeline_stages > 1:
-        raise ValueError("--pipeline-stages runs the pipeline path "
-                         "(build_pipeline / run_pipeline), not the "
+    if args.pipeline_stages > 1 or args.seq_shards > 1:
+        raise ValueError("--pipeline-stages and --seq-shards run their own "
+                         "paths (build_pipeline, build_seq), not the "
                          "data-parallel Trainer")
     _, dev, comm, workers = data_parallel(args.num_workers, args.device,
                                           args.backend)
@@ -196,9 +222,16 @@ def build_trainer(args, model_kwargs=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    _refuse_unported(args)
+    # JAX's routing (:112-121): pipeline, seq, then the refusals
     if args.pipeline_stages > 1:
         return run_pipeline(args)
+    if args.seq_shards > 1:
+        return run_seq_parallel(args)
+    if args.seq_data_shards > 1:
+        raise SystemExit("--seq-data-shards composes with sequence "
+                         "parallelism — it needs --seq-shards > 1 "
+                         "(plain sparse DP is the default path)")
+    _refuse_unported(args)
     trainer, data = build_trainer(args)
     rank = trainer.comm.first_worker if trainer.distributed else 0
     logger = (logging.getLogger("oktopk_tpu_torch.bert") if rank == 0
@@ -287,6 +320,21 @@ class PipelineRun:
         """One pipeline step on the next global batch; device metrics."""
         return self.step(next(self.data), self.next_key())
 
+    def checkpoint_payload(self):
+        """The single-module layout on rank 0, None elsewhere: data row
+        0's pipe group gathers its stages to rank 0 (every process of that
+        row takes part)."""
+        from oktopk_tpu_torch.convert import bert_to_jax_params
+        from oktopk_tpu_torch.parallel.bert_pipeline import \
+            gather_stage_stack
+        if self.grid.data_rows[0] != 0:
+            return None
+        stack = gather_stage_stack(self.staged, self.grid)
+        if self.rank != 0:
+            return None
+        sd = self.staged.merge(stack, self.staged.shared_state())
+        return {"params": bert_to_jax_params(sd), "model_state": {}}
+
 
 def build_pipeline(args, logger=None) -> PipelineRun:
     """The pipeline path's pieces (JAX's ``run_pipeline`` :185-256); joins
@@ -368,17 +416,134 @@ def run_pipeline(args) -> int:
     """The pipeline-parallel pretraining path (JAX's :185-290): the
     reference StageRuntime's GPipe-with-flushes mode over a data x pipe
     grid, every stage's gradient through the sparse allreduce."""
-    from oktopk_tpu_torch.convert import bert_to_jax_params
-    from oktopk_tpu_torch.parallel.bert_pipeline import gather_stage_stack
-    from oktopk_tpu_torch.train.checkpoint import save_checkpoint
-
     log = logging.getLogger("oktopk_tpu_torch.bert")
     run = build_pipeline(args, log)
-    logger = log if run.rank == 0 else None
+    _pretrain_loop(args, log if run.rank == 0 else None, run.train_step,
+                   run.checkpoint_payload)
+    return 0
+
+
+# ---- the sequence-parallel path -----------------------------------------
+
+class SeqRun:
+    """What ``build_seq`` builds: the grid, the config, the step and the
+    batch iterator (the forward is deterministic: no keys)."""
+
+    def __init__(self, args, grid, cfg, step, data, device, rank):
+        self.args, self.grid, self.cfg, self.step = args, grid, cfg, step
+        self.data, self.device, self.rank = data, device, rank
+
+    def train_step(self):
+        """One step on the next global batch; device metrics."""
+        return self.step(next(self.data))
+
+    def checkpoint_payload(self):
+        """The single-module layout on rank 0 (its first worker's
+        parameters; every worker holds the same), None elsewhere."""
+        from oktopk_tpu_torch.parallel.bert_seq import tree_to_numpy
+        if self.rank != 0:
+            return None
+        return {"params": tree_to_numpy(self.step.tree()),
+                "model_state": {}}
+
+
+def build_seq(args, logger=None) -> SeqRun:
+    """The sequence-parallel path's pieces (JAX's ``run_seq_parallel``
+    :374-452); joins the process group on a multi-process launch.
+    ``logger`` logs on rank 0 only."""
+    import dataclasses
+
+    import torch
+
+    from oktopk_tpu_torch.convert import bert_to_jax_params
+    from oktopk_tpu_torch.data import make_dataset
+    from oktopk_tpu_torch.launch import data_parallel
+    from oktopk_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel.bert_seq import (
+        build_seq_sparse_train_step, build_seq_train_step, make_seq_grid,
+        tree_to_torch)
+
+    _refuse_unported(args)
+    S, dp = args.seq_shards, args.seq_data_shards
+    T = args.max_seq_length
+    sparse = args.compressor != "dense"
+    if T % S:
+        raise SystemExit("--max-seq-length must divide by --seq-shards")
+    if sparse and dp <= 1:
+        raise SystemExit(
+            "sparse collectives over a pure seq mesh have no data axis to "
+            "reduce over — add --seq-data-shards N for the composed "
+            "data x seq mesh, or pass --compressor dense")
+    if args.gradient_accumulation_steps != 1 and not (dp > 1 and sparse):
+        raise SystemExit("--gradient-accumulation-steps on the seq path "
+                         "needs the composed sparse form "
+                         "(--seq-data-shards N, sparse --compressor)")
+    if args.num_workers not in (None, S * dp):
+        raise SystemExit(f"--num-workers {args.num_workers}: the seq path "
+                         f"runs --seq-shards x --seq-data-shards = {S * dp}")
+    _, dev, comm, _ = data_parallel(None, args.device, args.backend)
+    grid = make_seq_grid(S, dp)
+    rank = comm.first_worker if comm is not None else 0
+    if rank != 0:
+        logger = None               # only rank 0 logs
+    dtype = {"float32": torch.float32,
+             "bfloat16": torch.bfloat16}[args.compute_dtype]
+    cfg = {"bert_base": BertConfig.base, "bert_large": BertConfig.large,
+           "bert_tiny": BertConfig.tiny}[args.model](dtype=dtype)
+    if cfg.max_position < T:
+        # a position row for every global position (JAX's :405-408)
+        cfg = dataclasses.replace(cfg, max_position=T)
+    if logger:
+        logger.info("seq-parallel BERT: %s, T=%d over %d shards (T/P=%d "
+                    "per worker)%s on %s%s", args.model, T, S, T // S,
+                    f", data axis dp={dp} compressor={args.compressor}"
+                    if dp > 1 else "", dev,
+                    f" ({S * dp} processes)" if grid.distributed else "")
+    model = BertForPreTraining(cfg)
+    model.init_weights(torch.Generator().manual_seed(args.seed))
+    tree = _maybe_warm_start(
+        args, logger, {"params": bert_to_jax_params(model.state_dict()),
+                       "model_state": {}})
+    del model
+    params = tree_to_torch(tree["params"])
+    del tree
+    opt = BertAdam(lr=args.lr, warmup=args.warmup_proportion,
+                   t_total=args.num_minibatches)
+    A = args.gradient_accumulation_steps
+    if sparse:
+        step = build_seq_sparse_train_step(
+            cfg, grid, params, opt, _bert_algo_cfg(args,
+                                                   density=args.density),
+            compressor=args.compressor, warmup=False, accum_steps=A,
+            device=dev)
+    else:
+        step = build_seq_train_step(cfg, grid, params, opt, device=dev)
+    del params
+    # --batch-size is per data row per microstep (JAX's :450-461)
+    data, args.data_meta = make_dataset(
+        "wikipedia", args.model, args.batch_size * dp * A,
+        path=getattr(args, "data_dir", None) or "./data", seed=args.seed,
+        seq_len=T)
+    if logger and args.data_meta["synthetic"]:
+        logger.warning("Wikipedia corpus not found under %s: synthetic "
+                       "MLM/NSP data", args.data_dir)
+    return SeqRun(args, grid, cfg, step, data, dev, rank)
+
+
+def _pretrain_loop(args, logger, step_fn, checkpoint_payload):
+    """The loop, log and checkpoint tail of the whole-model parallel paths
+    (JAX's :340-371): ``step_fn() -> metrics`` once a step, ``iter %d loss
+    %.4f %.3fs/it`` every ``--log-every`` steps and a ``done`` line; then,
+    under ``--ckpt-dir``, every process calls ``checkpoint_payload()`` (a
+    gather may need them all) and the one that gets a payload, rank 0,
+    writes it."""
+    from oktopk_tpu_torch.train.checkpoint import save_checkpoint
+
     t0 = time.time()
     m = None
     for i in range(args.num_minibatches):
-        m = run.train_step()
+        m = step_fn()
         if (i + 1) % args.log_every == 0 and logger:
             logger.info("iter %d loss %.4f %.3fs/it", i + 1,
                         float(m["loss"]), (time.time() - t0)
@@ -388,16 +553,22 @@ def run_pipeline(args) -> int:
         logger.info("done: loss %r%s", float(m["loss"]),
                     f" comm volume/step {float(m['comm_volume']):.0f} "
                     "elems" if "comm_volume" in m else "")
-    if args.ckpt_dir and run.grid.data_rows[0] == 0:
-        # data row 0's pipe group gathers its stages to rank 0, which
-        # writes the single-module layout
-        stack = gather_stage_stack(run.staged, run.grid)
-        if run.rank == 0:
-            sd = run.staged.merge(stack, run.staged.shared_state())
-            path = save_checkpoint(
-                args.ckpt_dir, {"params": bert_to_jax_params(sd),
-                                "model_state": {}}, args.num_minibatches)
+    payload = checkpoint_payload() if args.ckpt_dir else None
+    if payload is not None:
+        path = save_checkpoint(args.ckpt_dir, payload, args.num_minibatches)
+        if logger:
             logger.info("saved single-module-layout checkpoint %s", path)
+    return m
+
+
+def run_seq_parallel(args) -> int:
+    """Sequence-parallel pretraining (JAX's :374-463): the token axis
+    sharded over a seq grid with ring attention, composed with the sparse
+    allreduce over a data axis."""
+    log = logging.getLogger("oktopk_tpu_torch.bert")
+    run = build_seq(args, log)
+    _pretrain_loop(args, log if run.rank == 0 else None, run.train_step,
+                   run.checkpoint_payload)
     return 0
 
 

@@ -35,20 +35,49 @@ def tree_items(tree, prefix: Path = ()) -> List[Tuple[Path, object]]:
 def flatten_tree(tree):
     """-> (flat [n], leaves, treedef): the leaves concatenated in JAX's
     order; ``treedef`` is their key paths."""
-    items = tree_items(tree)
-    leaves = [x for _, x in items]
-    flat = torch.cat([x.reshape(-1) for x in leaves])
-    return flat, leaves, [p for p, _ in items]
+    layout = TreeLayout(tree)
+    return layout.flat(tree), [x for _, x in tree_items(tree)], layout.paths
 
 
 def unflatten_tree(flat: torch.Tensor, leaves, treedef) -> dict:
     """Inverse of :func:`flatten_tree` (shapes from ``leaves``): a nested
     dict of views of ``flat``."""
-    out, off = {}, 0
-    for path, x in zip(treedef, leaves):
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = flat[off:off + x.numel()].view(x.shape)
-        off += x.numel()
-    return out
+    return TreeLayout.of(treedef, [tuple(x.shape) for x in leaves]).tree(
+        flat)
+
+
+class TreeLayout:
+    """The key paths and shapes of a tree's leaves in JAX's order: a flat
+    [n] vector <-> a tree of views. It holds shapes only, not the
+    leaves."""
+
+    def __init__(self, tree):
+        items = tree_items(tree)
+        self._set([p for p, _ in items], [tuple(x.shape) for _, x in items])
+
+    @classmethod
+    def of(cls, paths, shapes) -> "TreeLayout":
+        """The layout of leaves of ``shapes`` at key ``paths``."""
+        layout = cls.__new__(cls)
+        layout._set(list(paths), [tuple(s) for s in shapes])
+        return layout
+
+    def _set(self, paths, shapes) -> None:
+        self.paths, self.shapes = paths, shapes
+        self.sizes = [int(torch.Size(s).numel()) for s in shapes]
+        self.n = sum(self.sizes)
+
+    def flat(self, tree) -> torch.Tensor:
+        """The leaves of ``tree`` concatenated in JAX's order."""
+        return torch.cat([x.reshape(-1) for _, x in tree_items(tree)])
+
+    def tree(self, flat: torch.Tensor) -> dict:
+        """A nested dict of views of ``flat`` [n]."""
+        out = {}
+        for path, shape, x in zip(self.paths, self.shapes,
+                                  flat.split(self.sizes)):
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = x.view(shape)
+        return out

@@ -50,6 +50,7 @@ from oktopk_tpu_torch.convert import (bert_from_jax_params,
 from oktopk_tpu_torch.models.bert import BertConfig
 from oktopk_tpu_torch.models.bert_staged import StagedBertPretrain
 from oktopk_tpu_torch.optim import SGD, BertAdam
+from oktopk_tpu_torch.optim.flat import apply_opt
 from oktopk_tpu_torch.parallel import bert_pipeline as tbp
 from oktopk_tpu_torch.train import main_bert
 
@@ -345,7 +346,7 @@ def test_bert_adam_clips_each_bucket_by_its_own_norm(jstaged, jparams,
                     + [tbp.Bucket(st1.shared_leaves())], g_s + [g_h]):
         o = BertAdam(lr=4e-4, warmup=0.0, t_total=-1, max_grad_norm=0.0)
         o.init(b.n, "cpu")
-        tbp._apply(o, b, g * scale)
+        apply_opt(o, b.params, g * scale, b.views, b.flat)
     one_s, _ = port_trees(st1)
     gap = max(float(np.abs(np.asarray(w) - np.asarray(g)).max())
               for w, g in zip(jax.tree.leaves(want_s),

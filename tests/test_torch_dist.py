@@ -50,7 +50,12 @@ module, and each test reads what its part wrote:
   ``dist.new_group`` groups: the ring hop, the broadcast from the last
   stage and ``to_rows``, values and gradients, and two sparse (oktopk)
   pipeline steps of ``bert_tiny`` with dropout, bit-equal on every rank
-  to the stacked grid's row.
+  to the stacked grid's row;
+- sequence and tensor parallelism (``parallel/bert_seq.py``,
+  ``bert_tp.py``) on 2 x 2 data x seq and data x model grids over
+  ``dist.new_group`` groups: two sparse (oktopk) steps of ``bert_tiny``
+  each (ring attention's hops and the f/g transposes across processes),
+  every rank bit-equal to the stacked grid's worker.
 
 Three more spawns run ``main_trainer`` and ``main_bert`` as two ranks,
 and ``main_bert --pipeline-stages 2`` as two stages of one data row.
@@ -178,6 +183,12 @@ def dist(tmp_path_factory, mesh4):
                 pgrid = make_pipeline_grid(child.PIPE, P)
                 stacked_pipe = (child.pipe_verbs(pgrid),
                                 child.run_pipeline(pgrid))
+                from oktopk_tpu_torch.parallel.bert_seq import make_seq_grid
+                from oktopk_tpu_torch.parallel.bert_tp import make_tp_grid
+                stacked_seq = child.run_seq(make_seq_grid(child.SEQ,
+                                                          P // child.SEQ))
+                stacked_tp = child.run_tp(make_tp_grid(child.TP,
+                                                       P // child.TP))
             finally:
                 torch.set_num_threads(threads)
             jax_metrics = [jt.train_step(child.train_batch(s))
@@ -199,7 +210,8 @@ def dist(tmp_path_factory, mesh4):
             "stacked_guarded": stacked_guarded,
             "stacked_restore": stacked_restore,
             "stacked_bert": stacked_bert, "stacked_resnet": stacked_resnet,
-            "stacked_pipe": stacked_pipe,
+            "stacked_pipe": stacked_pipe, "stacked_seq": stacked_seq,
+            "stacked_tp": stacked_tp,
             "jax_trainer": (jax_metrics, jax_final)}
 
 
@@ -454,6 +466,41 @@ def test_sparse_pipeline_matches_stacked(dist):
             for f, a in g[3].items():
                 bits(torch.from_numpy(a), torch.from_numpy(w[3][f][d:d + 1]),
                      f"rank {r} {what} state {f}")
+
+
+@pytest.mark.parametrize("path", ["seq", "tp"])
+def test_seq_and_tensor_parallel_match_stacked(dist, path):
+    """Two sparse steps of bert_tiny (oktopk, BertAdam) on a 2 x 2 data x
+    seq grid and on a 2 x 2 data x model grid over ``new_group``s (rank
+    d * 2 + i is data row d and shard or model rank i): every rank's
+    metrics, its flat parameters, BertAdam moments and sparse-state row
+    bit-equal to the stacked grid's worker (d, i); the stacked workers'
+    copies of what is replicated bit-identical too."""
+    want = dist[f"stacked_{path}"]
+    assert float(want["metrics"][0]["loss"]) != float(
+        want["metrics"][1]["loss"])
+    for r, res in enumerate(dist["ranks"]):
+        d, i = divmod(r, 2)
+        assert res[f"{path}_grid"] == (2, 2, [d], [i])
+        got = res[path]
+        for s, (gm, wm) in enumerate(zip(got["metrics"], want["metrics"])):
+            assert gm.keys() == wm.keys()
+            for k in gm:
+                bits(gm[k], wm[k], f"{path} rank {r} step {s}: {k}")
+        assert list(got["workers"]) == [(d, i)]
+        g, w = got["workers"][(d, i)], want["workers"][(d, i)]
+        parts = {"": (g, w)} if path == "seq" else {
+            k: (g[k], w[k]) for k in ("tp", "shared")}
+        for name, (a, b) in parts.items():
+            for j, nm in enumerate(("params", "m", "v")):
+                bits(a[j], b[j], f"{path} rank {r} {name} {nm}")
+            for f, x in a[3].items():
+                bits(torch.from_numpy(x), torch.from_numpy(b[3][f]),
+                     f"{path} rank {r} {name} state {f}")
+    replicated = [w if path == "seq" else w["shared"]
+                  for w in want["workers"].values()]
+    for x in replicated[1:]:
+        bits(x[0], replicated[0][0], f"{path} replicated copies")
 
 
 def test_resnet_step_matches_stacked(dist):

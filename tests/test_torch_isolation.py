@@ -1,6 +1,7 @@
 """The port stands alone: neither ``oktopk_tpu_torch/`` (its launch
 layer, process-group comm, resilience layer, autotuner, settings,
-micro-benchmarks and pipeline included) nor
+micro-benchmarks, pipeline, ring attention and the sequence- and
+tensor-parallel BERT included) nor
 ``chip_smoke.py`` (nor the port's profiling, A/B and drill scripts,
 ``psum_ab.py``, ``bf16_card_yardstick.py`` and ``port_chaos_drill.py``
 among them, nor the worker module that the process-group tests spawn)
@@ -58,7 +59,10 @@ def _sources():
                 "benchmarks/collectives.py", "parallel/__init__.py",
                 "parallel/pipeline.py", "parallel/bert_pipeline.py",
                 "models/bert_staged.py", "optim/stashing.py",
-                "utils/flatten.py"):
+                "utils/flatten.py", "parallel/grid.py",
+                "parallel/transposes.py", "parallel/ring_attention.py",
+                "parallel/bert_seq.py", "parallel/bert_tp.py",
+                "optim/flat.py"):
         assert PKG / mod in files
     return files
 

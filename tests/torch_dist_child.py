@@ -332,6 +332,89 @@ def run_pipeline(grid, steps: int = 2):
                        shared_state.to_numpy())}
 
 
+# ---- sequence and tensor parallelism: dp = 2 data rows x 2 -------------
+# worker d * 2 + i is data row d and shard (or model rank) i
+
+SEQ = 2
+TP = 2
+
+
+def _tiny_tree(seed: int):
+    from oktopk_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from oktopk_tpu_torch.parallel.bert_seq import jax_tree
+    m = BertForPreTraining(BertConfig.tiny())
+    m.init_weights(torch.Generator().manual_seed(seed))
+    return {k: v for k, v in jax_tree(m).items()}
+
+
+def _tiny_batches(steps: int, seed: int):
+    from oktopk_tpu_torch.data import synthetic_batch
+    return [synthetic_batch("bert_tiny", 4, np.random.RandomState(seed + s),
+                            seq_len=16) for s in range(steps)]
+
+
+def _tiny_algo():
+    from oktopk_tpu_torch.config import OkTopkConfig
+    return OkTopkConfig(density=0.05, warmup_steps=0,
+                        local_recompute_every=2, global_recompute_every=2)
+
+
+def run_seq(grid, steps: int = 2):
+    """``bert_tiny`` through the sparse data x seq step (oktopk, cadence 2,
+    BertAdam) from the seed's weights, ``steps`` steps on seeded batches:
+    per step the metrics, then each held worker's (data row, shard) flat
+    parameters, BertAdam moments and sparse-state row."""
+    from oktopk_tpu_torch.models.bert import BertConfig
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel import bert_seq as bs
+    step = bs.build_seq_sparse_train_step(
+        BertConfig.tiny(), grid, _tiny_tree(5),
+        BertAdam(lr=1e-3, warmup=0.0, t_total=-1), _tiny_algo(),
+        compressor="oktopk", warmup=False)
+    metrics = [{k: v.clone() for k, v in step(b).items()}
+               for b in _tiny_batches(steps, 40)]
+    workers = {}
+    for i, d in enumerate(grid.data_rows):
+        for j, s in enumerate(grid.shards):
+            st = step.sstates[j].to_numpy()
+            workers[(d, s)] = (step.params[i].detach()[j].clone(),
+                               step.opts[i][j].m.clone(),
+                               step.opts[i][j].v.clone(),
+                               {f: a[i:i + 1] for f, a in st.items()})
+    return {"metrics": metrics, "workers": workers}
+
+
+def run_tp(grid, steps: int = 2):
+    """``bert_tiny`` through the sparse data x model step (oktopk, cadence
+    2, BertAdam): per step the metrics, then each held worker's (data row,
+    model rank) tp and shared flat parameters, their BertAdam moments and
+    sparse-state rows."""
+    from oktopk_tpu_torch.models.bert import BertConfig
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel import bert_tp as bt
+    step = bt.build_tp_sparse_train_step(
+        BertConfig.tiny(), grid, *bt.split_tp(_tiny_tree(6), TP),
+        BertAdam(lr=1e-3, warmup=0.0, t_total=-1), _tiny_algo(),
+        compressor="oktopk", warmup=False)
+    metrics = [{k: v.clone() for k, v in step(b).items()}
+               for b in _tiny_batches(steps, 50)]
+    tp_ss, sh_ss = step.sstates
+    workers = {}
+    for i, d in enumerate(grid.data_rows):
+        for j, m in enumerate(grid.shards):
+            rows = {}
+            for name, flat, opt, ss in (
+                    ("tp", step.tp[i], step.opt_tp[i][j], tp_ss[j]),
+                    ("shared", step.shared[i], step.opt_sh[i][j],
+                     sh_ss[j])):
+                st = ss.to_numpy()
+                rows[name] = (flat.detach()[j].clone(), opt.m.clone(),
+                              opt.v.clone(),
+                              {f: a[i:i + 1] for f, a in st.items()})
+            workers[(d, m)] = rows
+    return {"metrics": metrics, "workers": workers}
+
+
 RESNET_TRAIN = dict(dnn="resnet20", batch_size=2, lr=0.05, density=0.05,
                     num_workers=P, seed=4)
 
@@ -680,6 +763,17 @@ def _checks(rank: int, out_dir: str):
                         list(grid.stages), grid.data.size, grid.pipe.size)
     res["pipe_verbs"] = pipe_verbs(grid)
     res["pipeline"] = run_pipeline(grid)
+    # the seq and model grids, each over its own new groups
+    from oktopk_tpu_torch.parallel.bert_seq import make_seq_grid
+    from oktopk_tpu_torch.parallel.bert_tp import make_tp_grid
+    sgrid = make_seq_grid(SEQ, P // SEQ)
+    res["seq_grid"] = (sgrid.dp, sgrid.sp, list(sgrid.data_rows),
+                       list(sgrid.shards))
+    res["seq"] = run_seq(sgrid)
+    tgrid = make_tp_grid(TP, P // TP)
+    res["tp_grid"] = (tgrid.dp, tgrid.tp, list(tgrid.data_rows),
+                      list(tgrid.shards))
+    res["tp"] = run_tp(tgrid)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -690,8 +784,9 @@ def checks_worker(rank, out_dir):
     rank and parked, three guarded steps with a NaN on rank 2, a
     divergence restore of a checkpoint, two BERT steps with dropout,
     one resnet20 step, an autotuned run whose regression rank 2 alone
-    sees, and the pipeline's verbs and two sparse pipeline steps on a
-    2 x 2 data x pipe grid over a 4-rank gloo group.
+    sees, the pipeline's verbs and two sparse pipeline steps on a 2 x 2
+    data x pipe grid, and two sparse steps each on a 2 x 2 data x seq
+    and data x model grid, over a 4-rank gloo group.
     The cases held to JAX start from the JAX states the parent writes to
     ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
     while these run."""
