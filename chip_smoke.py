@@ -402,7 +402,34 @@ directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
               memory, launches, the shared copies bit-identical across
               model ranks and data rows after every step, the first loss
               against the single module's (rtol 1e-5); ``bert_tiny`` card
-              against CPU; its own budget, ``TP_BUDGET_S``.
+              against CPU; its own budget, ``TP_BUDGET_S``;
+49. moe_kernels — (after ``seq_tp_kernels``) K1 and the compaction's two
+              oktopk forms over a data group of dp = 2 (R = 2 packs) at
+              the expert-parallel buckets of BERT-base with 4 experts over
+              2 expert ranks: a worker's expert shard, 113,338,368
+              (``bert_moe_shard_*``), and its shared copy, 53,474,108
+              (``bert_moe_shared_*``); bit-equal and timed as above;
+50. expert_parallel — (after ``tensor_parallel``) item 16b-2 on the main
+              path: ``main_bert --model bert_base --expert-shards 2
+              --expert-data-shards 2 --num-experts 4 --batch-size 8
+              --compressor oktopk --density 0.01`` through its
+              ``build_moe``: a data x expert grid of 2 x 2 stacked on the
+              card, Switch top-1 MoE FFNs with the all_to_all dispatch,
+              each worker's expert shard and shared copy through oktopk
+              over its data group, BertAdam per expert: three steps (the
+              exact one apart), counters set to 0 just before and read
+              just after (K1 and the compaction launched, no threefry;
+              ``launches_by_path`` ``bert moe``), host ms a step, peak
+              memory, the shared copies bit-identical across every
+              worker and each expert shard across the data rows after
+              every step, the first step's routing (tokens dropped over
+              capacity and each expert's load, per layer); the
+              single-module oracle (identical experts, the zero gate,
+              ``wo``/``bo`` x E, capacity factor E, no aux) within rtol
+              1e-5 of the single module's loss at BERT-base width; one
+              ``--compute-dtype bfloat16`` step; ``bert_tiny`` card
+              against CPU (losses within rtol 1e-5, thresholds within
+              ``TINY_ULPS``); its own budget, ``EXPERT_BUDGET_S``.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -3500,6 +3527,187 @@ def phase_tensor_parallel(dev) -> dict:
     return main["launches"]
 
 
+# ---- expert parallelism (item 16b-2) --------------------------------------
+
+EXPERT_BUDGET_S = 60.0        # the expert_parallel phase's own budget
+N_MOE_SHARD = 113338368       # a BERT-base expert shard: 2 of 4 experts
+N_MOE_SHARED = 53474108       # its shared bucket (attention, gates, heads)
+MOE_ARGV = ["--model", "bert_base", "--expert-shards", "2",
+            "--expert-data-shards", "2", "--num-experts", "4",
+            "--batch-size", "8", "--compressor", "oktopk", "--density",
+            "0.01"]
+MOE_STEPS = 3                 # the exact step, then two steady ones
+MOE_TINY_ARGV = ["--model", "bert_tiny", "--expert-shards", "2",
+                 "--expert-data-shards", "2", "--num-experts", "4",
+                 "--batch-size", "2", "--density", "0.05"]
+
+
+def moe_run(dev, argv, steps: int):
+    """``steps`` steps of the expert path built by the CLI's own
+    ``main_bert.build_moe``, launch counters set to 0 just before and read
+    just after: per-step metrics and host ms, the shared copies and the
+    expert shards checked after every step, the first step's routing,
+    the launches and peak memory."""
+    import torch
+    from oktopk_tpu_torch.train import main_bert
+
+    args = main_bert.parse_args(argv + ["--num-minibatches", str(steps),
+                                        "--seed", str(SEED),
+                                        "--device", str(dev)])
+    t0 = time.perf_counter()
+    run = main_bert.build_moe(args)
+    build_s = time.perf_counter() - t0
+    batches = [next(run.data) for _ in range(steps)]
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    recs, routing = [], None
+    for s in range(steps):
+        t0 = time.perf_counter()
+        m = run.step(batches[s])
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not (run.step.shared_equal() and run.step.experts_equal()):
+            raise AssertionError(f"moe step {s + 1}: the shared copies or "
+                                 "the expert shards' data replicas differ")
+        if routing is None:
+            r = run.step.routing
+            routing = {"dropped_per_layer": r["dropped"].sum((1, 2))
+                       .cpu().tolist(),
+                       "load_per_layer": r["f"][0, 0].cpu().tolist()}
+        recs.append({**{k: float(v) for k, v in m.items()}, "step": s + 1,
+                     "ms": ms})
+        if not math.isfinite(recs[-1]["loss"]):
+            raise AssertionError(f"moe step {s + 1}: loss {recs[-1]}")
+    return {"run": run, "recs": recs, "launches": read_counts(),
+            "build_s": build_s, "routing": routing, "batch": batches[0],
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if cuda else None)}
+
+
+def moe_oracle(dev, batch) -> dict:
+    """The single-module oracle at BERT-base width: the seed's dense model
+    tiled into 4 identical experts, the zero gate (every prob 1/4, so
+    ``wo`` and ``bo`` times 4), capacity factor 4 (no overflow), no aux:
+    the global loss over the 2 x 2 grid on ``batch`` against the single
+    module's (no dropout) on the same batch."""
+    import torch
+    import torch.nn.functional as F
+    from oktopk_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from oktopk_tpu_torch.parallel import bert_moe as bm
+    from oktopk_tpu_torch.parallel import bert_seq as bs
+
+    E = 4
+    cfg = BertConfig.base(dropout=0.0)
+    m = BertForPreTraining(cfg)
+    m.init_weights(torch.Generator().manual_seed(SEED))
+    moe, shared = bm.experts_from_dense(bs.jax_tree(m), E)
+    for lp in moe.values():
+        lp["wo"], lp["bo"] = lp["wo"] * E, lp["bo"] * E
+    moe = bs.tree_to_torch(bs.tree_to_numpy(moe), dev)
+    shared = bs.tree_to_torch(bs.tree_to_numpy(shared), dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    m.to(dev)
+    with torch.no_grad():
+        got = float(bm.build_moe_loss(
+            cfg, bm.MoEConfig(num_experts=E, capacity_factor=float(E),
+                              aux_weight=0.0),
+            bm.make_moe_grid(2, 2))(moe, shared, b))
+        mlm, nsp = m(b["input_ids"], b["token_type_ids"],
+                     b["attention_mask"], train=False)
+        lab = b["mlm_labels"]
+        mask = (lab >= 0).float()
+        tok = F.cross_entropy(mlm.flatten(0, 1), lab.clamp(min=0).long()
+                              .flatten(), reduction="none").view(lab.shape)
+        want = float((tok * mask).sum() / mask.sum().clamp(min=1)
+                     + F.cross_entropy(nsp, b["nsp_labels"].long()))
+    del m, moe, shared
+    torch.cuda.empty_cache()
+    if abs(got - want) > 1e-5 * abs(want):
+        raise AssertionError(f"moe oracle loss {got} vs the single "
+                             f"module's {want}")
+    return {"loss": got, "single_module_loss": want,
+            "rel_err": abs(got - want) / abs(want)}
+
+
+def moe_thresholds(run) -> dict:
+    """Each held expert rank's two sparse states' thresholds."""
+    return {f"{name}{j}": {f: getattr(st, f).detach().cpu() for f in
+                           ("local_threshold", "global_threshold")}
+            for name, states in zip(("moe", "shared"), run.step.sstates)
+            for j, st in enumerate(states)}
+
+
+def phase_expert_parallel(dev) -> dict:
+    """Item 16b-2 on the main path: ``main_bert --model bert_base
+    --expert-shards 2 --expert-data-shards 2 --num-experts 4 --batch-size
+    8 --compressor oktopk --density 0.01`` through its ``build_moe``:
+    three steps on a 2 x 2 data x expert grid stacked on the card, the
+    counters set to 0 just before and read just after (K1 and the
+    compaction launched, threefry not), host ms a step, peak memory, the
+    copies checked after every step, the first step's routing; the
+    single-module oracle (rtol 1e-5); one ``--compute-dtype bfloat16``
+    step; ``bert_tiny`` card against CPU. Its own budget,
+    ``EXPERT_BUDGET_S``. Returns the BERT-base run's launches."""
+    import torch
+    t_phase = time.perf_counter()
+    main = moe_run(dev, MOE_ARGV, MOE_STEPS)
+    step = main.pop("run").step
+    if ((step.moe_layout.n, step.shared_layout.n) != (N_MOE_SHARD,
+                                                      N_MOE_SHARED)
+            or (step.grid.dp, step.grid.ep, step.e_local) != (2, 2, 2)):
+        raise AssertionError(f"moe buckets {step.moe_layout.n}, "
+                             f"{step.shared_layout.n}, grid {step.grid.dp} "
+                             f"x {step.grid.ep}")
+    del step
+    torch.cuda.empty_cache()
+    assert_launched(main["launches"], SPARSE_KERNELS, "expert_parallel")
+    if main["launches"]["threefry"]:
+        raise AssertionError("moe: the deterministic forward launched "
+                             "threefry")
+    oracle = moe_oracle(dev, main.pop("batch"))
+    bf16 = moe_run(dev, MOE_ARGV + ["--compute-dtype", "bfloat16"], 1)
+    if bf16.pop("run").cfg.dtype != torch.bfloat16:
+        raise AssertionError("moe --compute-dtype bfloat16 did not reach "
+                             "the config")
+    torch.cuda.empty_cache()
+    tiny = {w: moe_run(w, MOE_TINY_ARGV, 2) for w in (str(dev), "cpu")}
+    tiny_cmp = tiny_card_vs_cpu(
+        dev, {w: t["recs"] for w, t in tiny.items()},
+        {w: moe_thresholds(t["run"]) for w, t in tiny.items()}, "moe")
+    del tiny
+    ms = [r["ms"] for r in main["recs"]]
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "expert_parallel", "model": "bert_base",
+          "grid": "dp 2 x ep 2 stacked", "experts": 4,
+          "experts_per_worker": 2, "batch_per_worker": 8, "seq": 128,
+          "capacity_factor": 1.25, "capacity": 320, "density": 0.01,
+          "buckets": {"expert_shard": N_MOE_SHARD, "shared": N_MOE_SHARED},
+          "build_s": main["build_s"],
+          "losses": [r["loss"] for r in main["recs"]],
+          "comm_volume": [r["comm_volume"] for r in main["recs"]],
+          "step_ms": ms, "exact_step_ms": ms[0],
+          "steady_step_ms": spread(ms[1:]),
+          "max_memory_allocated_gb": main["peak_gb"],
+          "launches": main["launches"],
+          "launches_per_step": {k: v / MOE_STEPS
+                                for k, v in main["launches"].items()},
+          "routing_step1": main["routing"],
+          "shared_bit_identical": True, "experts_bit_identical": True,
+          "oracle": oracle,
+          "bf16": {"loss": bf16["recs"][0]["loss"],
+                   "step_ms": bf16["recs"][0]["ms"],
+                   "launches": bf16["launches"]},
+          "tiny_card_vs_cpu": tiny_cmp, "seconds": secs})
+    if secs > EXPERT_BUDGET_S:
+        raise AssertionError(f"expert_parallel took {secs:.1f} s of its "
+                             f"{EXPERT_BUDGET_S:.0f} s budget")
+    return main["launches"]
+
+
 # ---- the LSTM slice: DeepSpeech on AN4 (CTC) and the PTB LSTM ------------
 
 def lstman4_tiny_weights(seed: int):
@@ -6079,9 +6287,10 @@ def kernel_line(timings, errs, by_path, edge_err, big, tf_timings):
     (``lstman4_sweep``, ...), VGG-16's two buckets' (``vgg16_b0_sweep``,
     ...), the pipeline's stage and shared buckets of BERT-base
     (``bert_pp_stage_sweep``, ``bert_pp_shared_sweep``, ...), the seq
-    path's bucket (``bert_seq_pack_a``, ``bert_seq_2048_sweep``, ...) and
+    path's bucket (``bert_seq_pack_a``, ``bert_seq_2048_sweep``, ...),
     the tp path's (``bert_tp_shard_sweep``, ``bert_tp_shared_sweep``,
-    ...). ``ms``,
+    ...) and the expert path's (``bert_moe_shard_sweep``,
+    ``bert_moe_shared_sweep``, ...). ``ms``,
     ``plain_ms`` and ``library_ms`` are call
     times, CUDA events around one call; the ``*device_ms`` keys are the
     device times of the same calls under the profiler. ``launches`` counts
@@ -6224,6 +6433,12 @@ def main() -> int:
         big[prefix] = (path, n_b) + phase_big_kernels(
             dev, "seq_tp_kernels", prefix, n_b, 0.01, 2.576, sd, P=2,
             sweep=sweep)
+    # the expert path's buckets at ep = 2 (4 experts), dp = 2: a worker's
+    # expert shard and its shared copy
+    for prefix, n_b, sd in (("bert_moe_shard", N_MOE_SHARD, SEED + 16),
+                            ("bert_moe_shared", N_MOE_SHARED, SEED + 17)):
+        big[prefix] = ("bert moe", n_b) + phase_big_kernels(
+            dev, "moe_kernels", prefix, n_b, 0.01, 2.576, sd, P=2)
     phase_allreduce(dev)
     phase_baselines_allreduce(dev)
     phase_hier_allreduce(dev)
@@ -6248,6 +6463,8 @@ def main() -> int:
     by_path["bert seq"] = phase_seq_parallel(dev)
     torch.cuda.empty_cache()
     by_path["bert tp"] = phase_tensor_parallel(dev)
+    torch.cuda.empty_cache()
+    by_path["bert moe"] = phase_expert_parallel(dev)
     torch.cuda.empty_cache()
     phase_lstman4_parity(dev)
     phase_zoo_parity(dev)

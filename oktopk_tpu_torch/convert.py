@@ -614,3 +614,20 @@ def tp_to_jax(tp_stack, shared):
     """Inverse of ``tp_from_jax``: the pair as numpy trees."""
     from oktopk_tpu_torch.parallel.bert_seq import tree_to_numpy
     return tree_to_numpy(tp_stack), tree_to_numpy(shared)
+
+
+def moe_from_jax(moe_np, shared_np, device=None):
+    """The JAX package's expert-parallel pair (``experts_from_dense``'s
+    ``moe_stack``, leaves [E, ...], and ``shared``), numpy, as the port's:
+    the same JAX-layout trees of float32 tensors
+    (``parallel/bert_moe.py``); a ``moe_params`` checkpoint's ``layers``
+    and ``shared``."""
+    from oktopk_tpu_torch.parallel.bert_seq import tree_to_torch
+    return (tree_to_torch(moe_np, device),
+            tree_to_torch(shared_np, device))
+
+
+def moe_to_jax(moe_stack, shared):
+    """Inverse of ``moe_from_jax``: the pair as numpy trees."""
+    from oktopk_tpu_torch.parallel.bert_seq import tree_to_numpy
+    return tree_to_numpy(moe_stack), tree_to_numpy(shared)

@@ -30,6 +30,12 @@ passed as two kernel arguments, no host sync); on the CPU it takes
 Pallas kernel, emits JAX's threefry, so the kernel replaces no TPU
 kernel; it replaces the port's ``torch.rand`` + compare and, against a
 plain int64 threefry on the card, some 150 elementwise launches a mask.
+
+``uniform`` and ``normal`` are ``jax.random.uniform`` and
+``jax.random.normal`` (float32) on the CPU, for the MoE gate's init: the
+same bit stream, the same unit floats, then XLA's ``erf_inv`` op for op.
+The uniform draw is JAX's bit for bit; the normal may differ from it in
+the last bits, where torch's ``log1p`` and ``sqrt`` round otherwise.
 """
 
 from __future__ import annotations
@@ -139,13 +145,12 @@ def _rotl_t(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) | (v >> (32 - r))) & M32
 
 
-def keep_mask_plain(key, shape, keep_prob: float, device=None,
-                    offset: int = 0) -> torch.Tensor:
-    """The keep mask in torch int64 ops: bool of ``shape``, element i at
-    the counter ``offset + i``."""
+def _bits_plain(key, n: int, device=None, offset: int = 0) -> torch.Tensor:
+    """JAX's 32-bit random words (``jax.random.bits``, partitionable) in
+    torch int64 ops: word i is the xor of threefry's two output words at
+    the counter (i >> 32, i & 0xffffffff), for i from ``offset``."""
     k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint64))
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    n = int(np.prod(shape, dtype=np.int64))
     c = torch.arange(n, dtype=torch.int64, device=device) + offset
     x0 = ((c >> 32) + ks[0]) & M32
     x1 = ((c & M32) + ks[1]) & M32
@@ -155,11 +160,76 @@ def keep_mask_plain(key, shape, keep_prob: float, device=None,
             x1 = _rotl_t(x1, r) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & M32
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
-    # (bits >> 9) | 0x3F800000 < 2^31: exact in int32
-    f = (((x0 ^ x1) >> 9) | 0x3F800000).to(torch.int32)
-    u = f.view(torch.float32) - 1.0
+    return x0 ^ x1
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """[0, 1) float32 from the words: ``(bits >> 9) | 0x3F800000`` read as
+    a float in [1, 2), minus 1 (< 2^31: exact in int32)."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return f.view(torch.float32) - 1.0
+
+
+def keep_mask_plain(key, shape, keep_prob: float, device=None,
+                    offset: int = 0) -> torch.Tensor:
+    """The keep mask in torch int64 ops: bool of ``shape``, element i at
+    the counter ``offset + i``."""
+    n = int(np.prod(shape, dtype=np.int64))
+    u = _unit_floats(_bits_plain(key, n, device, offset))
     return (u < torch.tensor(keep_prob, dtype=torch.float32,
                              device=device)).reshape(shape)
+
+
+# ---- uniform and normal draws (the MoE gate's init) -----------------------
+
+# XLA's single-precision erf_inv (Giles' two branches), as JAX 0.9 lowers
+# ``lax.erf_inv`` on the CPU: w = -log1p(x * -x), then a degree-8
+# polynomial in w - 2.5 (w < 5) or sqrt(w) - 3
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` of float32 ``x`` in XLA's arithmetic, op for op;
+    its ``log1p`` and ``sqrt`` are torch's, so a value may differ from
+    XLA's in the last bits (``tests/test_torch_bert_moe.py`` measures
+    how many)."""
+    def c(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype),
+                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype))
+
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = c(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = c(i) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def uniform(key, shape, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, lo, hi)`` on the CPU: the
+    unit floats of the bit stream, ``u * (hi - lo) + lo`` in float32,
+    then ``max(lo, .)``."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    lo_t = torch.tensor(lo, dtype=torch.float32)
+    hi_t = torch.tensor(hi, dtype=torch.float32)
+    u = _unit_floats(_bits_plain(key, n)) * (hi_t - lo_t) + lo_t
+    return torch.maximum(lo_t, u.reshape(shape))
+
+
+def normal(key, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on the CPU: a uniform
+    draw on [nextafter(-1, 0), 1), ``erf_inv``, times sqrt(2) in
+    float32."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(np.sqrt(2), dtype=torch.float32) * erf_inv(u)
 
 
 def _keep_mask_cuda(key, shape, keep_prob: float, device,

@@ -52,11 +52,15 @@ class BertAdam:
 
     @torch.no_grad()
     def update(self, grad: torch.Tensor,
-               params: torch.Tensor | None = None) -> torch.Tensor:
+               params: torch.Tensor | None = None,
+               gnorm: torch.Tensor | None = None) -> torch.Tensor:
         """The additive update for the flat ``params`` [n] from the flat
-        ``grad`` [n]; advances m, v and the step."""
+        ``grad`` [n]; advances m, v and the step. ``gnorm``: the global
+        norm to clip by when the tree spans more than ``grad`` (the MoE
+        dense step's expert shards across ranks); default ``grad``'s."""
         if self.max_grad_norm > 0:
-            gnorm = torch.sqrt(torch.sum(grad * grad))
+            if gnorm is None:
+                gnorm = torch.sqrt(torch.sum(grad * grad))
             scale = torch.clamp(self.max_grad_norm / (gnorm + 1e-12),
                                 max=1.0)
             grad = grad * scale

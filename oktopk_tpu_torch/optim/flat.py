@@ -39,16 +39,19 @@ def init_opt(optimizer, params: Params):
 @torch.no_grad()
 def apply_opt(opt, params: Params, grad: torch.Tensor,
               views: Optional[Callable] = None,
-              flat: Optional[Callable] = None) -> None:
+              flat: Optional[Callable] = None,
+              gnorm: Optional[torch.Tensor] = None) -> None:
     """One step of ``opt`` on ``params`` in place, from the flat gradient
     ``grad`` [n]. ``params`` is one flat [n] tensor, or a bucket's
     parameters with ``views`` (a flat [n] -> one tensor a parameter) and
-    ``flat`` (one tensor a parameter -> the flat [n])."""
+    ``flat`` (one tensor a parameter -> the flat [n]). ``gnorm``: the
+    norm ``BertAdam`` clips by, when it spans more than ``grad``."""
     params = _as_list(params)
     if views is None:
         views, flat = (lambda x: [x]), (lambda ts: ts[0])
     if isinstance(opt, BertAdam):
-        for p, u in zip(params, views(opt.update(grad, flat(params)))):
+        for p, u in zip(params, views(opt.update(grad, flat(params),
+                                                 gnorm=gnorm))):
             p.add_(u)
     else:
         opt.update(params, views(grad))

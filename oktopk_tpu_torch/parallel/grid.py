@@ -2,7 +2,8 @@
 paths share.
 
 Counterpart of the two-axis meshes of ``oktopk_tpu/parallel/``
-(``make_pipeline_mesh``, ``make_seq_mesh``, ``make_tp_mesh``):
+(``make_pipeline_mesh``, ``make_seq_mesh``, ``make_tp_mesh``,
+``make_moe_mesh``):
 ``Mesh(devices.reshape(dp, size), ("data", inner))``. The port's grid is
 two comms:
 
@@ -15,8 +16,8 @@ two comms:
   rows 0..dp-1, then the data groups of inner ranks 0..size-1
   (``new_group`` is collective over the world).
 
-``PipelineGrid``, ``SeqGrid`` and ``TPGrid`` name the inner axis ``pipe``,
-``seq`` and ``model``.
+``PipelineGrid``, ``SeqGrid``, ``TPGrid`` and ``ExpertGrid`` name the
+inner axis ``pipe``, ``seq``, ``model`` and ``expert``.
 """
 
 from __future__ import annotations
@@ -70,6 +71,16 @@ class TPGrid(DataGrid):
 
     tp = property(lambda self: self.size)
     model = property(lambda self: self.inner)
+    shards = property(lambda self: self.inner_ranks)
+
+
+class ExpertGrid(DataGrid):
+    """Data rows x expert shards (``expert``): worker ``d * ep + e`` holds
+    expert shard e and takes chunk ``d * ep + e`` of the global batch
+    (JAX's ``P((data, expert))``)."""
+
+    ep = property(lambda self: self.size)
+    expert = property(lambda self: self.inner)
     shards = property(lambda self: self.inner_ranks)
 
 

@@ -13,6 +13,10 @@ crossings between them:
   input every rank holds alike) -> a value each rank uses on its own
   data. Its transpose is the psum of the ranks' cotangents.
 
+``all_to_all`` (the MoE dispatch, split and concat axis 0) is its own
+transpose: the cotangent of what rank q sent to rank p is what p hands
+back to q.
+
 Between one copy of a value and rows of it (the one-copy losses of the
 dense steps) stand ``replicate`` (one copy -> rows; the gradient is one
 row's) and ``first`` (rows every worker holds alike -> one copy; the
@@ -100,3 +104,22 @@ def first(x: torch.Tensor) -> torch.Tensor:
     """[W, ...] rows every worker holds alike -> the value; the cotangent
     goes to every row (each worker seeds its own copy)."""
     return _First.apply(x)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_to_all(x).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.comm.all_to_all(ct.contiguous()).contiguous(), None
+
+
+def all_to_all(x: torch.Tensor, comm) -> torch.Tensor:
+    """[W, P, ...] -> [W, P, ...]: row q of rank p is what rank q
+    addressed to p (``lax.all_to_all``, split and concat axis 0); the
+    gradient is the all_to_all of the cotangent (a ``ProcessGroupComm``'s
+    ``all_to_all_single`` has no autograd of its own)."""
+    return _AllToAll.apply(x, comm)

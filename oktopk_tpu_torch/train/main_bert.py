@@ -19,9 +19,7 @@ the JAX package, H20); ``--handle-preemption`` stops between steps on a
 signal, parks the state and exits with code 3, and resumes a parked
 state on start; ``--ckpt-dir`` takes a checkpoint at the end, at step
 ``--num-minibatches`` (rank 0 writes; the state is gathered from every
-rank first). The expert-parallel path is not ported yet:
-``--expert-shards`` raises ``NotImplementedError`` unless left at 1
-(ROADMAP.md).
+rank first).
 
 ``--pipeline-stages N`` (N > 1) takes the pipeline path
 (``run_pipeline``, JAX's :185-290): the encoder split into N stages over
@@ -53,6 +51,23 @@ dropout. ``--ckpt-dir`` writes the single-module layout, ``--resume``
 warm-starts the parameters. ``--seq-data-shards`` without
 ``--seq-shards`` is refused, as in JAX.
 
+``--expert-shards P`` (P > 1) takes the expert-parallel path
+(``run_expert_parallel``, JAX's :466-566): every FFN a Switch top-1 MoE
+of ``--num-experts`` E experts (default P; E must divide by P), P / E of
+them a worker, with capacity ``--capacity-factor`` (1.25) times the even
+share and overflow dropped, over a data x expert grid of
+``--expert-data-shards`` D data rows (P x D workers stacked, or the
+world size across processes, worker ``d * P + e`` data row d and expert
+shard e). ``--batch-size`` is per worker. The experts are the seed's
+dense FFN tiled E times, the gates JAX's normal at scale 0.02. A sparse
+``--compressor`` needs D > 1 and reduces each worker's expert shard and
+its shared copy over its data group, BertAdam per expert; ``dense`` is
+the global loss, one BertAdam over the whole tree.
+``--gradient-accumulation-steps`` is refused; ``--compute-dtype
+bfloat16`` rounds the tied MLM table only; no dropout. ``--ckpt-dir``
+writes JAX's ``moe_params`` layout (every expert, then the shared
+tree), ``--resume`` warm-starts the parameters from one.
+
 One process holds its P workers stacked on its device
 (``--num-workers``, default 1); a multi-process launch runs one worker
 per process over a ``torch.distributed`` group, as ``main_trainer``
@@ -74,6 +89,9 @@ Examples:
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
         --pipeline-stages 2 --num-workers 4 --num-microbatches 4 \\
         --batch-size 8 --compressor oktopk --density 0.01
+    python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
+        --expert-shards 2 --expert-data-shards 2 --num-experts 4 \\
+        --batch-size 8 --compressor oktopk --density 0.01
 """
 
 from __future__ import annotations
@@ -88,10 +106,6 @@ from oktopk_tpu_torch.collectives.registry import (
     TWO_LEVEL_ONLY,
     list_algorithms,
 )
-
-# flag: its default; any other value needs a path the port lacks
-UNPORTED = {"expert_shards": 1}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
@@ -146,8 +160,19 @@ def parse_args(argv=None):
                    help="data axis of the composed data x seq grid: the "
                         "sparse allreduce (any --compressor) under sequence "
                         "parallelism; 1 = pure seq grid (dense only)")
-    # the JAX package's expert-parallel path, not ported yet
-    p.add_argument("--expert-shards", type=int, default=1)
+    p.add_argument("--expert-shards", type=int, default=1,
+                   help="expert parallelism: Switch top-1 MoE FFNs sharded "
+                        "over an expert grid, all_to_all dispatch "
+                        "(run_expert_parallel); 1 = off")
+    p.add_argument("--num-experts", type=int, default=0,
+                   help="experts per MoE layer (default: = expert-shards)")
+    p.add_argument("--expert-data-shards", type=int, default=1,
+                   help="data axis of the composed data x expert grid: the "
+                        "sparse allreduce (any --compressor) with the MoE "
+                        "dispatch; 1 = pure expert grid (dense only)")
+    p.add_argument("--capacity-factor", type=float, default=1.25,
+                   help="MoE token capacity per expert, a multiple of the "
+                        "even-routing share")
     p.add_argument("--ckpt-dir", default=None,
                    help="write a checkpoint here at the end")
     p.add_argument("--resume", default=None,
@@ -176,14 +201,6 @@ def _bert_algo_cfg(args, **kw):
         wire_dtype=args.wire_dtype, **kw)
 
 
-def _refuse_unported(args) -> None:
-    for flag, default in UNPORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to "
-                "oktopk_tpu_torch yet (ROADMAP.md)")
-
-
 def build_trainer(args, model_kwargs=None):
     """(Trainer, batch iterator) of the data-parallel path; joins the
     process group on a multi-process launch. The iterator is
@@ -194,10 +211,11 @@ def build_trainer(args, model_kwargs=None):
     from oktopk_tpu_torch.launch import data_parallel
     from oktopk_tpu_torch.train.trainer import Trainer
 
-    _refuse_unported(args)
-    if args.pipeline_stages > 1 or args.seq_shards > 1:
-        raise ValueError("--pipeline-stages and --seq-shards run their own "
-                         "paths (build_pipeline, build_seq), not the "
+    if (args.pipeline_stages > 1 or args.seq_shards > 1
+            or args.expert_shards > 1):
+        raise ValueError("--pipeline-stages, --seq-shards and "
+                         "--expert-shards run their own paths "
+                         "(build_pipeline, build_seq, build_moe), not the "
                          "data-parallel Trainer")
     _, dev, comm, workers = data_parallel(args.num_workers, args.device,
                                           args.backend)
@@ -222,7 +240,7 @@ def build_trainer(args, model_kwargs=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    # JAX's routing (:112-121): pipeline, seq, then the refusals
+    # JAX's routing (:112-121): pipeline, seq, the refusal, expert
     if args.pipeline_stages > 1:
         return run_pipeline(args)
     if args.seq_shards > 1:
@@ -231,7 +249,8 @@ def main(argv=None) -> int:
         raise SystemExit("--seq-data-shards composes with sequence "
                          "parallelism — it needs --seq-shards > 1 "
                          "(plain sparse DP is the default path)")
-    _refuse_unported(args)
+    if args.expert_shards > 1:
+        return run_expert_parallel(args)
     trainer, data = build_trainer(args)
     rank = trainer.comm.first_worker if trainer.distributed else 0
     logger = (logging.getLogger("oktopk_tpu_torch.bert") if rank == 0
@@ -353,7 +372,6 @@ def build_pipeline(args, logger=None) -> PipelineRun:
         build_pipeline_sparse_train_step, build_pipeline_train_step,
         make_pipeline_grid)
 
-    _refuse_unported(args)
     pp = args.pipeline_stages
     _, dev, comm, workers = data_parallel(args.num_workers, args.device,
                                           args.backend)
@@ -464,7 +482,6 @@ def build_seq(args, logger=None) -> SeqRun:
         build_seq_sparse_train_step, build_seq_train_step, make_seq_grid,
         tree_to_torch)
 
-    _refuse_unported(args)
     S, dp = args.seq_shards, args.seq_data_shards
     T = args.max_seq_length
     sparse = args.compressor != "dense"
@@ -557,7 +574,9 @@ def _pretrain_loop(args, logger, step_fn, checkpoint_payload):
     if payload is not None:
         path = save_checkpoint(args.ckpt_dir, payload, args.num_minibatches)
         if logger:
-            logger.info("saved single-module-layout checkpoint %s", path)
+            logger.info("saved %s checkpoint %s", "moe_params-layout"
+                        if "moe_params" in payload else
+                        "single-module-layout", path)
     return m
 
 
@@ -567,6 +586,137 @@ def run_seq_parallel(args) -> int:
     allreduce over a data axis."""
     log = logging.getLogger("oktopk_tpu_torch.bert")
     run = build_seq(args, log)
+    _pretrain_loop(args, log if run.rank == 0 else None, run.train_step,
+                   run.checkpoint_payload)
+    return 0
+
+
+# ---- the expert-parallel path ---------------------------------------------
+
+class MoERun:
+    """What ``build_moe`` builds: the grid, the configs, the step and the
+    batch iterator (the forward is deterministic: no keys)."""
+
+    def __init__(self, args, grid, cfg, mcfg, step, data, device, rank):
+        self.args, self.grid, self.cfg, self.mcfg = args, grid, cfg, mcfg
+        self.step, self.data, self.device, self.rank = step, data, \
+            device, rank
+
+    def train_step(self):
+        """One step on the next global batch; device metrics."""
+        return self.step(next(self.data))
+
+    def checkpoint_payload(self):
+        """JAX's ``moe_params`` layout on rank 0 (``layers``: every expert,
+        gathered over data row 0's expert group; ``shared``: its first
+        worker's copy), None elsewhere."""
+        from oktopk_tpu_torch.parallel.bert_seq import tree_to_numpy
+        if self.grid.data_rows[0] != 0:
+            return None
+        stack = self.step.moe_stack()
+        if self.rank != 0:
+            return None
+        return {"moe_params": {"layers": tree_to_numpy(stack),
+                               "shared": tree_to_numpy(self.step.trees()[1])},
+                "model_state": {}}
+
+
+def build_moe(args, logger=None) -> MoERun:
+    """The expert-parallel path's pieces (JAX's ``run_expert_parallel``
+    :466-536); joins the process group on a multi-process launch.
+    ``logger`` logs on rank 0 only."""
+    import torch
+
+    from oktopk_tpu_torch.convert import bert_to_jax_params
+    from oktopk_tpu_torch.data import make_dataset
+    from oktopk_tpu_torch.launch import data_parallel
+    from oktopk_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel.bert_moe import (
+        MoEConfig, build_moe_sparse_train_step, build_moe_train_step,
+        experts_from_dense, make_moe_grid)
+    from oktopk_tpu_torch.parallel.bert_seq import (tree_to_numpy,
+                                                    tree_to_torch)
+
+    P, dpx = args.expert_shards, args.expert_data_shards
+    E = args.num_experts or P
+    sparse = args.compressor != "dense"
+    if E % P:
+        raise SystemExit("--num-experts must divide by --expert-shards")
+    if sparse and dpx <= 1:
+        raise SystemExit(
+            "sparse collectives over a pure expert mesh have no data axis "
+            "to reduce over — add --expert-data-shards N for the composed "
+            "data x expert mesh, or pass --compressor dense")
+    if args.gradient_accumulation_steps != 1:
+        raise SystemExit("--gradient-accumulation-steps is not wired into "
+                         "the expert-parallel path yet")
+    if args.num_workers not in (None, P * dpx):
+        raise SystemExit(f"--num-workers {args.num_workers}: the expert "
+                         "path runs --expert-shards x --expert-data-shards "
+                         f"= {P * dpx}")
+    _, dev, comm, _ = data_parallel(None, args.device, args.backend)
+    grid = make_moe_grid(P, dpx)
+    rank = comm.first_worker if comm is not None else 0
+    if rank != 0:
+        logger = None               # only rank 0 logs
+    dtype = {"float32": torch.float32,
+             "bfloat16": torch.bfloat16}[args.compute_dtype]
+    cfg = {"bert_base": BertConfig.base, "bert_large": BertConfig.large,
+           "bert_tiny": BertConfig.tiny}[args.model](dtype=dtype)
+    mcfg = MoEConfig(num_experts=E, capacity_factor=args.capacity_factor)
+    if logger:
+        logger.info("expert-parallel MoE BERT: %s, %d experts over %d "
+                    "shards (cap factor %.2f)%s on %s%s", args.model, E, P,
+                    args.capacity_factor,
+                    f", data axis dp={dpx} compressor={args.compressor}"
+                    if dpx > 1 else "", dev,
+                    f" ({P * dpx} processes)" if grid.distributed else "")
+    model = BertForPreTraining(cfg)
+    model.init_weights(torch.Generator().manual_seed(args.seed))
+    dense = tree_to_torch(bert_to_jax_params(model.state_dict()))
+    del model
+    # gate_scale > 0: a zero gate ties every token to expert 0 and the
+    # capacity then drops most of the batch (bert_moe.py)
+    moe, shared = experts_from_dense(dense, E, gate_scale=0.02,
+                                     seed=args.seed)
+    del dense
+    if args.resume:
+        tree = _maybe_warm_start(
+            args, logger, {"moe_params": {"layers": tree_to_numpy(moe),
+                                          "shared": tree_to_numpy(shared)},
+                           "model_state": {}})
+        moe = tree_to_torch(tree["moe_params"]["layers"])
+        shared = tree_to_torch(tree["moe_params"]["shared"])
+        del tree
+    opt = BertAdam(lr=args.lr, warmup=args.warmup_proportion,
+                   t_total=args.num_minibatches)
+    if sparse:
+        step = build_moe_sparse_train_step(
+            cfg, mcfg, grid, moe, shared, opt,
+            _bert_algo_cfg(args, density=args.density),
+            compressor=args.compressor, warmup=False, device=dev)
+    else:
+        step = build_moe_train_step(cfg, mcfg, grid, moe, shared, opt,
+                                    device=dev)
+    del moe, shared
+    # --batch-size is per worker: the global batch spans data x expert
+    data, args.data_meta = make_dataset(
+        "wikipedia", args.model, args.batch_size * P * dpx,
+        path=getattr(args, "data_dir", None) or "./data", seed=args.seed,
+        seq_len=args.max_seq_length)
+    if logger and args.data_meta["synthetic"]:
+        logger.warning("Wikipedia corpus not found under %s: synthetic "
+                       "MLM/NSP data", args.data_dir)
+    return MoERun(args, grid, cfg, mcfg, step, data, dev, rank)
+
+
+def run_expert_parallel(args) -> int:
+    """Expert-parallel MoE pretraining (JAX's :466-566): Switch top-1 MoE
+    FFNs with all_to_all dispatch over an expert grid, composed with the
+    sparse allreduce over a data axis."""
+    log = logging.getLogger("oktopk_tpu_torch.bert")
+    run = build_moe(args, log)
     _pretrain_loop(args, log if run.rank == 0 else None, run.train_step,
                    run.checkpoint_payload)
     return 0

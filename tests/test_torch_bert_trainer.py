@@ -135,16 +135,37 @@ def test_main_bert_flags_and_algo_cfg():
         assert getattr(got, f) == getattr(want, f), f
 
 
-@pytest.mark.parametrize("flags", [
-    ["--pipeline-stages", "2", "--expert-shards", "2"],
-    ["--seq-shards", "2", "--expert-shards", "2"],
-    ["--expert-shards", "2"]])
-def test_main_bert_unported_flags_raise(flags):
-    """``--expert-shards``, the one path not ported yet, raises on every
-    route (``--seq-shards`` is ported: ``test_torch_seq_parallel.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flags,message", [
+    (["--num-experts", "3", "--expert-shards", "2"],
+     "must divide by --expert-shards"),
+    (["--expert-shards", "2"], "no data axis"),
+    (["--expert-shards", "2", "--expert-data-shards", "2",
+      "--gradient-accumulation-steps", "2"], "not wired"),
+    (["--expert-shards", "2", "--expert-data-shards", "2",
+      "--num-workers", "2"], "runs --expert-shards x --expert-data-shards"),
+])
+def test_main_bert_expert_refusals(flags, message):
+    """JAX's refusals of the expert route (``run_expert_parallel``), and
+    ``--num-workers`` other than ep x dp, as the seq path refuses it."""
+    with pytest.raises(SystemExit, match=message):
         main_bert.main(["--model", "bert_tiny", "--device", "cpu",
                         "--num-minibatches", "1", *flags])
+
+
+@pytest.mark.parametrize("flags,route", [
+    (["--pipeline-stages", "2", "--expert-shards", "2"], "pipeline"),
+    (["--seq-shards", "2", "--expert-shards", "2"], "seq"),
+    (["--expert-shards", "2"], "expert"),
+])
+def test_main_bert_routes_in_jax_order(monkeypatch, flags, route):
+    """JAX's routing (oktopk_tpu/train/main_bert.py:112-121): the
+    pipeline, then seq, then the expert path."""
+    for name, r in (("run_pipeline", "pipeline"),
+                    ("run_seq_parallel", "seq"),
+                    ("run_expert_parallel", "expert")):
+        monkeypatch.setattr(main_bert, name, lambda args, r=r: r)
+    assert main_bert.main(["--model", "bert_tiny", "--device", "cpu",
+                           "--num-minibatches", "1", *flags]) == route
 
 
 def test_main_bert_defaults_to_cuda(monkeypatch):

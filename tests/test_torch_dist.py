@@ -51,11 +51,12 @@ module, and each test reads what its part wrote:
   stage and ``to_rows``, values and gradients, and two sparse (oktopk)
   pipeline steps of ``bert_tiny`` with dropout, bit-equal on every rank
   to the stacked grid's row;
-- sequence and tensor parallelism (``parallel/bert_seq.py``,
-  ``bert_tp.py``) on 2 x 2 data x seq and data x model grids over
-  ``dist.new_group`` groups: two sparse (oktopk) steps of ``bert_tiny``
-  each (ring attention's hops and the f/g transposes across processes),
-  every rank bit-equal to the stacked grid's worker.
+- sequence, tensor and expert parallelism (``parallel/bert_seq.py``,
+  ``bert_tp.py``, ``bert_moe.py``) on 2 x 2 data x seq, data x model and
+  data x expert grids over ``dist.new_group`` groups: two sparse
+  (oktopk) steps of ``bert_tiny`` each (ring attention's hops, the f/g
+  transposes and the MoE all_to_all dispatch across processes), every
+  rank bit-equal to the stacked grid's worker.
 
 Three more spawns run ``main_trainer`` and ``main_bert`` as two ranks,
 and ``main_bert --pipeline-stages 2`` as two stages of one data row.
@@ -189,6 +190,9 @@ def dist(tmp_path_factory, mesh4):
                                                           P // child.SEQ))
                 stacked_tp = child.run_tp(make_tp_grid(child.TP,
                                                        P // child.TP))
+                from oktopk_tpu_torch.parallel.bert_moe import make_moe_grid
+                stacked_moe = child.run_moe(make_moe_grid(child.EP,
+                                                          P // child.EP))
             finally:
                 torch.set_num_threads(threads)
             jax_metrics = [jt.train_step(child.train_batch(s))
@@ -211,7 +215,7 @@ def dist(tmp_path_factory, mesh4):
             "stacked_restore": stacked_restore,
             "stacked_bert": stacked_bert, "stacked_resnet": stacked_resnet,
             "stacked_pipe": stacked_pipe, "stacked_seq": stacked_seq,
-            "stacked_tp": stacked_tp,
+            "stacked_tp": stacked_tp, "stacked_moe": stacked_moe,
             "jax_trainer": (jax_metrics, jax_final)}
 
 
@@ -501,6 +505,45 @@ def test_seq_and_tensor_parallel_match_stacked(dist, path):
                   for w in want["workers"].values()]
     for x in replicated[1:]:
         bits(x[0], replicated[0][0], f"{path} replicated copies")
+
+
+def test_expert_parallel_matches_stacked(dist):
+    """Two sparse steps of bert_tiny with 4 experts (oktopk, BertAdam per
+    expert) on a 2 x 2 data x expert grid over ``new_group``s (rank d * 2
+    + e is data row d and expert rank e; the dispatch an
+    ``all_to_all_single`` each way, the routing statistics a psum over
+    every rank): every rank's metrics, expert-shard and shared flat
+    parameters, BertAdam moments and sparse-state rows bit-equal to the
+    stacked grid's worker (d, e); the shared copies of every worker, and
+    each expert shard across the data rows, bit-identical."""
+    want = dist["stacked_moe"]
+    assert float(want["metrics"][0]["loss"]) != float(
+        want["metrics"][1]["loss"])
+    for r, res in enumerate(dist["ranks"]):
+        d, e = divmod(r, 2)
+        assert res["moe_grid"] == (2, 2, [d], [e])
+        got = res["moe"]
+        for s, (gm, wm) in enumerate(zip(got["metrics"], want["metrics"])):
+            assert gm.keys() == wm.keys() == {"loss", "comm_volume"}
+            for k in gm:
+                bits(gm[k], wm[k], f"moe rank {r} step {s}: {k}")
+        bits(got["dropped"][:, 0, 0], want["dropped"][:, d, e],
+             f"moe rank {r} dropped")
+        assert list(got["workers"]) == [(d, e)]
+        g, w = got["workers"][(d, e)], want["workers"][(d, e)]
+        for name in ("moe", "shared"):
+            for j, nm in enumerate(("params", "m", "v")):
+                bits(g[name][j], w[name][j], f"moe rank {r} {name} {nm}")
+            for f, x in g[name][3].items():
+                bits(torch.from_numpy(x),
+                     torch.from_numpy(w[name][3][f]),
+                     f"moe rank {r} {name} state {f}")
+    ws = want["workers"]
+    for x in list(ws.values())[1:]:
+        bits(x["shared"][0], ws[(0, 0)]["shared"][0], "moe shared copies")
+    for e in range(2):
+        bits(ws[(1, e)]["moe"][0], ws[(0, e)]["moe"][0],
+             f"moe expert shard {e} across data rows")
 
 
 def test_resnet_step_matches_stacked(dist):

@@ -62,7 +62,7 @@ def _sources():
                 "utils/flatten.py", "parallel/grid.py",
                 "parallel/transposes.py", "parallel/ring_attention.py",
                 "parallel/bert_seq.py", "parallel/bert_tp.py",
-                "optim/flat.py"):
+                "optim/flat.py", "parallel/bert_moe.py"):
         assert PKG / mod in files
     return files
 

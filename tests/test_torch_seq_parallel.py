@@ -635,9 +635,3 @@ def test_main_bert_seq_refusals(extra, message):
     with pytest.raises(SystemExit, match=message):
         main_bert.main(["--model", "bert_tiny", "--device", "cpu",
                         "--num-minibatches", "1"] + extra)
-
-
-def test_expert_shards_still_unported():
-    with pytest.raises(NotImplementedError, match="expert-shards"):
-        main_bert.main(["--model", "bert_tiny", "--device", "cpu",
-                        "--expert-shards", "2", "--num-minibatches", "1"])

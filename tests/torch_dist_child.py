@@ -347,10 +347,11 @@ def _tiny_tree(seed: int):
     return {k: v for k, v in jax_tree(m).items()}
 
 
-def _tiny_batches(steps: int, seed: int):
+def _tiny_batches(steps: int, seed: int, examples: int = 4):
     from oktopk_tpu_torch.data import synthetic_batch
-    return [synthetic_batch("bert_tiny", 4, np.random.RandomState(seed + s),
-                            seq_len=16) for s in range(steps)]
+    return [synthetic_batch("bert_tiny", examples,
+                            np.random.RandomState(seed + s), seq_len=16)
+            for s in range(steps)]
 
 
 def _tiny_algo():
@@ -413,6 +414,47 @@ def run_tp(grid, steps: int = 2):
                               {f: a[i:i + 1] for f, a in st.items()})
             workers[(d, m)] = rows
     return {"metrics": metrics, "workers": workers}
+
+
+EP = 2
+EXPERTS = 4
+
+
+def run_moe(grid, steps: int = 2):
+    """``bert_tiny`` with 4 experts over the sparse data x expert step
+    (oktopk, cadence 2, BertAdam per expert) from the seed's weights and
+    gates, 8 sequences a step (2 a worker): per step the metrics, then
+    each held worker's (data row, expert rank) expert-shard and shared
+    flat parameters, their BertAdam moments (the experts' in order) and
+    sparse-state rows."""
+    from oktopk_tpu_torch.models.bert import BertConfig
+    from oktopk_tpu_torch.optim import BertAdam
+    from oktopk_tpu_torch.parallel import bert_moe as bm
+    step = bm.build_moe_sparse_train_step(
+        BertConfig.tiny(), bm.MoEConfig(num_experts=EXPERTS), grid,
+        *bm.experts_from_dense(_tiny_tree(7), EXPERTS, gate_scale=0.5,
+                               seed=3),
+        BertAdam(lr=1e-3, warmup=0.0, t_total=-1), _tiny_algo(),
+        compressor="oktopk", warmup=False)
+    metrics = [{k: v.clone() for k, v in step(b).items()}
+               for b in _tiny_batches(steps, 60, examples=8)]
+    m_ss, sh_ss = step.sstates
+    workers = {}
+    for i, d in enumerate(grid.data_rows):
+        for j, e in enumerate(grid.shards):
+            rows = {}
+            for name, flat, opts, ss in (
+                    ("moe", step.moe[i], step.opt_moe[i][j], m_ss[j]),
+                    ("shared", step.shared[i], [step.opt_sh[i][j]],
+                     sh_ss[j])):
+                st = ss.to_numpy()
+                rows[name] = (flat.detach()[j].clone(),
+                              torch.cat([o.m for o in opts]),
+                              torch.cat([o.v for o in opts]),
+                              {f: a[i:i + 1] for f, a in st.items()})
+            workers[(d, e)] = rows
+    return {"metrics": metrics, "workers": workers,
+            "dropped": step.routing["dropped"].clone()}
 
 
 RESNET_TRAIN = dict(dnn="resnet20", batch_size=2, lr=0.05, density=0.05,
@@ -774,6 +816,11 @@ def _checks(rank: int, out_dir: str):
     res["tp_grid"] = (tgrid.dp, tgrid.tp, list(tgrid.data_rows),
                       list(tgrid.shards))
     res["tp"] = run_tp(tgrid)
+    from oktopk_tpu_torch.parallel.bert_moe import make_moe_grid
+    egrid = make_moe_grid(EP, P // EP)
+    res["moe_grid"] = (egrid.dp, egrid.ep, list(egrid.data_rows),
+                       list(egrid.shards))
+    res["moe"] = run_moe(egrid)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -785,8 +832,8 @@ def checks_worker(rank, out_dir):
     divergence restore of a checkpoint, two BERT steps with dropout,
     one resnet20 step, an autotuned run whose regression rank 2 alone
     sees, the pipeline's verbs and two sparse pipeline steps on a 2 x 2
-    data x pipe grid, and two sparse steps each on a 2 x 2 data x seq
-    and data x model grid, over a 4-rank gloo group.
+    data x pipe grid, and two sparse steps each on a 2 x 2 data x seq,
+    data x model and data x expert grid, over a 4-rank gloo group.
     The cases held to JAX start from the JAX states the parent writes to
     ``jax.pt``, the trainer from the weights it writes to ``weights.pt``,
     while these run."""
