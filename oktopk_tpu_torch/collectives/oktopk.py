@@ -26,7 +26,10 @@ fused sweep and the phase-(b) selections under ``select``; the
 repartition and the region pack under ``stage``; the wire casts and the
 comm's ``all_to_all``/``all_gather`` under ``exchange``; the scatters and
 the residual under ``combine``. The volume counts and the two psums of
-phase (b) stay outside every phase, as in JAX.
+phase (b) stay outside every phase, as in JAX. While a span recorder is
+on, the step's host-side decisions (``exact``, ``local_recompute``,
+``repartition``, ``first_sparse``, ``host_step``) are attributes of the
+enclosing bucket span (``anatomy.annotate``).
 
 Phase-(a) combine order: up to P contributions land on one index; they
 are added one source row at a time in rank order, as the JAX scatter does
@@ -46,7 +49,7 @@ from oktopk_tpu_torch.collectives.wire import (
     residual_after_winners,
 )
 from oktopk_tpu_torch.config import OkTopkConfig, scheduled_k, target_k
-from oktopk_tpu_torch.obs.anatomy import phase_scope
+from oktopk_tpu_torch.obs.anatomy import annotate, phase_scope
 from oktopk_tpu_torch.ops import compaction
 from oktopk_tpu_torch.ops.fused_select import (
     fused_pack_finalize,
@@ -184,6 +187,10 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
 
     # ---- phase (a): select, pack per region, exchange, combine
     repart = step % cfg.repartition_every == 0 or first_sparse
+    # the step's decisions, on the bucket's span while spans record
+    annotate(host_step=step, exact=recompute_global,
+             local_recompute=recompute_local, repartition=repart,
+             first_sparse=first_sparse)
     if fuse:
         with phase_scope("select", bkt):
             probe_t = lt * _f32(cfg.probe_ratio, lt)

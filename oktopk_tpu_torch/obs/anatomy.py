@@ -1,6 +1,6 @@
 """Step anatomy: the phase annotation contract and the trace analyser.
 
-Counterpart of ``oktopk_tpu/obs/anatomy.py``, in three pieces:
+Counterpart of ``oktopk_tpu/obs/anatomy.py``, in four pieces:
 
 1. **Naming contract** — ``scope_name(phase, bucket, level)`` gives names
    like ``anat/b003/exchange`` or ``anat/b000/lvl1/select``; ``SCOPE_PREFIX``,
@@ -60,6 +60,29 @@ Counterpart of ``oktopk_tpu/obs/anatomy.py``, in three pieces:
    on bucket -1) and one ``overlap_report``, or one ``anatomy_warning``
    when there is nothing to attribute; the analysis never raises.
 
+4. **Span recorder** (the port's own; JAX's contract reaches only a
+   profiler) — :func:`record_spans` switches on a :class:`SpanRecorder`
+   (off by default). While it is on, every range :func:`phase_scope`
+   would open records one span, whether or not a profiler runs: the
+   merged contract name, its id, its parent (the enclosing open span on
+   the thread), the step's id, host start and end by ``time.time_ns()``
+   (the clock of ``torch.profiler``'s Chrome trace: an event's ``ts`` in
+   µs plus the trace's ``baseTimeNanoseconds`` / 1000), and on the card a
+   pair of CUDA events on the current stream from a pool reused across
+   steps. :func:`span` opens spans that the contract does not name — the
+   Trainer's root ``step`` and the exchange's ``grad_step`` — on the
+   recorder alone, with no ``record_function`` range, so profiler
+   traces read what they read without the recorder.
+   :func:`annotate` attaches host-side attributes to the innermost open
+   span (oktopk marks its bucket span ``exact``, ``repartition``, ...),
+   and a ``step`` span carries the change in the ported kernels' launch
+   counters over the step. Nothing synchronises while spans record:
+   :meth:`SpanRecorder.drain`, after the caller's synchronise, resolves
+   each span's device ms and returns plain records.
+   :func:`step_totals` reduces them per step and phase family, and
+   :func:`name_gaps` names the idle gaps of a device-only trace by the
+   span open on the host at each gap's middle.
+
 :func:`capture_pipeline_anatomy` is the pipeline capture (JAX's :452-584):
 each phase of the pipeline run on its own under :func:`trace_annotation`
 and synchronised, over the port's ops and the comm's verbs, in one
@@ -70,10 +93,13 @@ from __future__ import annotations
 
 import glob
 import gzip
+import importlib
+import itertools
 import json
 import os
 import re
 import threading
+import time
 from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -150,8 +176,19 @@ def _merged_range(phase, bucket, level):
     merged = tuple(o if c is None else c
                    for c, o in zip((phase, bucket, level), outer))
     stack.append(merged)
+    rec = _RECORDER
     try:
-        if merged == outer or not torch.autograd._profiler_enabled():
+        if merged == outer:
+            yield
+        elif rec is not None:
+            name = scope_name(*merged)
+            with rec.scope(name):
+                if torch.autograd._profiler_enabled():
+                    with torch.profiler.record_function(name):
+                        yield
+                else:
+                    yield
+        elif not torch.autograd._profiler_enabled():
             yield
         else:
             with torch.profiler.record_function(scope_name(*merged)):
@@ -163,7 +200,8 @@ def _merged_range(phase, bucket, level):
 def phase_scope(phase: Optional[str] = None, bucket: Optional[int] = None,
                 level: Optional[int] = None):
     """A ``record_function`` range bearing the contract name merged with
-    the enclosing scopes (nullcontext when annotations are disabled).
+    the enclosing scopes (nullcontext when annotations are disabled), and
+    a span of the recorder while one is on (:func:`record_spans`).
     Host-side only: no device sync, nothing computed."""
     if not _ENABLED:
         return nullcontext()
@@ -217,6 +255,229 @@ def backward_scope(loss: torch.Tensor) -> torch.Tensor:
             or not torch.autograd._profiler_enabled()):
         return loss
     return _BackwardRange.apply(loss)
+
+
+# ---------------------------------------------------------------------------
+# the span recorder
+
+# the recorder the scopes feed; None: off (record_spans)
+_RECORDER: Optional["SpanRecorder"] = None
+_NULL = nullcontext()
+
+# the spans the contract does not name (recorder only)
+STEP = "step"              # Trainer.train_step, the root of a step
+GRAD_STEP = "grad_step"    # the whole SparseGradStep call
+
+# the marks oktopk puts on its bucket span, and the ported kernels'
+# launch counters (``LAUNCHES`` of these ``ops`` modules) a step carries
+MARKS = ("exact", "local_recompute", "repartition", "first_sparse")
+COUNTED_OPS = ("fused_select", "compaction", "prng")
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {m: importlib.import_module(f"oktopk_tpu_torch.ops.{m}").LAUNCHES
+            for m in COUNTED_OPS}
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "step", "start_ns", "end_ns",
+                 "attrs", "events", "launches")
+
+
+class SpanRecorder:
+    """Spans of the contract's ranges and of the recorder-only spans, in
+    memory. ``device`` a card: each span also records a pair of CUDA
+    events (``enable_timing``) on the current stream, from a pool that
+    :meth:`drain` refills; elsewhere ``device_ms`` is None."""
+
+    def __init__(self, device=None):
+        dev = None if device is None else torch.device(device)
+        self.device = dev
+        self.timed = dev is not None and dev.type == "cuda"
+        self.step: Optional[int] = None     # the newest root span's step
+        self._closed: List[_Span] = []
+        self._pool: list = []
+        self._ids = itertools.count()
+        self._steps = itertools.count()
+        self._local = threading.local()
+
+    def _open(self) -> List[_Span]:
+        stack = getattr(self._local, "open", None)
+        if stack is None:
+            stack = self._local.open = []
+        return stack
+
+    def _event(self):
+        ev = (self._pool.pop() if self._pool
+              else torch.cuda.Event(enable_timing=True))
+        ev.record()
+        return ev
+
+    @contextmanager
+    def scope(self, name: str, root: bool = False):
+        """One span over the block, a child of the enclosing open span of
+        this thread; ``root`` starts a new step and carries the change
+        in the launch counters over the block (``attrs["launches"]``)."""
+        stack = self._open()
+        parent = stack[-1] if stack else None
+        sp = _Span()
+        sp.name, sp.id, sp.attrs = name, next(self._ids), {}
+        sp.parent = None if parent is None else parent.id
+        if root:
+            sp.step = self.step = next(self._steps)
+            sp.launches = _launch_counts()
+        else:
+            sp.step = self.step if parent is None else parent.step
+            sp.launches = None
+        sp.start_ns = time.time_ns()
+        sp.events = self._event() if self.timed else None
+        stack.append(sp)
+        try:
+            yield sp
+        finally:
+            stack.pop()
+            if self.timed:
+                sp.events = (sp.events, self._event())
+            sp.end_ns = time.time_ns()
+            if sp.launches is not None:
+                now = _launch_counts()
+                sp.attrs["launches"] = {k: now[k] - v
+                                        for k, v in sp.launches.items()}
+            self._closed.append(sp)
+
+    def annotate(self, attrs: Dict[str, Any]) -> None:
+        stack = self._open()
+        if stack:
+            stack[-1].attrs.update(attrs)
+
+    def drain(self) -> List[Dict[str, Any]]:
+        """The closed spans since the last drain, in opening order, as
+        plain records (``name``, ``id``, ``parent``, ``step``,
+        ``start_ns``, ``end_ns``, ``device_ms``, ``attrs``); their events
+        go back to the pool. Synchronises the card first (after the
+        caller's own synchronise, at once)."""
+        closed, self._closed = self._closed, []
+        if self.timed and closed:
+            torch.cuda.synchronize(self.device)
+        out = []
+        for sp in sorted(closed, key=lambda s: s.id):
+            device_ms = None
+            if sp.events is not None:
+                a, b = sp.events
+                device_ms = a.elapsed_time(b)
+                self._pool += (a, b)
+            out.append({"name": sp.name, "id": sp.id, "parent": sp.parent,
+                        "step": sp.step, "start_ns": sp.start_ns,
+                        "end_ns": sp.end_ns, "device_ms": device_ms,
+                        "attrs": sp.attrs})
+        return out
+
+
+def record_spans(recorder: Optional[SpanRecorder]
+                 ) -> Optional[SpanRecorder]:
+    """Feed ``recorder`` from now on (None: off); returns the previous."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, recorder
+    return prev
+
+
+def span(name: str, root: bool = False):
+    """A span of the recorder alone (no ``record_function`` range), for
+    what the contract does not name; a no-op while no recorder is on."""
+    rec = _RECORDER
+    return _NULL if rec is None else rec.scope(name, root)
+
+
+def annotate(**attrs) -> None:
+    """Attach host-side attributes to the innermost open span of this
+    thread; returns at once while no recorder is on."""
+    rec = _RECORDER
+    if rec is not None:
+        rec.annotate(attrs)
+
+
+def _span_ms(s: Dict[str, Any], clock: str) -> float:
+    if clock == "device":
+        return float(s["device_ms"])
+    return (s["end_ns"] - s["start_ns"]) / 1e6
+
+
+def step_totals(spans: List[Dict[str, Any]], clock: str = "device"
+                ) -> List[Dict[str, Any]]:
+    """One row per root ``step`` span: its ``step`` id, ``start_ns``,
+    ``launches``, ``marks`` (each of :data:`MARKS` that a span under it
+    carries) and ``ms``: the ``step`` span's and the ``grad_step`` spans'
+    whole ms, and each contract span's self ms (its own less its
+    children's) summed by phase family over buckets and occurrences — a
+    bucket container's own under ``bucket``, a non-contract span's under
+    ``<name>_self``. ``clock`` ``device`` reads the CUDA events, ``host``
+    the host stamps."""
+    children: Dict[int, List[Dict[str, Any]]] = {}
+    for s in spans:
+        if s["parent"] is not None:
+            children.setdefault(s["parent"], []).append(s)
+    rows = []
+    for root in spans:
+        if root["name"] != STEP or root["parent"] is not None:
+            continue
+        ms = {STEP: _span_ms(root, clock)}
+        marks = {}
+        todo = [root]
+        while todo:
+            s = todo.pop()
+            kids = children.get(s["id"], [])
+            todo += kids
+            for k in MARKS:
+                if s["attrs"].get(k):
+                    marks[k] = True
+            own = _span_ms(s, clock) - sum(_span_ms(c, clock) for c in kids)
+            if s["name"] == GRAD_STEP:
+                ms[GRAD_STEP] = ms.get(GRAD_STEP, 0.0) + _span_ms(s, clock)
+            parsed = parse_scope_level(s["name"])
+            if parsed is None:
+                key = f"{s['name']}_self"
+            else:
+                key = parsed[0] or ("bucket" if parsed[1] is not None
+                                    else "other")
+            ms[key] = ms.get(key, 0.0) + own
+        rows.append({"step": root["step"], "start_ns": root["start_ns"],
+                     "launches": root["attrs"].get("launches"),
+                     "marks": marks, "ms": ms})
+    return rows
+
+
+def name_gaps(events: List[Dict[str, Any]], spans: List[Dict[str, Any]],
+              base_ns: int) -> List[Dict[str, Any]]:
+    """The idle gaps of a device-only ``torch.profiler`` trace (between
+    the union of its kernels, copies and sets, first to last), each
+    named by the innermost span open on the host at the gap's middle:
+    ``ts`` (the middle, the trace's µs), ``seconds``, and the span's
+    ``name``, ``id``, ``step`` and ``attrs`` (None where no span was
+    open). ``base_ns`` is the trace's ``baseTimeNanoseconds``: a span's
+    host stamps map to the trace's clock as ``(ns - base_ns) / 1000``."""
+    busy = _merged([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("cat") in _DEVICE_CATS
+                    and e.get("ph") == "X"
+                    and isinstance(e.get("ts"), (int, float))
+                    and isinstance(e.get("dur"), (int, float))])
+    gaps = [(0.5 * (a_end + b_start), b_start - a_end)
+            for (_, a_end), (b_start, _) in zip(busy, busy[1:])
+            if b_start > a_end]
+    ivs = sorted((((s["start_ns"] - base_ns) / 1e3,
+                   (s["end_ns"] - base_ns) / 1e3), i)
+                 for i, s in enumerate(spans))
+    out, open_, j = [], [], 0
+    for mid, length in gaps:
+        while j < len(ivs) and ivs[j][0][0] <= mid:
+            open_.append(ivs[j])
+            j += 1
+        open_ = [iv for iv in open_ if iv[0][1] >= mid]
+        best = (spans[max(open_, key=lambda iv: (iv[0][0], -iv[0][1]))[1]]
+                if open_ else None)
+        out.append({"ts": mid, "seconds": length * 1e-6,
+                    **{k: None if best is None else best[k]
+                       for k in ("name", "id", "step", "attrs")}})
+    return out
 
 
 def parse_scope_level(

@@ -21,15 +21,21 @@ profiler:
   own rollup cannot hang the others.
 - :class:`ChromeTraceSink` (:113-164) collects host-phase samples
   (``PhaseTimers``) as Chrome trace-event ``"X"`` events, one lane per
-  contract family (``obs/anatomy.py``'s ``parse_scope``).
+  contract family (``obs/anatomy.py``'s ``parse_scope``). It also writes
+  the span recorder's records (``add_span``; the port's own), each with
+  ``args`` for its id, parent, step, device ms and attributes, and
+  :func:`export_spans` records the spans of a block of training and
+  writes them so (the command lines' ``--obs-spans PATH``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
+from oktopk_tpu_torch.obs import anatomy
 from oktopk_tpu_torch.obs.anatomy import parse_scope, scope_name
 
 _TRIGGERS = ("guard_trip", "fallback", "quality_rollup")
@@ -141,6 +147,23 @@ class ChromeTraceSink:
             "ts": float(ts_s) * 1e6, "dur": float(dur_s) * 1e6,
         })
 
+    def add_span(self, record: Dict[str, Any]) -> None:
+        """One span record of ``anatomy.SpanRecorder.drain``: an "X"
+        event on the host clock (``ts`` in µs since the Unix epoch, the
+        profiler trace's ``ts`` plus its ``baseTimeNanoseconds`` / 1000),
+        on its family's lane, with the record's ids, step, device ms and
+        attributes as ``args``."""
+        tid = self._lanes.setdefault(self._lane(record["name"]),
+                                     len(self._lanes))
+        self.events.append({
+            "name": record["name"], "ph": "X", "pid": 0, "tid": tid,
+            "ts": record["start_ns"] / 1e3,
+            "dur": (record["end_ns"] - record["start_ns"]) / 1e3,
+            "args": {"id": record["id"], "parent": record["parent"],
+                     "step": record["step"],
+                     "device_ms": record["device_ms"], **record["attrs"]},
+        })
+
     def _metadata_events(self) -> List[Dict[str, Any]]:
         meta: List[Dict[str, Any]] = [{
             "name": "process_name", "ph": "M", "pid": 0, "tid": 0,
@@ -160,3 +183,31 @@ class ChromeTraceSink:
             json.dump({"traceEvents": self._metadata_events() + self.events,
                        "displayTimeUnit": "ms"}, f)
         return path
+
+
+def spans_path(path: str, rank: int) -> str:
+    """``path`` for rank 0; ``<stem>.rank<r><ext>`` for another rank."""
+    if not rank:
+        return path
+    stem, ext = os.path.splitext(path)
+    return f"{stem}.rank{rank}{ext}"
+
+
+@contextmanager
+def export_spans(path: Optional[str], device, rank: int = 0):
+    """Record the spans of the block (``anatomy.SpanRecorder`` on
+    ``device``) and write them at its end as a Chrome trace to
+    :func:`spans_path`; a no-op for ``path`` None."""
+    if path is None:
+        yield None
+        return
+    rec = anatomy.SpanRecorder(device)
+    prev = anatomy.record_spans(rec)
+    try:
+        yield rec
+    finally:
+        anatomy.record_spans(prev)
+        sink = ChromeTraceSink()
+        for record in rec.drain():
+            sink.add_span(record)
+        sink.write(spans_path(path, rank))

@@ -45,7 +45,9 @@ reads it on the host.
 Each bucket's algorithm runs inside the bucket's container scope
 (``obs/anatomy.py``; JAX's :347), so the algorithm's phase ranges carry
 the bucket's index, and its work outside every phase lands on phase
-``other`` of that bucket.
+``other`` of that bucket. While a span recorder is on, the whole call is
+the recorder's ``grad_step`` span (``obs/anatomy.py``), the metrics'
+gather and the guard included.
 
 The flat gradient [W, n] is laid out in the JAX package's leaf order and
 layout (the trainer builds it), so that buckets, region boundaries and
@@ -67,7 +69,7 @@ from oktopk_tpu_torch.collectives.registry import (
 from oktopk_tpu_torch.collectives.state import (SKIP_ADVANCES, SparseState,
                                               init_state)
 from oktopk_tpu_torch.config import OkTopkConfig
-from oktopk_tpu_torch.obs.anatomy import phase_scope
+from oktopk_tpu_torch.obs.anatomy import GRAD_STEP, phase_scope, span
 from oktopk_tpu_torch.obs.metrics_buffer import init_buffer
 from oktopk_tpu_torch.obs.quality import commit, measure_bucket
 from oktopk_tpu_torch.resilience import guard as _guard
@@ -204,6 +206,10 @@ class SparseGradStep:
             self.cfgs.append(cfg.replace(**over) if over else cfg)
 
     def __call__(self, flat: torch.Tensor):
+        with span(GRAD_STEP):
+            return self._reduce(flat)
+
+    def _reduce(self, flat: torch.Tensor):
         reduced = torch.empty(flat.shape[1], dtype=flat.dtype,
                               device=flat.device)
         vol = wbytes = lk = gk = 0.0

@@ -72,7 +72,9 @@ One process holds its P workers stacked on its device
 (``--num-workers``, default 1); a multi-process launch runs one worker
 per process over a ``torch.distributed`` group, as ``main_trainer``
 does (``launch.data_parallel``), each with its own dropout stream
-(``train/trainer.py``). Only rank 0 logs.
+(``train/trainer.py``). Only rank 0 logs. ``--obs-spans PATH`` records
+that path's steps with ``obs/anatomy.py``'s span recorder and writes
+them as a Chrome trace at the end (``obs/tracing.py::export_spans``).
 
 Examples:
     python -m oktopk_tpu_torch.train.main_bert --model bert_base \\
@@ -181,6 +183,11 @@ def parse_args(argv=None):
                    help="stop between steps on SIGINT/SIGTERM/SIGUSR2 "
                         "(SIGUSR1 also requeues), park the state and exit "
                         "with code 3; resume a parked state on start")
+    p.add_argument("--obs-spans", default=None, metavar="PATH",
+                   help="the data-parallel path: record the step's spans "
+                        "(obs/anatomy.py's span recorder) over training "
+                        "and write them as a Chrome trace to PATH at the "
+                        "end (another rank: PATH.rank<r>)")
     args = p.parse_args(argv)
     if args.compressor == "hierarchical":
         p.error(TWO_LEVEL_ONLY)
@@ -240,6 +247,10 @@ def build_trainer(args, model_kwargs=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    if args.obs_spans and max(args.pipeline_stages, args.seq_shards,
+                              args.expert_shards) > 1:
+        raise SystemExit("--obs-spans records the data-parallel path's "
+                         "Trainer steps")
     # JAX's routing (:112-121): pipeline, seq, the refusal, expert
     if args.pipeline_stages > 1:
         return run_pipeline(args)
@@ -265,6 +276,7 @@ def main(argv=None) -> int:
         if args.data_meta["synthetic"]:
             logger.warning("Wikipedia corpus not found under %s: synthetic "
                            "MLM/NSP data", args.data_dir)
+    from oktopk_tpu_torch.obs.tracing import export_spans
     from oktopk_tpu_torch.train import preemption
     from oktopk_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                   save_checkpoint)
@@ -287,10 +299,11 @@ def main(argv=None) -> int:
                 logger.info("resumed interrupted state at step %d", start)
     del template
     remaining = max(0, args.num_minibatches - start)
-    m = trainer.train(data, remaining, log_every=args.log_every,
-                      logger=logger, start_step=start,
-                      should_stop=(preempt.should_stop if preempt
-                                   else None))
+    with export_spans(args.obs_spans, trainer.device, rank):
+        m = trainer.train(data, remaining, log_every=args.log_every,
+                          logger=logger, start_step=start,
+                          should_stop=(preempt.should_stop if preempt
+                                       else None))
     if preempt is not None:
         done = trainer.last_step
         if done < args.num_minibatches:   # another rank may have stopped

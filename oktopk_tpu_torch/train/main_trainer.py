@@ -21,7 +21,9 @@ autotune loop, which needs ``--obs``), the autotuner's of :51-62
 (``--autotune``, ``--autotune-candidates``, ``--autotune-trial-steps``,
 ``--autotune-retune-every``, ``--autotune-journal``; rank 0 alone writes
 the decision journal, every rank runs the same trials and takes the
-same plan), plus ``--num-workers``, ``--device`` and ``--backend``.
+same plan), plus ``--num-workers``, ``--device``, ``--backend`` and
+``--obs-spans`` (the port's own: the span recorder over training, its
+Chrome trace written at the end).
 ``--dataset`` is ``cifar10``, ``mnist`` or ``imagenet`` for the image
 models, ``an4`` (``lstman4``, ``lstman4_tiny``) or ``ptb`` (``lstm``,
 ``lstm_tiny``).
@@ -220,6 +222,12 @@ def parse_args(argv=None):
                         "rank under traces/ beside the journal")
     p.add_argument("--obs-trace-steps", type=int, default=3,
                    help="steps per anomaly-triggered trace window")
+    p.add_argument("--obs-spans", default=None, metavar="PATH",
+                   help="record the step's spans (obs/anatomy.py's span "
+                        "recorder: the step, its phases, the exchange's "
+                        "decisions, device ms on a card) over training and "
+                        "write them as a Chrome trace to PATH at the end "
+                        "(another rank: PATH.rank<r>)")
     p.add_argument("--obs-regress-key", default=None,
                    help="BENCH_r*.json key (e.g. oktopk_ms; the JAX "
                         "package's records) to baseline step-time "
@@ -528,6 +536,7 @@ def dump_grad_stream(trainer, rundir: str, step: int, rank0: bool):
 
 def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
     from oktopk_tpu_torch import settings
+    from oktopk_tpu_torch.obs.tracing import export_spans
     from oktopk_tpu_torch.train import preemption
     from oktopk_tpu_torch.train.durable import AsyncCheckpointer
     from oktopk_tpu_torch.utils.profiling import (MetricWriter, PhaseTimers,
@@ -564,28 +573,31 @@ def _run(args, trainer, data, penv, meta, logger, rundir) -> int:
              if args.trace_at and rank0 else None)
     m = {}
     try:
-        while done < total:
-            chunk = min(total - done, per_epoch)
-            start = done
-            m = trainer.train(data, chunk, log_every=args.log_every,
-                              logger=logger, metric_writer=writer,
-                              timers=timers, trace=trace, start_step=done,
-                              should_stop=(preempt.should_stop if preempt
-                                           else None))
-            done = trainer.last_step
-            if done == start:       # stopped before the chunk's first step
-                break
-            if settings.PROFILING_GRAD:
-                dump_grad_stream(trainer, rundir, done, rank0)
-            mem = device_memory_stats(trainer.device)
-            logger.info("epoch done @ iter %d: loss %.4f vol/step %.0f "
-                        "hbm %.0fMiB", done, m["loss"], m["comm_volume"],
-                        mem.get("bytes_in_use", 0) / 2**20)
-            if saving and done % args.ckpt_every == 0:
-                save_and_register(trainer, args, done, rank0, checkpointer,
-                                  logger)
-            if done < start + chunk:  # stopped (every rank agreed)
-                break
+        with export_spans(args.obs_spans, trainer.device,
+                          penv.process_id):
+            while done < total:
+                chunk = min(total - done, per_epoch)
+                start = done
+                m = trainer.train(
+                    data, chunk, log_every=args.log_every, logger=logger,
+                    metric_writer=writer, timers=timers, trace=trace,
+                    start_step=done,
+                    should_stop=(preempt.should_stop if preempt else None))
+                done = trainer.last_step
+                if done == start:   # stopped before the chunk's first step
+                    break
+                if settings.PROFILING_GRAD:
+                    dump_grad_stream(trainer, rundir, done, rank0)
+                mem = device_memory_stats(trainer.device)
+                logger.info("epoch done @ iter %d: loss %.4f vol/step "
+                            "%.0f hbm %.0fMiB", done, m["loss"],
+                            m["comm_volume"],
+                            mem.get("bytes_in_use", 0) / 2**20)
+                if saving and done % args.ckpt_every == 0:
+                    save_and_register(trainer, args, done, rank0,
+                                      checkpointer, logger)
+                if done < start + chunk:  # stopped (every rank agreed)
+                    break
     finally:
         if writer is not None:
             writer.close()

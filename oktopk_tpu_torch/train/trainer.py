@@ -37,7 +37,9 @@ containers in ``SparseGradStep``, and ``optimizer`` around the update
 the step is bit-identical with them on and off. Each backward goes
 through ``anatomy.backward_scope``, so that on the card the kernels
 autograd launches from its device thread land in an ``anat/fwd_bwd``
-range too.
+range too. While a span recorder is on (``anatomy.record_spans``), the
+whole ``train_step`` is the root ``step`` span, with these scopes'
+spans under it.
 
 The train state goes in and out as the JAX package's ``DistTrainState``
 state dict (``train_state`` / ``load_train_state``, over
@@ -193,7 +195,8 @@ from oktopk_tpu_torch.models import create_model
 from oktopk_tpu_torch.models.deepspeech import CONV_TIME_STRIDE
 from oktopk_tpu_torch.models.layout import from_jax_layout, to_jax_layout
 from oktopk_tpu_torch.obs import volume as obs_volume
-from oktopk_tpu_torch.obs.anatomy import backward_scope, phase_scope
+from oktopk_tpu_torch.obs.anatomy import (STEP, backward_scope,
+                                          phase_scope, span)
 from oktopk_tpu_torch.obs.journal import EventBus, RunJournal
 from oktopk_tpu_torch.obs.metrics_buffer import rows_since
 from oktopk_tpu_torch.obs.quality import QualityConfig, quality_event
@@ -602,6 +605,10 @@ class Trainer:
         """One data-parallel step on a global batch (dict of arrays with a
         leading [P * nsteps_update * b] dimension), of which this process
         takes its workers' rows. Metrics stay on the device."""
+        with span(STEP, root=True):
+            return self._train_step(batch)
+
+    def _train_step(self, batch) -> Dict[str, torch.Tensor]:
         P, W = self.comm.size, self.comm.local_workers
         first = self.comm.first_worker
         ns = self.cfg.nsteps_update

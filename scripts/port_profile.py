@@ -36,6 +36,20 @@ after the warmup and first sparse step), then profiles ``--steps``
 steady steps of each: the ``obs_ab`` line and a ``kernels`` line each
 (``oktopk+taps``, ``oktopk``). Needs a CUDA device.
 
+``--spans CELLS`` instead builds each named ``gpubench`` cell as the
+benchmark does (``gpubench/harness.py::build``) and measures the span
+recorder (``obs/anatomy.py``) there: over the benchmark's
+``run_seconds`` of steps,
+each step's spans against ``gpubench/trace.py::StepClock``'s events
+(``fwd_bwd``, ``grad_step``, ``optimizer``, ``step``), the exchange's
+phase split over the steps marked neither ``exact`` nor ``repartition``,
+and the steps marked ``exact``; the traced window's samples/s with the
+recorder on and off in turns (8 windows of ``--ab-steps`` steps);
+and a device-only profile of the cell's steady steps with the recorder
+on, whose idle gaps ``anatomy.name_gaps`` names (the share named, and
+seconds by span). One ``spans`` line a cell (``--spans-out`` writes them
+all as JSON).
+
 ``--anatomy`` instead captures one step anatomy with
 ``obs/anatomy.py::capture_pipeline_anatomy`` (the counterpart of
 ``scripts/profile_step.py``'s ``--anatomy``): over a
@@ -56,6 +70,8 @@ cpu``. Examples:
         --anatomy-buckets 2 --anatomy-workers 4
     python3 scripts/port_profile.py --anatomy --device cpu \
         --anatomy-n 262144 --phase-limit select=50
+    python3 scripts/port_profile.py --spans bert-base.oktopk.gb256 \
+        --spans-out spans.json
 """
 
 from __future__ import annotations
@@ -72,6 +88,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 OWN_KERNELS = ("fs_sweep", "fs_zero", "cp_prefill", "cp_compact")
+AB_WINDOWS = 8      # --spans: recorder on, off, off, on, twice
 
 
 def emit(obj):
@@ -315,6 +332,205 @@ def anatomy_main(args) -> int:
     return 0
 
 
+def _mean(xs):
+    xs = list(xs)
+    return sum(xs) / len(xs) if xs else None
+
+
+def _spans_window(trainer, pool, i, clock, rec, seconds=None, steps=None):
+    """Run ``steps`` steps, or steps for ``seconds``, from pool index
+    ``i`` under ``clock`` (a ``StepClock``) with ``rec`` the span
+    recorder on (or None), one synchronise at the end; (next index,
+    steps, seconds)."""
+    import torch
+
+    from oktopk_tpu_torch.obs import anatomy
+    prev = anatomy.record_spans(rec)
+    n, t0 = 0, time.perf_counter()
+    try:
+        while True:
+            clock.start()
+            trainer.train_step(pool[(i + n) % len(pool)])
+            clock.end()
+            n += 1
+            if (n == steps if steps else
+                    time.perf_counter() - t0 >= seconds):
+                break
+        torch.cuda.synchronize()
+    finally:
+        anatomy.record_spans(prev)
+    return i + n, n, time.perf_counter() - t0
+
+
+def spans_cell(args, name) -> dict:
+    """One benchmark cell (``gpubench/``'s own build: its configuration,
+    weights and batches) with the span recorder: the spans against
+    ``StepClock``'s events, the exchange's phase split, the recorder's
+    cost on the traced window's rate, and the idle gaps of a device-only
+    profile of steady steps named by ``anatomy.name_gaps``."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpubench import harness
+    from gpubench import trace as gtrace
+    from gpubench.reference import train as ref_train
+    from gpubench.registry import Registry
+    from oktopk_tpu_torch.obs import anatomy
+
+    reg = Registry()
+    cell = reg.cell(name)
+    config, workload = reg.config(cell["config"]), reg.workload(name)
+    dev = "cuda:0"
+    trainer, table, pool = harness.build(reg, config, workload, args.seed,
+                                         dev)
+    clock = gtrace.StepClock(trainer)
+    i = workload["warm_steps"]
+    for s in range(i):
+        clock.start()
+        trainer.train_step(pool[s])
+        clock.end()
+    torch.cuda.synchronize()
+    rows = workload["batch_per_worker"] * config["data_parallel_workers"]
+    out = {"cell": name}
+
+    # the exchange's steady steps (by its reference, as the harness
+    # profiles them): no exact threshold, no repartition
+    ex = ref_train.exchange(workload["compressor"])
+    n_all = sum(int(torch.Size(s).numel()) for _, s, _ in table)
+    ctx = ex.context(n_all, config["data_parallel_workers"],
+                     workload["density"], config)
+
+    # the spans and StepClock over the same window steps
+    clock.steps.clear()
+    rec = anatomy.SpanRecorder(dev)
+    i, n, _ = _spans_window(trainer, pool, i, clock, rec,
+                            seconds=reg.bench["run_seconds"])
+    steps = anatomy.step_totals(rec.drain())
+    splits = clock.splits()
+    pairs = [("fwd_bwd", "fwd_bwd_ms"), ("grad_step", "collective_ms"),
+             ("optimizer", "optimizer_ms"), ("step", "step_ms")]
+    gap = {k: max(abs(r["ms"].get(a, 0.0) - c[k])
+                  for r, c in zip(steps, splits)) for a, k in pairs}
+    rel = {k: max(abs(r["ms"].get(a, 0.0) - c[k]) / c[k]
+                  for r, c in zip(steps, splits) if c[k] > 0)
+           for a, k in pairs}
+    span_mean = {k: _mean(r["ms"].get(a, 0.0) for r in steps)
+                 for a, k in pairs}
+    steady = [r for r in steps if not (r["marks"].get("exact")
+                                       or r["marks"].get("repartition"))]
+    families = ("select", "stage", "exchange", "combine", "bucket",
+                "grad_step_self", "grad_step", "fwd_bwd", "optimizer",
+                "step")
+    split = {f: _mean(r["ms"].get(f, 0.0) for r in steady)
+             for f in families}
+    parts = sum(split[f] or 0.0 for f in ("select", "stage", "exchange",
+                                          "combine", "bucket"))
+    exact = [(r, c) for r, c in zip(steps, splits)
+             if r["marks"].get("exact")]
+    out.update({
+        "window_steps": n, "steady_steps": len(steady),
+        "span_vs_clock_max_abs_ms": gap, "span_vs_clock_max_rel": rel,
+        "clock_mean_ms": {k: _mean(c[k] for c in splits) for _, k in pairs},
+        "span_mean_ms": span_mean,
+        "steady_split_ms": split,
+        "phases_plus_buckets_over_grad_step": (
+            parts / split["grad_step"] if split["grad_step"] else None),
+        "exact_steps": [{"step": r["step"], "span_ms": r["ms"]["step"],
+                         "clock_ms": c["step_ms"], "marks": r["marks"]}
+                        for r, c in exact],
+        "launches_per_steady_step": steady[0]["launches"] if steady
+        else None})
+
+    # the recorder's cost on the traced window (StepClock on): windows of
+    # --ab-steps steps with the recorder on and off in turns (on off off
+    # on ...), so both arms hold the same share of exact steps; each
+    # window's samples/s, and the median period of its steady steps
+    ab = {arm: {"samples_per_s": [], "steady_period_ms": []}
+          for arm in ("on", "off")}
+    for k in range(AB_WINDOWS):
+        arm = "on" if k % 4 in (0, 3) else "off"
+        r = anatomy.SpanRecorder(dev) if arm == "on" else None
+        clock.steps.clear()
+        first = i
+        i, n, secs = _spans_window(trainer, pool, i, clock, r,
+                                   steps=args.ab_steps)
+        if r is not None:
+            r.drain()
+        ab[arm]["samples_per_s"].append(n * rows / secs)
+        ab[arm]["steady_period_ms"] += [
+            c["period_ms"] for j, c in enumerate(clock.splits())
+            if c["period_ms"] is not None and ex.steady(ctx, first + j)]
+    med = {arm: {k: statistics.median(v) if v else None
+                 for k, v in d.items()} for arm, d in ab.items()}
+    out["recorder_ab"] = {a: d["samples_per_s"] for a, d in ab.items()}
+    out["recorder_ab_median"] = med
+    out["recorder_cost"] = {
+        "samples_per_s": 1.0 - med["on"]["samples_per_s"]
+        / med["off"]["samples_per_s"],
+        "steady_period": (med["on"]["steady_period_ms"]
+                          / med["off"]["steady_period_ms"] - 1.0
+                          if med["on"]["steady_period_ms"]
+                          and med["off"]["steady_period_ms"] else None)}
+
+    # a device-only profile of steady steps with the recorder on: the
+    # idle gaps named by the span open on the host at each one's middle
+    T = workload["trace_steps"]
+    start = next(j for j in range(i, i + 256)
+                 if all(ex.steady(ctx, s) for s in range(j, j + T)))
+    for s in range(i, start):
+        trainer.train_step(pool[s % len(pool)])
+    torch.cuda.synchronize()
+    rec = anatomy.SpanRecorder(dev)
+    prev = anatomy.record_spans(rec)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for s in range(start, start + T):
+                trainer.train_step(pool[s % len(pool)])
+            torch.cuda.synchronize()
+    finally:
+        anatomy.record_spans(prev)
+    spans = rec.drain()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.remove(path)
+    base = doc.get("baseTimeNanoseconds")
+    named = anatomy.name_gaps(doc["traceEvents"], spans, base or 0)
+    total = sum(g["seconds"] for g in named)
+    by_name = {}
+    for g in named:
+        key = g["name"] or "(no span)"
+        by_name[key] = by_name.get(key, 0.0) + g["seconds"]
+    out["gaps"] = {
+        "base_ns_in_trace": base is not None, "profiled_steps": T,
+        "idle_s": total, "gaps": len(named),
+        "named_share": (sum(g["seconds"] for g in named if g["name"])
+                        / total if total else None),
+        "by_span_s": sorted(by_name.items(), key=lambda kv: -kv[1])}
+    del trainer, clock
+    harness.free(dev)
+    return out
+
+
+def spans_main(args) -> int:
+    results = []
+    for name in args.spans.split(","):
+        res = spans_cell(args, name)
+        emit({"spans": name, **{k: v for k, v in res.items()
+                                if k != "cell"}})
+        results.append(res)
+    if args.spans_out:
+        with open(args.spans_out, "w") as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="vgg16",
@@ -356,6 +572,15 @@ def main():
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="--anatomy's device (the step profiles need the "
                         "card)")
+    p.add_argument("--spans", default=None, metavar="CELLS",
+                   help="comma-separated gpubench cells: measure the span "
+                        "recorder there instead of the step profile")
+    p.add_argument("--ab-steps", type=int, default=32,
+                   help="--spans: steps of each A/B window")
+    p.add_argument("--seed", type=int, default=2147483659,
+                   help="--spans: the cell's seed (weights, batches)")
+    p.add_argument("--spans-out", default=None, metavar="PATH",
+                   help="--spans: write every cell's result here (JSON)")
     args = p.parse_args()
     bert = args.model.startswith("bert")
     if args.batch is None:
@@ -381,6 +606,8 @@ def main():
     emit({"card": smi, "torch": torch.__version__, **vars(args)})
     if args.anatomy:
         return anatomy_main(args)
+    if args.spans:
+        return spans_main(args)
     if args.cudnn_ab:
         cudnn_ab(args)
         return 0

@@ -496,3 +496,308 @@ def test_chrome_trace_sink_lanes_as_jax(tmp_path):
              for i, sink in enumerate(sinks)]
     docs = [json.load(open(p)) for p in paths]
     assert docs[0] == docs[1]
+
+
+# ---- the span recorder (the port's own) -------------------------------------
+
+def _tiny_bert_trainer():
+    from oktopk_tpu_torch.config import OkTopkConfig, TrainConfig
+    from oktopk_tpu_torch.train.trainer import Trainer
+    return Trainer(TrainConfig(dnn="bert_tiny", dataset="wikipedia",
+                               batch_size=2, lr=2e-4, density=0.01,
+                               num_buckets=2, compressor="oktopk",
+                               num_workers=4),
+                   algo_cfg=OkTopkConfig(warmup_steps=0), warmup=False,
+                   device="cpu")
+
+
+def _tiny_bert_batch(seed):
+    from oktopk_tpu_torch.data.synthetic import synthetic_batch
+    return synthetic_batch("bert_tiny", 8, np.random.RandomState(seed))
+
+
+@pytest.fixture(scope="module")
+def recorded_steps():
+    """Two stacked oktopk steps of a two-bucket bert_tiny Trainer with the
+    recorder on, and the same two with it off: (spans, losses and
+    parameters on, losses and parameters off)."""
+    def run(rec):
+        tr = _tiny_bert_trainer()
+        prev = anatomy.record_spans(rec)
+        try:
+            losses = [tr.train_step(_tiny_bert_batch(s))["loss"].item()
+                      for s in range(2)]
+        finally:
+            anatomy.record_spans(prev)
+        return losses, [p.detach().clone() for p in tr.params]
+
+    rec = anatomy.SpanRecorder()
+    on = run(rec)
+    return rec.drain(), on, run(None)
+
+
+def test_span_tree_of_a_stacked_oktopk_step(recorded_steps):
+    spans = recorded_steps[0]
+    by_id = {s["id"]: s for s in spans}
+    roots = [s for s in spans if s["parent"] is None]
+    assert [r["name"] for r in roots] == [anatomy.STEP] * 2
+    assert [r["step"] for r in roots] == [0, 1]
+    first = [s for s in spans if s["step"] == 0]
+    kids = [s["name"] for s in first if s["parent"] == roots[0]["id"]]
+    assert kids == ["anat/fwd_bwd", anatomy.GRAD_STEP, "anat/optimizer"]
+    grad = next(s for s in first if s["name"] == anatomy.GRAD_STEP)
+    buckets = [s for s in first if s["parent"] == grad["id"]]
+    assert [b["name"] for b in buckets] == ["anat/b000", "anat/b001"]
+    for b in buckets:
+        phases = [s for s in first if s["parent"] == b["id"]]
+        assert phases and {anatomy.parse_scope(s["name"]) for s in phases} \
+            == {(p, int(b["name"][-3:])) for p in
+                ("select", "stage", "exchange", "combine")}
+        for s in phases:
+            assert b["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+                <= b["end_ns"]
+            assert s["device_ms"] is None           # the CPU: no events
+    # every span but the roots hangs under an open span of its step
+    for s in spans:
+        if s["parent"] is not None:
+            assert by_id[s["parent"]]["step"] == s["step"]
+
+
+def test_recorder_leaves_the_step_bit_identical(recorded_steps):
+    _, (l_on, p_on), (l_off, p_off) = recorded_steps
+    assert l_on == l_off
+    for a, b in zip(p_on, p_off):
+        assert torch.equal(a, b)
+
+
+def test_step_totals_split_the_step(recorded_steps):
+    rows = anatomy.step_totals(recorded_steps[0], clock="host")
+    assert [r["step"] for r in rows] == [0, 1]
+    assert rows[0]["marks"] == dict.fromkeys(anatomy.MARKS, True)
+    assert rows[1]["marks"] == {}
+    for r in rows:
+        ms = r["ms"]
+        parts = sum(ms[k] for k in ("select", "stage", "exchange",
+                                    "combine", "bucket", "grad_step_self"))
+        assert parts == pytest.approx(ms["grad_step"], rel=1e-9)
+        whole = sum(ms[k] for k in ("fwd_bwd", "optimizer", "step_self"))
+        assert whole + ms["grad_step"] == pytest.approx(ms["step"],
+                                                        rel=1e-9)
+
+
+def test_launch_counter_deltas_on_the_step_span(recorded_steps,
+                                                monkeypatch):
+    from oktopk_tpu_torch.ops import compaction, fused_select, prng
+    zeros = dict.fromkeys(anatomy.COUNTED_OPS, 0)   # the CPU launches none
+    assert all(s["attrs"]["launches"] == zeros for s in recorded_steps[0]
+               if s["name"] == anatomy.STEP)
+    for mod in (compaction, fused_select, prng):
+        monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES + 7)
+    rec = anatomy.SpanRecorder()
+    prev = anatomy.record_spans(rec)
+    try:
+        with anatomy.span(anatomy.STEP, root=True):
+            fused_select.LAUNCHES += 4      # one sweep a worker
+            compaction.LAUNCHES += 8        # two compactions a worker
+            with anatomy.span(anatomy.GRAD_STEP):
+                prng.LAUNCHES += 1
+    finally:
+        anatomy.record_spans(prev)
+    grad, step = rec.drain()[::-1]
+    assert step["attrs"]["launches"] == {"fused_select": 4,
+                                         "compaction": 8, "prng": 1}
+    assert "launches" not in grad["attrs"]
+
+
+def test_oktopk_marks_its_cadence_over_256_steps():
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+    _, cfg = _configs("oktopk")
+    cfg = cfg.replace(n=64, local_recompute_every=4,
+                      global_recompute_every=8, repartition_every=16,
+                      warmup_steps=5, threshold_method="sort")
+    step = build_allreduce_step("oktopk", cfg, warmup=False)
+    st = batched_init_state(cfg, "cpu")
+    g = torch.from_numpy(np.random.RandomState(5).randn(P, 64)
+                         .astype(np.float32))
+    rec = anatomy.SpanRecorder()
+    prev = anatomy.record_spans(rec)
+    try:
+        for _ in range(256):
+            with anatomy.phase_scope(bucket=0):
+                _, st = step(g, st)
+    finally:
+        anatomy.record_spans(prev)
+    buckets = [s for s in rec.drain() if s["name"] == "anat/b000"]
+    assert [b["attrs"]["host_step"] for b in buckets] == list(range(256))
+    for b in buckets:
+        s, a = b["attrs"]["host_step"], b["attrs"]
+        first = s == cfg.warmup_steps
+        assert a["first_sparse"] == first
+        assert a["exact"] == (s % cfg.global_recompute_every == 0 or first)
+        assert a["local_recompute"] == (
+            s % cfg.local_recompute_every == 0 or first)
+        assert a["repartition"] == (s % cfg.repartition_every == 0 or first)
+
+
+def test_recorder_is_off_by_default_and_annotate_is_a_noop():
+    assert anatomy._RECORDER is None
+    assert anatomy.span(anatomy.STEP, root=True) is anatomy._NULL
+    anatomy.annotate(exact=True)           # nothing open, nothing raised
+    rec = anatomy.SpanRecorder()
+    prev = anatomy.record_spans(rec)
+    try:
+        anatomy.annotate(exact=True)       # no open span: dropped
+        with anatomy.phase_scope("select", 0):
+            with anatomy.phase_scope("select"):   # adds nothing: no span
+                anatomy.annotate(exact=True)
+    finally:
+        anatomy.record_spans(prev)
+    (only,) = rec.drain()
+    assert only["name"] == "anat/b000/select"
+    assert only["attrs"] == {"exact": True} and only["parent"] is None
+    assert rec.drain() == []
+
+
+def test_profiler_reads_the_same_with_the_recorder(tmp_path):
+    from oktopk_tpu_torch.collectives.api import (batched_init_state,
+                                                  build_allreduce_step)
+    _, cfg = _configs("oktopk")
+    rng = np.random.RandomState(3)
+    grads = torch.from_numpy(rng.randn(P, N).astype(np.float32))
+
+    def run():
+        step = build_allreduce_step("oktopk", cfg, warmup=False)
+        with anatomy.span(anatomy.STEP, root=True):
+            with anatomy.phase_scope(bucket=0):
+                return step(grads, batched_init_state(cfg, "cpu"))
+
+    _, off = _traced(run, tmp_path, "off.json")
+    rec = anatomy.SpanRecorder()
+    prev = anatomy.record_spans(rec)
+    try:
+        _, on = _traced(run, tmp_path, "on.json")
+    finally:
+        anatomy.record_spans(prev)
+    assert _trace_set(on) == _trace_set(off)
+
+    def names(path):
+        return sorted(e["name"] for e in json.load(open(path))["traceEvents"]
+                      if e.get("cat") == "user_annotation")
+
+    assert names(on) == names(off)          # no step/grad_step range
+    a_on, a_off = (anatomy.analyze_capture(p) for p in (on, off))
+    assert set(a_on["buckets"]) == set(a_off["buckets"]) == {0}
+    assert {k: v["count"] for k, v in a_on["buckets"][0].items()} == \
+        {k: v["count"] for k, v in a_off["buckets"][0].items()}
+    spans = rec.drain()
+    assert {s["name"] for s in spans} >= {anatomy.STEP, "anat/b000"}
+    # each contract span once, as its profiler range
+    contract = [s["name"] for s in spans
+                if anatomy.parse_scope(s["name"]) is not None]
+    assert sorted(contract) == names(on)
+
+
+def test_span_host_stamps_on_the_profiler_clock():
+    rec = anatomy.SpanRecorder()
+    prev = anatomy.record_spans(rec)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with torch.profiler.record_function("warm"):
+                pass
+            for i in range(20):
+                with anatomy.phase_scope("select", i):
+                    torch.ones(64).sum()
+    finally:
+        anatomy.record_spans(prev)
+    path = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                        f"clock_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        doc = json.load(open(path))
+    finally:
+        os.remove(path)
+    base = doc["baseTimeNanoseconds"]
+    twins = {e["name"]: e["ts"] for e in doc["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    gaps = [abs(twins[s["name"]] - (s["start_ns"] - base) / 1e3)
+            for s in rec.drain()]
+    assert len(gaps) == 20
+    assert sorted(gaps)[len(gaps) // 2] < 100.0      # µs
+
+
+def test_name_gaps_on_a_hand_built_trace():
+    base = 1_000_000_000_000
+
+    def dev(ts, dur, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": "k", "ts": ts, "dur": dur}
+
+    events = [dev(0, 10), dev(5, 10), dev(20, 5, "gpu_memcpy"),
+              dev(40, 10, "gpu_memset"), dev(60, 5),
+              {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 30,
+               "dur": 50}]               # a host op is no device work
+
+    def sp(i, name, parent, t0, t1, **attrs):
+        return {"name": name, "id": i, "parent": parent, "step": 3,
+                "start_ns": base + t0 * 1000, "end_ns": base + t1 * 1000,
+                "device_ms": None, "attrs": attrs}
+
+    spans = [sp(0, anatomy.STEP, None, 0, 55),
+             sp(1, "anat/b000", 0, 10, 50, exact=True),
+             sp(2, "anat/b000/select", 1, 28, 35)]
+    gaps = anatomy.name_gaps(events, spans, base)
+    # busy: [0, 15], [20, 25], [40, 50], [60, 65]
+    assert [(g["ts"], round(g["seconds"] * 1e6, 6)) for g in gaps] == \
+        [(17.5, 5.0), (32.5, 15.0), (55.0, 10.0)]
+    assert [g["name"] for g in gaps] == ["anat/b000", "anat/b000/select",
+                                         anatomy.STEP]
+    assert gaps[0]["attrs"] == {"exact": True} and gaps[0]["step"] == 3
+    spans[0]["end_ns"] = base + 50_000       # the last gap: no span open
+    assert anatomy.name_gaps(events, spans, base)[-1]["name"] is None
+    assert anatomy.name_gaps([], spans, base) == []
+
+
+def test_chrome_export_of_spans_with_args(recorded_steps, tmp_path):
+    from oktopk_tpu_torch.obs.tracing import ChromeTraceSink, spans_path
+    spans = recorded_steps[0]
+    sink = ChromeTraceSink()
+    for s in spans:
+        sink.add_span(s)
+    doc = json.load(open(sink.write(str(tmp_path / "spans.json"))))
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert len(xs) == len(spans)
+    for e, s in zip(xs, spans):
+        assert e["ts"] == s["start_ns"] / 1e3
+        assert e["args"]["step"] == s["step"]
+        assert e["args"]["parent"] == s["parent"]
+        assert "device_ms" in e["args"]
+        assert all(e["args"][k] == v for k, v in s["attrs"].items())
+    lanes = {e["args"]["name"] for e in doc["traceEvents"]
+             if e["name"] == "thread_name"}
+    # one lane per contract family, one each for the recorder's own
+    assert {"anat/b000/select", "anat/b001/combine", "anat/fwd_bwd",
+            anatomy.STEP, anatomy.GRAD_STEP} <= lanes
+    assert not any(lane.startswith("anat/") and lane.count("/") > 2
+                   for lane in lanes)
+    assert spans_path("a/spans.json", 0) == "a/spans.json"
+    assert spans_path("a/spans.json", 2) == "a/spans.rank2.json"
+
+
+def test_obs_spans_flag_writes_the_trace(tmp_path):
+    from oktopk_tpu_torch.train import main_bert, main_trainer
+    path = tmp_path / "spans.json"
+    assert main_bert.main(["--model", "bert_tiny", "--device", "cpu",
+                           "--num-workers", "2", "--batch-size", "2",
+                           "--num-minibatches", "2", "--data-dir",
+                           str(tmp_path), "--obs-spans", str(path)]) == 0
+    assert anatomy._RECORDER is None
+    xs = [e for e in json.load(open(path))["traceEvents"] if e["ph"] == "X"]
+    assert [e["args"]["step"] for e in xs if e["name"] == anatomy.STEP] \
+        == [0, 1]
+    assert xs[0]["args"]["launches"] == dict.fromkeys(anatomy.COUNTED_OPS,
+                                                      0)
+    with pytest.raises(SystemExit):
+        main_bert.main(["--model", "bert_tiny", "--pipeline-stages", "2",
+                        "--obs-spans", str(path)])
+    assert main_trainer.parse_args(["--obs-spans", "x.json"]).obs_spans \
+        == "x.json"
