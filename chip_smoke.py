@@ -7,9 +7,10 @@ one NVIDIA GPU. Run from the repository root, with no arguments:
 It drives ``oktopk_tpu_torch`` only (no JAX, nothing of ``oktopk_tpu``)
 and prints one JSON line per phase:
 
-1. build    — the three CUDA kernels compiled by nvcc for sm_90a from
+1. build    — the four CUDA sources compiled by nvcc for sm_90a from
               ``oktopk_tpu_torch/csrc/`` (the fused select, the
-              compaction, threefry), one nvcc per source, in parallel;
+              compaction, threefry, oktopk's combine), one nvcc per
+              source, in parallel;
 2. kernels  — the fused select kernel and the compaction kernel at the
               VGG-16 flat size n = 14,728,266, on seeded inputs in the
               fast, repair and wide regimes of the TPU kernels they
@@ -429,7 +430,20 @@ directory (removed at the end; ``OKTOPK_STATE_DIR`` inside it,
               1e-5 of the single module's loss at BERT-base width; one
               ``--compute-dtype bfloat16`` step; ``bert_tiny`` card
               against CPU (losses within rtol 1e-5, thresholds within
-              ``TINY_ULPS``); its own budget, ``EXPERT_BUDGET_S``.
+              ``TINY_ULPS``); its own budget, ``EXPERT_BUDGET_S``;
+51. combine — (after ``threefry``) oktopk's combine kernels
+              (``ops/combine.py``: ``cb_scatter``, ``cb_residual``) at
+              BERT-base's n, VGG-16's n and its two bucket n's (7,379,978
+              and 7,348,288), P = 4 stacked, d
+              = 0.01, both wires, on ``combine_inputs`` (the compaction's
+              real packs at each worker's lt, the comm's strided views):
+              phase (a)'s and phase (b)'s scatters and the residual update
+              each bit-equal to its plain version on the card, then timed
+              as the kernels phase times its forms (``device_ms`` over 25
+              calls, ``call_ms``), with the bound (bytes at 3.35 TB/s) and
+              the plain version's times; one scatter call launches one
+              ``cb_scatter`` per source row, the residual one
+              ``cb_residual``.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure raises, prints
@@ -461,8 +475,9 @@ def emit(obj) -> None:
 
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from oktopk_tpu_torch.ops import compaction, fused_select, prng
+    from oktopk_tpu_torch.ops import combine, compaction, fused_select, prng
     compaction.LAUNCHES = fused_select.LAUNCHES = prng.LAUNCHES = 0
+    combine.LAUNCHES = 0
 
 
 SPARSE_KERNELS = ("fused_select", "compaction")
@@ -479,9 +494,10 @@ def assert_launched(launches: dict, kernels, where: str) -> None:
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
-    from oktopk_tpu_torch.ops import compaction, fused_select, prng
+    from oktopk_tpu_torch.ops import combine, compaction, fused_select, prng
     return {"fused_select": fused_select.LAUNCHES,
-            "compaction": compaction.LAUNCHES, "threefry": prng.LAUNCHES}
+            "compaction": compaction.LAUNCHES, "threefry": prng.LAUNCHES,
+            "combine": combine.LAUNCHES}
 
 
 def cuda_time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
@@ -1169,7 +1185,7 @@ def phase_hierarchical(dev, oktopk_steps: int = 5):
     base = torch.randn((W, n), generator=gen, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    launches = dict.fromkeys(DROPOUT_KERNELS, 0)
+    launches = dict.fromkeys(read_counts(), 0)
     recs, intra, inter = [], [], []
     for s in range(1 + oktopk_steps):
         g = base + 0.3 * torch.randn((W, n), generator=gen, device=dev)
@@ -2573,6 +2589,139 @@ def phase_convergence(dev) -> dict:
 
 N_BERT = 110106428            # BERT-base's flat parameter count
 N_LSTMAN4 = 54791168          # DeepSpeech (lstman4, 5 x 800)'s
+
+
+def combine_inputs(n: int, dev, wire_dtype: str, P: int = 4,
+                   seed: int = SEED + 18):
+    """oktopk's combine inputs at P stacked workers, d = 0.01, as its step
+    hands them over: acc [P, n] (a normal draw, sigma 0.01) and lt [P]
+    (about 1% of each row); phase (a)'s received rows, the stacked
+    all_to_all's transposed view of each worker's pack at its lt over the
+    equal regions, rounded through the wire; phase (b)'s gathered rows,
+    each owner's select from the scatter of those (about 1% of n in all)
+    through the wire, the all_gather's broadcast view, divided by P as
+    oktopk divides them; the indices the broadcast view itself. Returns
+    ({acc, lt, r_vals, r_idx, gv, gi}, cfg)."""
+    import torch
+    from oktopk_tpu_torch.collectives.state import equal_boundaries
+    from oktopk_tpu_torch.collectives.wire import wire_round
+    from oktopk_tpu_torch.config import OkTopkConfig
+    from oktopk_tpu_torch.ops import combine, compaction
+
+    cfg = OkTopkConfig(n=n, num_workers=P, density=0.01,
+                       wire_dtype=wire_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    acc = 0.01 * torch.randn((P, n), generator=gen, device=dev)
+    lt = 0.02576 * (1.0 + 0.01 * torch.arange(P, dtype=torch.float32,
+                                              device=dev))
+    bnd = equal_boundaries(n, P, dev).expand(P, P + 1)
+    s_vals, s_idx, _ = compaction.pack_rows(acc, lt, bnd, P, cfg.cap_pair)
+    r_vals = wire_round(s_vals, cfg).transpose(0, 1)
+    r_idx = s_idx.transpose(0, 1)
+    reduced = combine.scatter_rows_plain(n, r_vals, r_idx)
+    gvals, gidx, _ = compaction.select_rows(reduced, 1.15 * lt,
+                                            cfg.cap_gather)
+    gv = wire_round(gvals, cfg).expand(P, *gvals.shape) / P
+    gi = gidx.expand(P, *gidx.shape)
+    return dict(acc=acc, lt=lt, r_vals=r_vals, r_idx=r_idx, gv=gv,
+                gi=gi), cfg
+
+
+def storage_bytes(*ts) -> int:
+    """Bytes of the tensors' storages (a broadcast or transposed view
+    counts what it reads once)."""
+    return sum(t.untyped_storage().nbytes() for t in ts)
+
+
+def cb_launches(fn) -> dict:
+    """{kernel: launches} of the ``cb_*`` kernels one call puts on the
+    card (one profiled call, after a warm one)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    counts, _ = profile_window(fn, 1)
+    out = {}
+    for k, v in counts.items():
+        bare = k[5:] if k.startswith("void ") else k
+        if bare.startswith("cb_"):
+            out[bare] = out.get(bare, 0) + v
+    return out
+
+
+def phase_combine(dev) -> None:
+    """The combine kernels against their plain versions and timed, at
+    BERT-base's n, VGG-16's (one bucket, the benchmark's VGG cell) and
+    VGG-16's two bucket n's, both wires."""
+    import torch
+    from oktopk_tpu_torch.ops import combine
+
+    sizes = [("bert", N_BERT), ("vgg16", N_VGG16)] + [
+        (f"vgg16_b{b}", nb) for b, nb in enumerate(vgg16_bucket_sizes())]
+    for prefix, n in sizes:
+        for wire_dtype in ("bfloat16", "float32"):
+            t, cfg = combine_inputs(n, dev, wire_dtype)
+            W, R = t["r_vals"].shape[:2]
+            acc, lt = t["acc"], t["lt"]
+            reduced = combine.scatter_rows(n, t["r_vals"], t["r_idx"])
+            result = combine.scatter_rows(n, t["gv"], t["gi"])
+            plain_red = combine.scatter_rows_plain(n, t["r_vals"],
+                                                   t["r_idx"])
+            plain_res = combine.scatter_rows_plain(n, t["gv"], t["gi"])
+            tag = f"{prefix} {wire_dtype}"
+            bits_equal(reduced, plain_red, f"{tag}: scatter_a")
+            bits_equal(result, plain_res, f"{tag}: scatter_b")
+            bits_equal(
+                combine.residual_after_winners(acc, lt, reduced, result,
+                                               cfg),
+                combine.residual_after_winners_plain(acc, lt, plain_red,
+                                                     plain_res, cfg),
+                f"{tag}: residual")
+            del plain_red, plain_res
+            bf16 = wire_dtype != "float32"
+            dense = 4 * W * n
+            forms = {
+                "scatter_a": (
+                    lambda: combine.scatter_rows(n, t["r_vals"], t["r_idx"]),
+                    lambda: combine.scatter_rows_plain(n, t["r_vals"],
+                                                       t["r_idx"]),
+                    dense + storage_bytes(t["r_vals"], t["r_idx"]),
+                    {"cb_scatter": R}),
+                "scatter_b": (
+                    lambda: combine.scatter_rows(n, t["gv"], t["gi"]),
+                    lambda: combine.scatter_rows_plain(n, t["gv"], t["gi"]),
+                    dense + storage_bytes(t["gv"], t["gi"]),
+                    {"cb_scatter": R}),
+                "residual": (
+                    lambda: combine.residual_after_winners(
+                        acc, lt, reduced, result, cfg),
+                    lambda: combine.residual_after_winners_plain(
+                        acc, lt, reduced, result, cfg),
+                    (4 if bf16 else 3) * dense + 4 * W,
+                    {f"cb_residual<{'true' if bf16 else 'false'}>": 1}),
+            }
+            recs = {}
+            for form, (kern, plain, nbytes, expect) in forms.items():
+                got = cb_launches(kern)
+                if got != expect:
+                    raise AssertionError(f"{tag} {form}: cb_ launches {got},"
+                                         f" expected {expect}")
+                rec = {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "kernel": timing(kern), "plain": timing(plain)}
+                recs[form] = rec
+                emit({"phase": "combine", "form": f"{prefix}_{form}",
+                      "wire": wire_dtype, "n": n, "W": W, "R": R,
+                      "cap": (t["r_vals"] if form == "scatter_a"
+                              else t["gv"]).shape[2], "bit_equal": True,
+                      **rec})
+            total = {k: sum(r["kernel"][k] for r in recs.values())
+                     for k in ("device_ms", "call_ms")}
+            emit({"phase": "combine_total", "size": prefix, "n": n,
+                  "wire": wire_dtype, **total,
+                  "bound_ms": sum(r["bound_ms"] for r in recs.values()),
+                  "plain_device_ms": sum(r["plain"]["device_ms"]
+                                         for r in recs.values())})
+            del t, acc, lt, reduced, result, forms
+            torch.cuda.empty_cache()
 
 
 def phase_big_kernels(dev, phase: str, prefix: str, n: int, density: float,
@@ -6400,6 +6549,7 @@ def main() -> int:
     timings, errs = phase_kernels(dev)
     edge_err, timings["pack_proto"] = phase_edges(dev)
     tf_timings = phase_threefry(dev)
+    phase_combine(dev)
     big = {"bert": ("bert", N_BERT) + phase_big_kernels(
         dev, "bert_kernels", "bert", N_BERT, 0.01, 2.576, SEED + 4)}
     big["lstman4"] = ("lstman4", N_LSTMAN4) + phase_big_kernels(

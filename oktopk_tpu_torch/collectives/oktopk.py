@@ -34,8 +34,10 @@ enclosing bucket span (``anatomy.annotate``).
 Phase-(a) combine order: up to P contributions land on one index; they
 are added one source row at a time in rank order, as the JAX scatter does
 on the CPU, so float sums agree bit-for-bit (no atomics collide: the
-indices within one row are distinct). The sentinel index n drops into an
-extra slot that is sliced off.
+indices within one row are distinct). The sentinel index n drops. The
+scatters and the residual update are ``ops/combine.py``: on the card its
+kernels, one pass each over contiguous [W, n] rows, the masks and the
+bf16 roundings in registers.
 """
 
 from __future__ import annotations
@@ -43,14 +45,10 @@ from __future__ import annotations
 import torch
 
 from oktopk_tpu_torch.collectives.state import SparseState, bump
-from oktopk_tpu_torch.collectives.wire import (
-    on_wire,
-    pair_wire_bytes,
-    residual_after_winners,
-)
+from oktopk_tpu_torch.collectives.wire import on_wire, pair_wire_bytes
 from oktopk_tpu_torch.config import OkTopkConfig, scheduled_k, target_k
 from oktopk_tpu_torch.obs.anatomy import annotate, phase_scope
-from oktopk_tpu_torch.ops import compaction
+from oktopk_tpu_torch.ops import combine, compaction
 from oktopk_tpu_torch.ops.fused_select import (
     fused_pack_finalize,
     fused_select_stage,
@@ -60,7 +58,6 @@ from oktopk_tpu_torch.ops.hist_threshold import (
     k2threshold_hist,
     log2_hist,
 )
-from oktopk_tpu_torch.ops.select import scatter_rows
 from oktopk_tpu_torch.ops.topk import cumsum_rows, k2threshold_method
 
 _F32 = torch.float32
@@ -206,9 +203,6 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
             s_vals, s_idx, s_counts = _stack([
                 fused_pack_finalize(stages[w], boundaries[w], P,
                                     cfg.cap_pair) for w in range(W)])
-        # the bf16 wire's residual update reads the unclamped sent mask
-        mask = (acc.abs() >= lt[:, None]
-                if cfg.wire_dtype != "float32" else None)
     else:
         with phase_scope("stage", bkt):
             boundaries = (_repartition(abs_acc, lt, cfg, comm) if repart
@@ -229,7 +223,7 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
         r_vals = comm.all_to_all(on_wire(s_vals, cfg, step)).to(acc.dtype)
         r_idx = comm.all_to_all(s_idx)
     with phase_scope("combine", bkt):
-        reduced = scatter_rows(n, r_vals, r_idx)    # own region only
+        reduced = combine.scatter_rows(n, r_vals, r_idx)  # own region
 
     sent_count = s_counts.sum(1, dtype=torch.int32)
     recv_count = (r_idx < n).sum((1, 2), dtype=torch.int32)
@@ -276,7 +270,7 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
             zero = torch.zeros((), dtype=acc.dtype, device=dev)
             # gathered indices are globally distinct: dividing by P at
             # cap scale equals dividing the dense sum
-            result = scatter_rows(
+            result = combine.scatter_rows(
                 n, torch.where(keep, gv, zero) / P,
                 torch.where(keep, gi, torch.full_like(gi, n)))
         g_count = keep.sum((1, 2), dtype=torch.int32)
@@ -292,7 +286,7 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
             gv = comm.all_gather(on_wire(gvals, cfg, step)).to(acc.dtype)
             gi = comm.all_gather(gidx)
         with phase_scope("combine", bkt):
-            result = scatter_rows(n, gv / P, gi)
+            result = combine.scatter_rows(n, gv / P, gi)
         probe_c = ((reduced.abs() >= (gt_use * _f32(cfg.probe_ratio,
                                                      gt_use))[:, None])
                    & (reduced != 0.0)).sum(1, dtype=torch.int32)
@@ -307,9 +301,8 @@ def oktopk(grad: torch.Tensor, state: SparseState, cfg: OkTopkConfig, comm):
 
     # ---- residual: zero only at the global winners
     with phase_scope("combine", bkt):
-        winner_mask = result != 0.0
-        residual = residual_after_winners(acc, winner_mask, mask, reduced,
-                                          cfg)
+        residual = combine.residual_after_winners(acc, lt, reduced, result,
+                                                  cfg)
     vol = vol_a + vol_b
     wb = pair_wire_bytes(0.5 * vol, cfg)
     return result, bump(state, volume=vol, wire_bytes=wb,

@@ -271,7 +271,7 @@ GRAD_STEP = "grad_step"    # the whole SparseGradStep call
 # the marks oktopk puts on its bucket span, and the ported kernels'
 # launch counters (``LAUNCHES`` of these ``ops`` modules) a step carries
 MARKS = ("exact", "local_recompute", "repartition", "first_sparse")
-COUNTED_OPS = ("fused_select", "compaction", "prng")
+COUNTED_OPS = ("fused_select", "compaction", "prng", "combine")
 
 
 def _launch_counts() -> Dict[str, int]:

@@ -32,6 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {
+    "combine": "combine.cu",
     "compaction": "compaction.cu",
     "fused_select": "fused_select.cu",
     "threefry": "threefry.cu",
@@ -40,17 +41,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _C = ctypes
+_I64 = _C.c_int64
+_P = _C.c_void_p
+# the C entry points of each library, with their argument types
 _SIGNATURES = {
-    "compaction": ("oktopk_compact", [
-        _C.c_void_p, _C.c_int64, _C.c_void_p, _C.c_void_p, _C.c_int,
-        _C.c_int, _C.c_void_p, _C.c_int64, _C.c_void_p, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p]),
-    "fused_select": ("oktopk_fused_select", [
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int64, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p, _C.c_void_p]),
-    "threefry": ("oktopk_keep_mask", [
-        _C.c_uint32, _C.c_uint32, _C.c_uint64, _C.c_int64, _C.c_float,
-        _C.c_void_p, _C.c_void_p]),
+    "combine": {
+        "oktopk_scatter_rows": [
+            _P, _I64, _C.c_int, _P, _P, _C.c_int, _I64, _I64, _I64, _I64,
+            _I64, _I64, _I64, _P],
+        "oktopk_residual": [
+            _P, _P, _P, _P, _P, _I64, _C.c_int, _C.c_int, _P]},
+    "compaction": {"oktopk_compact": [
+        _P, _I64, _P, _P, _C.c_int, _C.c_int, _P, _I64, _P, _P, _P, _P]},
+    "fused_select": {"oktopk_fused_select": [
+        _P, _P, _P, _I64, _P, _P, _P, _P]},
+    "threefry": {"oktopk_keep_mask": [
+        _C.c_uint32, _C.c_uint32, _C.c_uint64, _I64, _C.c_float, _P, _P]},
 }
 
 _lock = threading.Lock()
@@ -118,10 +124,10 @@ def library(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build_all([name])
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

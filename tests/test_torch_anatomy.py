@@ -587,11 +587,11 @@ def test_step_totals_split_the_step(recorded_steps):
 
 def test_launch_counter_deltas_on_the_step_span(recorded_steps,
                                                 monkeypatch):
-    from oktopk_tpu_torch.ops import compaction, fused_select, prng
+    from oktopk_tpu_torch.ops import combine, compaction, fused_select, prng
     zeros = dict.fromkeys(anatomy.COUNTED_OPS, 0)   # the CPU launches none
     assert all(s["attrs"]["launches"] == zeros for s in recorded_steps[0]
                if s["name"] == anatomy.STEP)
-    for mod in (compaction, fused_select, prng):
+    for mod in (compaction, fused_select, prng, combine):
         monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES + 7)
     rec = anatomy.SpanRecorder()
     prev = anatomy.record_spans(rec)
@@ -599,13 +599,15 @@ def test_launch_counter_deltas_on_the_step_span(recorded_steps,
         with anatomy.span(anatomy.STEP, root=True):
             fused_select.LAUNCHES += 4      # one sweep a worker
             compaction.LAUNCHES += 8        # two compactions a worker
+            combine.LAUNCHES += 9           # 2 x 4 row scatters, 1 residual
             with anatomy.span(anatomy.GRAD_STEP):
                 prng.LAUNCHES += 1
     finally:
         anatomy.record_spans(prev)
     grad, step = rec.drain()[::-1]
     assert step["attrs"]["launches"] == {"fused_select": 4,
-                                         "compaction": 8, "prng": 1}
+                                         "compaction": 8, "prng": 1,
+                                         "combine": 9}
     assert "launches" not in grad["attrs"]
 
 
